@@ -1,0 +1,7 @@
+"""PyTorch + CUDA port of hierdiff_tpu (coarse sampler slice).
+
+The layout mirrors ``hierdiff_tpu`` module for module. Entry points run on
+the CUDA device unless the caller passes ``device="cpu"``; the two fused EGNN
+layers launch hand-written Hopper kernels (``csrc/``) on CUDA tensors and use
+their plain PyTorch versions only on CPU tensors.
+"""

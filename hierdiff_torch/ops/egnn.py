@@ -1,0 +1,207 @@
+"""Dense masked E(3)-equivariant GNN for padded fragment point clouds.
+
+Port of ``hierdiff_tpu/ops/egnn.py``: every tensor is dense (B, N, N, ...)
+with an edge mask, the pair linear ``cat([h_i, h_j, e_ij]) @ W`` is computed
+as ``h W_src (+bcast) h W_dst (+) e W_e``, and the module names and weight
+shapes follow the reference EGNN (endiffusion/models/layers/egnn_new.py), so
+a reference state dict loads with ``strict=True``.
+
+``DenseGCL`` and ``DenseEquivariantUpdate`` run through the fused kernels of
+``ops/egnn_kernels.py``: on CUDA tensors the hand-written kernels, on CPU
+tensors their plain versions.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import Tensor, nn
+
+from hierdiff_torch.ops.egnn_kernels import fused_coord_update, fused_gcl
+
+
+def resolve_compute_dtype(compute_dtype) -> Optional[torch.dtype]:
+    """'bfloat16' -> torch.bfloat16; None / 'float32' -> None (f32)."""
+    if compute_dtype in (None, "float32", torch.float32):
+        return None
+    if compute_dtype in ("bfloat16", torch.bfloat16):
+        return torch.bfloat16
+    raise ValueError(f"unsupported compute_dtype {compute_dtype!r}")
+
+
+def _sum_aggregation_only(aggregation_method: str) -> None:
+    if aggregation_method != "sum":
+        raise NotImplementedError(
+            f"aggregation_method={aggregation_method!r}: only 'sum' is ported")
+
+
+class _KernelLayer(nn.Module):
+    """Holds the fused kernel's cached bf16 weights (``egnn_kernels``
+    rebuilds them when a parameter's version changes); drops them whenever
+    the parameters may be replaced (``load_state_dict``) or moved
+    (``.to()``)."""
+
+    def __init__(self):
+        super().__init__()
+        self._kernel_weights = None
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._kernel_weights = None
+        super()._load_from_state_dict(*args, **kwargs)
+
+    def _apply(self, fn, *args, **kwargs):
+        self._kernel_weights = None
+        return super()._apply(fn, *args, **kwargs)
+
+
+def sinusoids_embedding(radial: Tensor, max_res: float = 30.0,
+                        min_res: float = 30.0 / 2000.0, div_factor: int = 4) -> Tensor:
+    """Sinusoidal embedding of squared distances: (..., 1) -> (..., 2n).
+    (reference: egnn_new.py:245-258 SinusoidsEmbeddingNew)"""
+    n_freq = int(math.log(max_res / min_res, div_factor)) + 1
+    freqs = 2.0 * math.pi * (float(div_factor) ** torch.arange(
+        n_freq, dtype=radial.dtype, device=radial.device)) / max_res
+    x = torch.sqrt(radial + 1e-8)
+    emb = x * freqs
+    return torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1).detach()
+
+
+def coord2diff_dense(x: Tensor, norm_constant: float = 1.0):
+    """x (B, N, 3) -> radial (B, N, N, 1) squared distances and diff
+    (B, N, N, 3) = (x_i - x_j) / (|x_i - x_j| + norm_constant).
+    (reference: egnn_new.py:260-266)"""
+    diff = x[:, :, None, :] - x[:, None, :, :]
+    radial = (diff ** 2).sum(dim=-1, keepdim=True)
+    norm = torch.sqrt(radial + 1e-8)
+    return radial, diff / (norm + norm_constant)
+
+
+class DenseGCL(_KernelLayer):
+    """Invariant graph conv layer over dense masked edges.
+
+    m_ij = silu(Linear(silu(PairLinear(h_i, h_j, e_ij))))      # edge MLP
+    m_ij *= sigmoid(att(m_ij))                                 # optional gate
+    agg_i = sum_j m_ij * edge_mask / normalization_factor      # masked row-sum
+    h_i  += Linear(silu(Linear(cat[h_i, agg_i])))              # node MLP
+    (reference: egnn_new.py:8-70)"""
+
+    def __init__(self, hidden_nf: int, in_edge_nf: int,
+                 normalization_factor: float = 100.0, aggregation_method: str = "sum",
+                 attention: bool = False, compute_dtype=None):
+        super().__init__()
+        _sum_aggregation_only(aggregation_method)
+        self.normalization_factor = normalization_factor
+        self.attention = attention
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
+        h = hidden_nf
+        self.edge_mlp = nn.Sequential(nn.Linear(2 * h + in_edge_nf, h), nn.SiLU(),
+                                      nn.Linear(h, h), nn.SiLU())
+        self.node_mlp = nn.Sequential(nn.Linear(2 * h, h), nn.SiLU(), nn.Linear(h, h))
+        if attention:
+            self.att_mlp = nn.Sequential(nn.Linear(h, 1), nn.Sigmoid())
+
+    def forward(self, h: Tensor, edge_attr: Tensor, node_mask: Tensor,
+                edge_mask: Tensor) -> Tensor:
+        return fused_gcl(self, h, edge_attr, edge_mask, node_mask)
+
+
+class DenseEquivariantUpdate(_KernelLayer):
+    """x_i += sum_j (x_i - x_j)/(d + c) * phi(h_i, h_j, e_ij), phi ending in
+    a near-zero scalar head, tanh-bounded by ``coords_range``.
+    (reference: egnn_new.py:73-110)"""
+
+    def __init__(self, hidden_nf: int, in_edge_nf: int,
+                 normalization_factor: float = 100.0, aggregation_method: str = "sum",
+                 tanh: bool = False, coords_range: float = 10.0, compute_dtype=None):
+        super().__init__()
+        _sum_aggregation_only(aggregation_method)
+        self.normalization_factor = normalization_factor
+        self.tanh = tanh
+        self.coords_range = coords_range
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
+        h = hidden_nf
+        self.coord_mlp = nn.Sequential(nn.Linear(2 * h + in_edge_nf, h), nn.SiLU(),
+                                       nn.Linear(h, h), nn.SiLU(),
+                                       nn.Linear(h, 1, bias=False))
+
+    def forward(self, h: Tensor, x: Tensor, coord_diff: Tensor, edge_attr: Tensor,
+                node_mask: Tensor, edge_mask: Tensor) -> Tensor:
+        return fused_coord_update(self, h, edge_attr, coord_diff, x, edge_mask, node_mask)
+
+
+class DenseEquivariantBlock(nn.Module):
+    """``n_layers`` DenseGCLs and one coordinate update, with per-block
+    distances appended to the block-input distance channel.
+    (reference: egnn_new.py:113-152)"""
+
+    def __init__(self, hidden_nf: int, in_edge_nf: int, n_layers: int = 2,
+                 attention: bool = True, tanh: bool = False, coords_range: float = 15.0,
+                 norm_constant: float = 1.0, normalization_factor: float = 100.0,
+                 aggregation_method: str = "sum", compute_dtype=None,
+                 sin_embedding: bool = False):
+        super().__init__()
+        self.n_layers = n_layers
+        self.norm_constant = norm_constant
+        self.sin_embedding = sin_embedding
+        for i in range(n_layers):
+            self.add_module(f"gcl_{i}", DenseGCL(
+                hidden_nf, in_edge_nf, normalization_factor=normalization_factor,
+                aggregation_method=aggregation_method, attention=attention,
+                compute_dtype=compute_dtype))
+        self.gcl_equiv = DenseEquivariantUpdate(
+            hidden_nf, in_edge_nf, normalization_factor=normalization_factor,
+            aggregation_method=aggregation_method, tanh=tanh,
+            coords_range=coords_range, compute_dtype=compute_dtype)
+
+    def forward(self, h: Tensor, x: Tensor, distances0: Tensor, node_mask: Tensor,
+                edge_mask: Tensor):
+        radial, coord_diff = coord2diff_dense(x, self.norm_constant)
+        if self.sin_embedding:
+            radial = sinusoids_embedding(radial)
+        edge_attr = torch.cat([radial, distances0], dim=-1)
+        for i in range(self.n_layers):
+            h = getattr(self, f"gcl_{i}")(h, edge_attr, node_mask, edge_mask)
+        x = self.gcl_equiv(h, x, coord_diff, edge_attr, node_mask, edge_mask)
+        return h * node_mask, x
+
+
+class DenseEGNN(nn.Module):
+    """Embed -> ``n_layers`` equivariant blocks -> project out.
+
+    h (B, N, in_node_nf), x (B, N, 3), node_mask (B, N, 1), edge_mask
+    (B, N, N, 1), all float32. Returns (h, x). (reference: egnn_new.py:155-205)"""
+
+    def __init__(self, in_node_nf: int, hidden_nf: int = 256,
+                 out_node_nf: Optional[int] = None, n_layers: int = 6,
+                 inv_sublayers: int = 2, attention: bool = True, tanh: bool = True,
+                 coords_range: float = 30.0, norm_constant: float = 1.0,
+                 normalization_factor: float = 100.0, aggregation_method: str = "sum",
+                 compute_dtype=None, sin_embedding: bool = False):
+        super().__init__()
+        out_node_nf = in_node_nf if out_node_nf is None else out_node_nf
+        self.n_layers = n_layers
+        self.sin_embedding = sin_embedding
+        # radial + distances0, each 12 sinusoid features with sin_embedding
+        in_edge_nf = 2 * sinusoids_embedding(torch.zeros(1)).shape[-1] if sin_embedding else 2
+        self.embedding = nn.Linear(in_node_nf, hidden_nf)
+        for i in range(n_layers):
+            self.add_module(f"e_block_{i}", DenseEquivariantBlock(
+                hidden_nf, in_edge_nf, n_layers=inv_sublayers, attention=attention,
+                tanh=tanh, coords_range=float(coords_range) / n_layers,
+                norm_constant=norm_constant, normalization_factor=normalization_factor,
+                aggregation_method=aggregation_method, compute_dtype=compute_dtype,
+                sin_embedding=sin_embedding))
+        self.embedding_out = nn.Linear(hidden_nf, out_node_nf)
+
+    def forward(self, h: Tensor, x: Tensor, node_mask: Tensor, edge_mask: Tensor):
+        x = x.contiguous()
+        distances0, _ = coord2diff_dense(x, norm_constant=1.0)
+        if self.sin_embedding:
+            distances0 = sinusoids_embedding(distances0)
+        h = self.embedding(h)
+        for i in range(self.n_layers):
+            h, x = getattr(self, f"e_block_{i}")(h, x, distances0, node_mask, edge_mask)
+        h = self.embedding_out(h)
+        return h * node_mask, x

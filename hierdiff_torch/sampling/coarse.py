@@ -1,0 +1,114 @@
+"""Coarse-stage ancestral sampler.
+
+Port of ``hierdiff_tpu/sampling/coarse.py:sample_coarse``: gamma is
+tabulated on the T+1 grid once per chain, then the reverse steps run as a
+plain Python loop of ``CoarseDiffusion.sample_zs_stats`` calls, and a final
+draw from p(x | z_0). Batches of different molecule sizes run in lockstep
+through node masks.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+from torch import Tensor
+
+from hierdiff_torch.models.diffusion import CoarseDiffusion
+from hierdiff_torch.ops.masked import combine_noise, remove_mean_with_mask
+
+
+def make_masks_for_counts(counts: np.ndarray, max_n: Optional[int] = None
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """Node mask (B, N, 1) and fully connected, self-loop-free edge mask
+    (B, N, N) for a batch of molecule sizes. (reference: diffusion_qm9.py:349-359)"""
+    b = len(counts)
+    n = int(max_n if max_n is not None else max(counts))
+    node_mask = np.zeros((b, n, 1), np.float32)
+    edge_mask = np.zeros((b, n, n), np.float32)
+    for i, c in enumerate(counts):
+        c = int(c)
+        node_mask[i, :c] = 1.0
+        edge_mask[i, :c, :c] = 1.0 - np.eye(c)
+    return node_mask, edge_mask
+
+
+def coarse_ladder(timesteps: int, steps: Optional[int] = None) -> Tensor:
+    """Integer time ladder T = t_0 > t_1 > ... > t_steps = 0 (int64, CPU).
+
+    Reproduces ``jnp.round(jnp.linspace(T, 0, steps + 1))`` of the JAX
+    sampler (``hierdiff_tpu/sampling/coarse.py:77``) op for op in float32:
+    XLA compiles the linspace to ``T * (1 - i * fl32(1 / steps))`` with the
+    endpoint appended, and a correctly rounded ``i / steps`` (or numpy's
+    float64 linspace) lands on the other side of a .5 tie at strides such as
+    208. Rounding is half to even in both frameworks."""
+    T = int(timesteps)
+    steps = T if steps is None else min(int(steps), T)
+    recip = torch.tensor(1.0, dtype=torch.float32) / steps
+    i = torch.arange(steps, dtype=torch.float32)
+    values = torch.tensor(float(T), dtype=torch.float32) * (1.0 - i * recip)
+    values = torch.cat([values, torch.zeros(1, dtype=torch.float32)])
+    return torch.round(values).to(torch.int64)
+
+
+def sample_coarse(model: CoarseDiffusion, node_mask: Tensor, edge_mask: Tensor,
+                  generator: Optional[torch.Generator] = None,
+                  steps: Optional[int] = None, packed: bool = False,
+                  context: Optional[Tensor] = None,
+                  noise: Optional[Union[Tensor, Sequence[Tensor]]] = None):
+    """Draw (x, h) ~ p(x, h) for a batch of masked point clouds.
+
+    node_mask (B, N, 1) and edge_mask (B, N, N) lie on the model's device.
+    Returns x (B, N, 3) CoM-free coordinates and h (B, N, h_nf) blur
+    features, unnormalized and zero outside the mask, or one (B, N, 3 + h_nf)
+    tensor with ``packed``. ``steps`` strides the reverse chain along
+    ``coarse_ladder``. (reference: diffusion_qm9.py:348-395)
+
+    Noise: standard-normal draws of shape (B, N, 3 + h_nf) from
+    ``generator``, or, if ``noise`` is given, ``noise[0]`` for z_T,
+    ``noise[k]`` for reverse step k (1-based) and ``noise[steps + 1]`` for
+    the final x draw. Each draw is masked and its x block made CoM-free.
+    """
+    if noise is None and generator is None:
+        raise ValueError("sample_coarse needs a generator or injected noise")
+    b, n = node_mask.shape[:2]
+    nd, nf = model.n_dims, model.in_node_nf
+    T = model.timesteps
+    ladder = coarse_ladder(T, steps)
+    n_steps = len(ladder) - 1
+    node_mask = node_mask.to(torch.float32)
+    edge_mask = edge_mask.to(torch.float32)
+
+    def draw(k: int) -> Tensor:
+        if noise is not None:
+            raw = torch.as_tensor(noise[k], dtype=torch.float32, device=node_mask.device)
+        else:
+            raw = torch.randn((b, n, nd + nf), generator=generator,
+                              device=node_mask.device, dtype=torch.float32)
+        return combine_noise(raw, node_mask, nd)
+
+    with torch.no_grad():
+        gamma_grid = model.gamma_grid()
+        t_norm = (ladder.to(torch.float32) / T).to(node_mask.device)
+        z = draw(0)
+        for k, (t_int, s_int) in enumerate(zip(ladder[:-1].tolist(), ladder[1:].tolist()), 1):
+            gamma_s = gamma_grid[s_int].expand(b, 1)
+            gamma_t = gamma_grid[t_int].expand(b, 1)
+            t_b = t_norm[k - 1].expand(b, 1)
+            mu, sigma = model.sample_zs_stats(z, gamma_s, gamma_t, node_mask, edge_mask,
+                                              t_b, context)
+            z_new = mu + sigma * draw(k)
+            # re-project x to the CoM-free subspace every step
+            # (reference: diffusion_qm9.py:340-344)
+            zx = remove_mean_with_mask(z_new[:, :, :nd], node_mask)
+            z = torch.cat([zx, z_new[:, :, nd:]], dim=2)
+
+        mu_x, sigma_x = model.sample_x_given_z0_stats(z, node_mask, edge_mask, context)
+        xh = mu_x + sigma_x * draw(n_steps + 1)
+        x = xh[:, :, :nd]
+        h = z[:, :, nd:]    # h taken from z_0 (reference: diffusion_qm9.py:308)
+        x, h = model.unnormalize(x, h, node_mask)
+    if packed:
+        return torch.cat([x, h], dim=-1)
+    return x, h

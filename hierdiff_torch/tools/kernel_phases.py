@@ -1,0 +1,152 @@
+"""Where the time goes in the fused EGNN kernels and in the coarse sampler.
+
+    python -m hierdiff_torch.tools.kernel_phases
+
+Needs a CUDA GPU. Three measurements, one JSON line each:
+  1. per-phase SM cycles inside ``fused_gcl`` and ``fused_coord_update`` at
+     the sampler's shapes (B=64, N=32, H=256, E=2, ragged node counts),
+     launched with ``phase_clocks=True``: their ``-DHD_PHASE_CLOCKS`` build
+     (separate libraries), whose thread 0 of every block reads ``clock64``
+     after each barrier;
+  2. torch.profiler's device time per CUDA kernel for the same calls;
+  3. the sampler's main path (GEOM config, random weights, batch 64, a few
+     reverse steps) under torch.profiler: device time by kernel and the
+     device's busy share of the wall time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import time
+from functools import partial
+
+import numpy as np
+import torch
+
+B, N, H, E = 64, 32, 256, 2
+GCL_PHASES = ("tile setup", "pre-activation build", "W2 product", "gate and mask",
+              "row sums", "node MLP")
+COORD_PHASES = ("tile setup", "pre-activation build", "W2 product", "head and coord terms",
+                "coord sums", "output")
+
+
+def layer_inputs(rng: np.random.Generator, device, b: int = B, n: int = N, h: int = H):
+    """Masked layer inputs with ragged node counts (the first molecule full):
+    h, x, edge_attr = [radial, distances0] (E=2), coord_diff, edge_mask
+    (b,n,n,1), node_mask (b,n,1), counts."""
+    from hierdiff_torch.ops.egnn import coord2diff_dense
+    from hierdiff_torch.sampling.coarse import make_masks_for_counts
+
+    counts = rng.integers(n // 4, n + 1, size=b)
+    counts[0] = n
+    nm, em = make_masks_for_counts(counts, n)
+    node_mask = torch.from_numpy(nm).to(device)
+    edge_mask = torch.from_numpy(em).to(device)[..., None].contiguous()
+    hh = torch.from_numpy(rng.standard_normal((b, n, h)).astype(np.float32)).to(device) * node_mask
+    x = torch.from_numpy(rng.standard_normal((b, n, 3)).astype(np.float32) * 2).to(device) * node_mask
+    radial, coord_diff = coord2diff_dense(x, 0.0)
+    d0, _ = coord2diff_dense(x, 1.0)
+    edge_attr = torch.cat([radial, d0], dim=-1).contiguous()
+    return hh, x, edge_attr, coord_diff.contiguous(), edge_mask, node_mask, counts
+
+
+def _device_us(prof, calls: int) -> dict:
+    """Device time per call of each CUDA kernel. Only device-side events
+    count: the CPU operators that launched them report the same time."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = evt.self_cuda_time_total
+        if t > 0:
+            out[evt.key[:80]] = t / calls
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_phases: needs a CUDA GPU")
+    from torch.profiler import ProfilerActivity, profile
+
+    from hierdiff_torch.ops import _build, egnn_kernels as ek
+    from hierdiff_torch.ops.egnn import DenseEquivariantUpdate, DenseGCL
+    from hierdiff_torch.utils.weights import init_weights
+
+    device = torch.device("cuda")
+    hh, x, e, cdiff, em, nm, _ = layer_inputs(np.random.default_rng(0), device)
+    gcl = init_weights(DenseGCL(H, E, normalization_factor=10.0, attention=True).to(device),
+                       torch.Generator().manual_seed(0))
+    equ = init_weights(DenseEquivariantUpdate(H, E, normalization_factor=10.0, tanh=True,
+                                              coords_range=5.0).to(device),
+                       torch.Generator().manual_seed(0))
+    calls = {"fused_gcl": (partial(ek.fused_gcl, gcl, hh, e, em, nm), "fused_gcl", GCL_PHASES),
+             "fused_coord_update": (partial(ek.fused_coord_update, equ, hh, e, cdiff, x, em, nm),
+                                    "fused_coord", COORD_PHASES)}
+    reps = 10
+
+    # 1. phase clocks (instrumented build)
+    _build.build_all(phase_clocks=True)
+    for name, (fn, lib_name, phases) in calls.items():
+        lib = _build.load_library(lib_name, phase_clocks=True)
+        lib.hd_read_phase_cycles.argtypes = [ctypes.c_void_p]
+        lib.hd_read_phase_cycles.restype = ctypes.c_int
+        counters = (ctypes.c_ulonglong * 8)()
+        for _ in range(3):
+            fn(phase_clocks=True)
+        torch.cuda.synchronize()
+        lib.hd_read_phase_cycles(counters)          # drop the warm-up
+        for _ in range(reps):
+            fn(phase_clocks=True)
+        torch.cuda.synchronize()
+        if lib.hd_read_phase_cycles(counters) != 0:
+            raise RuntimeError("reading the phase counters failed")
+        total = sum(counters[i] for i in range(len(phases)))
+        print(json.dumps({"kernel": name, "phase_cycle_share": {
+            p: counters[i] / total for i, p in enumerate(phases)},
+            "cycles_per_call_summed_over_blocks": total / reps}))
+
+    # 2. device time per CUDA kernel, uninstrumented build
+    for name, (fn, _, _) in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        print(json.dumps({"wrapper": name, "device_us_per_call": _device_us(prof, reps)}))
+
+    # 3. the sampler's main path
+    from hierdiff_torch.config import CoarseModelConfig
+    from hierdiff_torch.data.assets import load_histogram
+    from hierdiff_torch.ops.distributions import DistributionNodes
+    from hierdiff_torch.sampling.cli import build_coarse_from_cfg
+    from hierdiff_torch.sampling.coarse import make_masks_for_counts, sample_coarse
+
+    model = init_weights(build_coarse_from_cfg(CoarseModelConfig(), device=device),
+                         torch.Generator().manual_seed(0))
+    counts = DistributionNodes(load_histogram("geom")).sample_np(np.random.default_rng(0), B)
+    node_mask, edge_mask = (torch.from_numpy(a).to(device) for a in make_masks_for_counts(counts))
+    gen = torch.Generator(device=device).manual_seed(0)
+    steps = 10
+    sample_coarse(model, node_mask, edge_mask, gen, steps=2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        sample_coarse(model, node_mask, edge_mask, gen, steps=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    per_kernel = _device_us(prof, steps + 1)
+    busy_us = sum(per_kernel.values())
+    print(json.dumps({"main_path": {"batch": B, "max_nodes": int(counts.max()),
+                                    "steps": steps, "wall_ms_per_forward": wall * 1e3 / (steps + 1),
+                                    "device_busy_share": busy_us * (steps + 1) / (wall * 1e6),
+                                    "device_us_per_forward": per_kernel}}))
+
+
+if __name__ == "__main__":
+    main()
