@@ -18,19 +18,44 @@ Phases, one output line each, any failure exits non-zero:
      (gate skipped, a W2 output channel zeroed, edge mask ignored, tanh
      skipped), each run through the kernel, must fail that check. Kernel,
      plain and bound times;
+  2b. the backward kernel ``fused_gcl_bwd`` against autograd of the plain
+     version (``gcl_plain_vjp``) at the same shapes with a random upstream
+     gradient, attention on and off x f32 and bf16 elementwise, plus the
+     pass-through node MLP: every gradient (dh, de, each weight and bias)
+     scored as max error over the plain gradient's largest value, bar 2e-2
+     (f32) / 4e-2 (bf16), the bars gcl_vjp meets against XLA
+     (tests/test_pallas_interpret.py:151); two runs bitwise equal; four
+     planted faults (edge mask ignored, gate skipped, W2 transposed, node
+     mask ignored on g) must each push a gradient over its bar;
   3. E(3) equivariance of the full-width DenseEGNN forward on the card;
-  4. the main path: the ``coarse`` CLI at the GEOM configuration (H=256,
+  4. the sampling path: the ``coarse`` CLI at the GEOM configuration (H=256,
      6 blocks, random weights from --init-seed 0), 2 batches of 64 with
      node counts from the GEOM histogram, 100 strided steps, f32
      elementwise; the samples must be finite, masked and CoM-free, and the
      kernels' launch counts must be exactly those of the path;
+  4b. the training path: ``train.cli coarse --init-seed 0`` at the GEOM
+     configuration with bf16 elementwise (as configs/coarse_geom.yaml
+     trains), batch 64, a synthetic pool of 512 trees, 20 steps, evaluation
+     on the EMA weights every 10 steps: loss and grad_norm finite on every
+     step, the parameters changed, launch counts exact (12 fused_gcl + 12
+     fused_gcl_bwd + 6 plain coordinate updates per step, and the
+     evaluations' no-grad kernels); a kernel forward after one AdamW step
+     (foreach and fused) equals the plain forward with the stepped weights;
+  4c. the gradient of a whole training loss at GEOM width (f32 elementwise,
+     B=8, injected t and noise), card (kernels) against CPU (plain): global
+     relative L2 error below 2e-2, and a non-zero gradient on every
+     parameter but the one whose gradient is zero by construction;
+  4d. 64 samples at 100 steps from the ``ema.pt`` that 4b wrote, through
+     ``sampling.cli coarse --weights``: finite, masked and CoM-free;
   5. the kernel list as JSON, then the result JSON as the last line.
 """
 
 from __future__ import annotations
 
 import copy
+import csv
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -42,6 +67,7 @@ import torch
 
 B, N, H, E = 64, 32, 256, 2
 TOL = 2e-2
+GRAD_TOL = {None: 2e-2, "bfloat16": 4e-2}   # gcl_vjp against XLA, f32 / bf16
 SEED = 0
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores and HBM3.
 PEAK_BF16_FLOPS = 989e12
@@ -88,14 +114,105 @@ def bound(flops: float, sfu_ops: float, nbytes: float, sm_clock_hz: float, n_sms
         "bytes_ms": t_bytes * 1e3, "tensor_ms": t_tensor * 1e3, "sfu_ms": t_sfu * 1e3}
 
 
+# the learned gamma's l3 bias cancels in its normalisation (gt - g0) / (g1 - g0),
+# so its gradient is zero up to rounding and training may leave it unchanged
+ZERO_GRAD_PARAMS = {"gamma.l3.bias"}
+
+
+def cache_after_step(ek, DenseGCL, init_weights, gen, device, h, e, em, nm, g) -> dict:
+    """After one AdamW step (foreach and fused), the next training forward
+    of a GCL (FusedGCLFunction, which rebuilds its bf16 weights) equals the
+    plain forward with the stepped weights; so does a no-grad forward after
+    the foreach step, whose in-place ops advance the version counters that
+    key the kernels' weight cache. The fused step does not advance them: its
+    no-grad forward is printed, not required (TrainState drops the caches
+    after every step)."""
+    out = {}
+    for kind in ("foreach", "fused"):
+        layer = init_weights(DenseGCL(H, E, normalization_factor=10.0, attention=True).to(device),
+                             gen())
+        opt = torch.optim.AdamW(layer.parameters(), lr=1e-2, foreach=kind == "foreach",
+                                fused=kind == "fused")
+        (ek.fused_gcl(layer, h, e, em, nm) * g).sum().backward()   # FusedGCLFunction
+        with torch.no_grad():
+            before = ek.fused_gcl(layer, h, e, em, nm)
+        opt.step()
+        with torch.no_grad():
+            no_grad_after = ek.fused_gcl(layer, h, e, em, nm)
+        train_after = ek.fused_gcl(layer, h, e, em, nm).detach()
+        with torch.no_grad():
+            ref = ek.gcl_plain(layer, h, e, em, nm)
+        torch.cuda.synchronize()
+        out[kind] = {"train_forward_rel_err": rel_err(train_after - h, ref - h)[1],
+                     "no_grad_forward_rel_err": rel_err(no_grad_after - h, ref - h)[1],
+                     "pre_step_rel_err": rel_err(before - h, ref - h)[1]}
+        print(f"weight cache after one AdamW ({kind}) step, kernel vs plain with the stepped "
+              f"weights: next training forward {out[kind]['train_forward_rel_err']:.3e}, "
+              f"no-grad forward {out[kind]['no_grad_forward_rel_err']:.3e}; the pre-step "
+              f"output scores {out[kind]['pre_step_rel_err']:.3e}")
+    out["ok"] = (all(out[k]["train_forward_rel_err"] < TOL < out[k]["pre_step_rel_err"]
+                     for k in ("foreach", "fused"))
+                 and out["foreach"]["no_grad_forward_rel_err"] < TOL)
+    return out
+
+
+def card_against_cpu(cli, ek, CoarseModelConfig, init_weights, gen, device) -> dict:
+    """The gradient of one training loss at GEOM width (f32 elementwise, B=8,
+    injected t and noise) on the card (kernels) and on the CPU (plain)."""
+    from hierdiff_torch.data.collate import collate_coarse
+    from hierdiff_torch.data.synthetic import SyntheticTreeGenerator
+    from hierdiff_torch.ops.masked import combine_noise
+
+    batch = collate_coarse(SyntheticTreeGenerator(seed=SEED).sample_trees(8))
+    rng = np.random.default_rng(SEED + 1)
+    b, n = batch["atom_mask"].shape[:2]
+    t_int = torch.from_numpy(rng.integers(0, 1001, size=(b, 1)))
+    eps = combine_noise(torch.from_numpy(rng.standard_normal((b, n, 11)).astype(np.float32)),
+                        torch.from_numpy(batch["atom_mask"]), 3)
+    model = init_weights(cli.build_coarse_from_cfg(CoarseModelConfig(), "float32", device),
+                         gen()).train()
+
+    def grads_on(m, dev):
+        m.zero_grad(set_to_none=True)
+        out = m({k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, None, train=True,
+                t_int=t_int.to(dev), eps=eps.to(dev))
+        out["loss"].backward()
+        return {k: p.grad.detach().double().cpu() for k, p in m.named_parameters()}
+
+    ek.reset_launch_counts()
+    card = grads_on(model, device)
+    torch.cuda.synchronize()
+    launches = dict(ek.launch_counts)
+    cpu = grads_on(copy.deepcopy(model).cpu(), torch.device("cpu"))
+    diff2 = {k: float(((card[k] - cpu[k]) ** 2).sum()) for k in cpu}
+    ref2 = {k: float((cpu[k] ** 2).sum()) for k in cpu}
+    per = {k: math.sqrt(diff2[k] / ref2[k]) for k in cpu if ref2[k] > 0}
+    worst = max(per, key=per.get)
+    egnn = {k: v for k, v in per.items() if not k.startswith("gamma.")}
+    worst_egnn = max(egnn, key=egnn.get)
+    glob = math.sqrt(sum(diff2.values()) / sum(ref2.values()))
+    missing = sorted(k for k, v in card.items()
+                     if k not in ZERO_GRAD_PARAMS and not (torch.isfinite(v).all() and v.abs().max() > 0))
+    ok = glob < 2e-2 and not missing and launches["fused_gcl_bwd"] == 12
+    print(f"step gradients, card against CPU: GEOM H={H} f32 elementwise, B={b} N={n}: global "
+          f"relative L2 error {glob:.3e} (bar 2e-2), worst tensor {worst} {per[worst]:.3e}, "
+          f"worst outside the gamma network {worst_egnn} {egnn[worst_egnn]:.3e}; "
+          f"launches on the card {launches}; parameters without a gradient {missing}")
+    return {"global_rel_l2": glob, "worst_tensor": worst, "worst_rel_l2": per[worst],
+            "worst_egnn_tensor": worst_egnn, "worst_egnn_rel_l2": egnn[worst_egnn],
+            "launches": launches, "missing": missing, "ok": ok}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA GPU")
+    from hierdiff_torch.config import CoarseModelConfig
     from hierdiff_torch.ops import _build, egnn_kernels as ek
     from hierdiff_torch.ops.egnn import DenseEGNN, DenseEquivariantUpdate, DenseGCL
     from hierdiff_torch.ops.masked import mean_zero_max_violation, masking_violation
     from hierdiff_torch.sampling import cli
     from hierdiff_torch.tools.kernel_phases import layer_inputs
+    from hierdiff_torch.train import cli as train_cli
     from hierdiff_torch.utils.weights import init_weights
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -119,7 +236,8 @@ def main() -> None:
                 print(f"  ptxas[{name}]: {line.strip()}")
     print(f"build: {sorted(logs)} compiled in {build_s:.2f} s")
 
-    # ---- 2. kernels against their plain versions
+    # ---- 2. kernels against their plain versions (forward: no autograd)
+    torch.set_grad_enabled(False)
     rng = np.random.default_rng(SEED)
     h, x, e, cdiff, em, nm, counts = layer_inputs(rng, device, B, N, H)
     c = counts.astype(np.int64)
@@ -229,6 +347,88 @@ def main() -> None:
     if failed:
         fail(f"kernel disagrees with its plain version: {failed}")
 
+    # ---- 2b. the backward kernel against autograd of the plain version
+    g = torch.from_numpy(rng.standard_normal((B, N, H)).astype(np.float32)).to(device)
+
+    def forward_agg(layer):
+        """The forward's residual, as FusedGCLFunction saves it."""
+        agg = torch.empty_like(h)
+        ek._launch_gcl(layer, h, e, em, nm, h.device, agg_out=agg)
+        return agg
+
+    def grad_errors(got, ref):
+        """Per gradient: (max abs error, max abs error over the largest plain value)."""
+        return {f: rel_err(a, r) for f, a, r in zip(ek.GclGrads._fields, got, ref)
+                if a is not None and r is not None}
+
+    bwd_runs = []
+    for attention, cd, node_mlp in [(True, None, "random"), (True, "bfloat16", "random"),
+                                    (False, None, "random"), (False, "bfloat16", "random"),
+                                    (True, None, "pass-through")]:
+        layer = init_weights(DenseGCL(H, E, normalization_factor=10.0, attention=attention,
+                                      compute_dtype=cd).to(device), gen())
+        if node_mlp == "pass-through":
+            pass_through(layer)
+        agg = forward_agg(layer)
+        kernel_fn = lambda: ek.fused_gcl_bwd(layer, h, e, em, nm, g, agg)  # noqa: E731
+        plain_fn = lambda: ek.gcl_plain_vjp(layer, h, e, em, nm, g)  # noqa: E731
+        got, again, ref = kernel_fn(), kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        errs = grad_errors(got, ref)
+        worst = max(errs, key=lambda f: errs[f][1])
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+        finite = all(bool(torch.isfinite(a).all()) for a in got if a is not None)
+        bar = GRAD_TOL[cd]
+        ok = finite and bitwise and errs[worst][1] < bar
+        k_ms, p_ms = time_ms(kernel_fn), time_ms(plain_fn, reps=5, warmup=1)
+        variant = f"node_mlp={node_mlp} attention={attention} elementwise={cd or 'float32'}"
+        print(f"kernel fused_gcl_bwd [{variant}]: worst {worst} rel_err {errs[worst][1]:.3e} "
+              f"(bar {bar}); " + " ".join(f"{f}={r:.1e}" for f, (_, r) in errs.items())
+              + f"; bitwise_repeat={bitwise} kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+              f"{'ok' if ok else 'FAIL'}")
+        bwd_runs.append({"variant": variant, "max_abs_err": max(a for a, _ in errs.values()),
+                         "rel_err": errs[worst][1], "worst": worst,
+                         "rel_err_by_grad": {f: r for f, (_, r) in errs.items()},
+                         "bitwise_repeat": bitwise, "ms": k_ms, "plain_ms": p_ms, "ok": ok})
+    results["fused_gcl_bwd"] = bwd_runs
+    failed = [r["variant"] for r in bwd_runs if not r["ok"]]
+    if failed:
+        fail(f"fused_gcl_bwd disagrees with its plain version or is not deterministic: {failed}")
+
+    probe = init_weights(DenseGCL(H, E, normalization_factor=10.0, attention=True).to(device), gen())
+    agg, ref = forward_agg(probe), ek.gcl_plain_vjp(probe, h, e, em, nm, g)
+    no_gate, w2_t = copy.deepcopy(probe), copy.deepcopy(probe)
+    no_gate.attention = False
+    w2_t.edge_mlp[2].weight.copy_(w2_t.edge_mlp[2].weight.t().clone())
+    for fault, fn in [
+            ("edge mask ignored", lambda: ek.fused_gcl_bwd(probe, h, e, torch.ones_like(em), nm, g, agg)),
+            ("gate skipped", lambda: ek.fused_gcl_bwd(no_gate, h, e, em, nm, g, agg)),
+            ("W2 transposed", lambda: ek.fused_gcl_bwd(w2_t, h, e, em, nm, g, agg)),
+            ("node mask ignored on g",
+             lambda: ek.fused_gcl_bwd(probe, h, e, em, torch.ones_like(nm), g, agg))]:
+        errs = grad_errors(fn(), ref)
+        worst = max(errs, key=lambda f: errs[f][1])
+        seen = not errs[worst][1] < GRAD_TOL[None]
+        print(f"planted fault fused_gcl_bwd [{fault}]: caught by {worst} rel_err "
+              f"{errs[worst][1]:.3e} {'rejected' if seen else 'NOT SEEN'}")
+        faults.setdefault("fused_gcl_bwd", []).append(
+            {"fault": fault, "rel_err": errs[worst][1], "caught_by": worst})
+        if not seen:
+            fail(f"the fused_gcl_bwd check cannot see the planted fault: {fault}")
+    # least work per valid edge: the rematerialised u W2, du = dv W2^T and
+    # dW2 += u^T dv (6 H^2), the pair/edge terms (e W_e, de, dW_e: 6 E H) and
+    # the gate (forward dot, datt, dw_att: 6 H); per node the node-MLP
+    # backward with its rematerialised forward and the node-level products
+    # (proj 4, z1 4, do1 2, dcat 4, dWn1 4, dWn2 2, dh 4, dW_src/dst 4: 28 H^2)
+    bwd_flops = n_edges * (6 * H * H + 6 * E * H + 6 * H) + n_nodes * 28 * H * H
+    bwd_sfu = n_edges * (4 * H + 2) + n_nodes * 2 * H   # sigmoid(pre), sigmoid(v), gate; sigmoid(z1)
+    bwd_bytes = (h.numel() * 4 * 4 + e.numel() * 4 * 2 + em.numel() * 4 + nm.numel() * 4
+                 + (10 * H * H + E * H) * 2 + 6 * H * 4 + (6 * H * H + E * H + 5 * H + 1) * 4)
+    bwd_bound = bound(bwd_flops, bwd_sfu, bwd_bytes, sm_clock_hz, n_sms)
+    print(f"kernel fused_gcl_bwd: kernel_ms {bwd_runs[0]['ms']:.4f} plain_ms "
+          f"{bwd_runs[0]['plain_ms']:.4f} bound_ms {bwd_bound[0]:.5f} ({bwd_bound[1]}: "
+          + ", ".join(f"{k} {v:.5f}" for k, v in bwd_bound[2].items()) + ")")
+
     # ---- 3. equivariance of the full-width EGNN on the card
     egnn = DenseEGNN(9, hidden_nf=H, n_layers=6, inv_sublayers=2, attention=True, tanh=True,
                      coords_range=30.0, norm_constant=0.0, normalization_factor=10.0).to(device)
@@ -262,7 +462,8 @@ def main() -> None:
         torch.cuda.synchronize()
         launches = dict(ek.launch_counts)
     expect = {"fused_gcl": n_batches * (steps + 1) * 12,
-              "fused_coord_update": n_batches * (steps + 1) * 6}
+              "fused_coord_update": n_batches * (steps + 1) * 6,
+              "fused_gcl_bwd": 0, "coord_update_autograd": 0}
     worst_mask = max(max(masking_violation(x_, m_).item(), masking_violation(h_, m_).item())
                      for x_, h_, m_ in run["batches"])
     worst_com = max(mean_zero_max_violation(x_, m_).item() for x_, _, m_ in run["batches"])
@@ -278,26 +479,97 @@ def main() -> None:
     if not finite or worst_mask != 0.0 or not worst_com < 1e-2:
         fail("samples are not finite, masked and CoM-free")
 
+    # ---- 4b. the training path: the train CLI at the GEOM configuration
+    torch.set_grad_enabled(True)
+    cache = cache_after_step(ek, DenseGCL, init_weights, gen, device, h, e, em, nm, g)
+    train_steps, evals, train_batch = 20, 2, 64
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = Path(tmp) / "run"
+        ek.reset_launch_counts()
+        train = train_cli.main(["coarse", "--init-seed", "0", f"train.workdir={workdir}",
+                                "coarse.compute_dtype=bfloat16", f"train.batch_size={train_batch}",
+                                "train.num_train_trees=512", f"train.max_steps={train_steps}",
+                                "train.log_every=1", f"train.eval_every={train_steps // evals}",
+                                "train.checkpoint_every=1000", f"train.seed={SEED}"])
+        torch.cuda.synchronize()
+        train_launches = dict(ek.launch_counts)
+        eval_forwards = evals * train_cli.EVAL_BATCHES
+        train_expect = {"fused_gcl": train_steps * 12 + eval_forwards * 12,
+                        "fused_gcl_bwd": train_steps * 12,
+                        "coord_update_autograd": train_steps * 6,
+                        "fused_coord_update": eval_forwards * 6}
+        with open(workdir / "metrics.csv") as f:
+            rows = [r for r in csv.DictReader(f) if r["split"] == "train"]
+        losses = [float(r["loss"]) for r in rows]
+        norms = [float(r["grad_norm"]) for r in rows]
+        trained = train["trainer"].state.model.state_dict()
+        start = init_weights(cli.build_coarse_from_cfg(CoarseModelConfig(), device=device),
+                             torch.Generator().manual_seed(0)).state_dict()
+        unchanged = sorted(k for k, v in trained.items() if torch.equal(v, start[k]))
+        print(f"training path: train CLI GEOM H={H} 6x2 layers, bf16 elementwise, batch "
+              f"{train_batch}, {train_steps} steps: {train['seconds']:.3f} s wall, "
+              f"{train['steps_per_sec']:.4f} steps/s and {train['molecules_per_sec']:.3f} "
+              f"molecules/s after the first step; losses {losses[0]:.4g} .. {losses[-1]:.4g}, "
+              f"grad_norm {min(norms):.4g} .. {max(norms):.4g}; launches {train_launches} "
+              f"(expected {train_expect}); unchanged parameters {unchanged}")
+        if len(rows) != train_steps or not all(map(math.isfinite, losses + norms)):
+            fail("a training step gave a non-finite loss or grad_norm")
+        if train_launches != train_expect:
+            fail(f"training launch counts {train_launches} != {train_expect}")
+        if set(unchanged) - ZERO_GRAD_PARAMS:
+            fail(f"parameters not trained: {unchanged}")
+        if not cache["ok"]:
+            fail(f"kernel forward after an optimizer step disagrees with the plain forward: {cache}")
+
+        # ---- 4c. a whole step's gradient, card against CPU
+        step_grads = card_against_cpu(cli, ek, CoarseModelConfig, init_weights, gen, device)
+        if not step_grads["ok"]:
+            fail(f"card and CPU gradients disagree or miss parameters: {step_grads}")
+
+        # ---- 4d. samples from the trained EMA weights
+        ek.reset_launch_counts()
+        run_ema = cli.main(["coarse", "--weights", str(workdir / "ema.pt"), "--num", "64",
+                            "--batch-size", "64", "--steps", "100", "--seed", str(SEED),
+                            "--out", str(Path(tmp) / "ema.pkl")])
+        torch.cuda.synchronize()
+    x_, h_, m_ = run_ema["batches"][0]
+    ema_ok = (bool(torch.isfinite(x_).all() and torch.isfinite(h_).all())
+              and max(masking_violation(x_, m_).item(), masking_violation(h_, m_).item()) == 0.0
+              and mean_zero_max_violation(x_, m_).item() < 1e-2)
+    print(f"EMA samples: 64 molecules at 100 steps from the trained ema.pt: "
+          f"{run_ema['seconds']:.3f} s; finite, masked and CoM-free: {ema_ok}; "
+          f"mean_zero_max_violation={mean_zero_max_violation(x_, m_).item():.3e}")
+    if not ema_ok:
+        fail("samples from the trained EMA weights are not finite, masked and CoM-free")
+
     # ---- 5. kernel list
     bounds = {"fused_gcl": bound(gcl_flops, gcl_sfu, gcl_bytes, sm_clock_hz, n_sms),
-              "fused_coord_update": bound(coord_flops, coord_sfu, coord_bytes, sm_clock_hz, n_sms)}
+              "fused_coord_update": bound(coord_flops, coord_sfu, coord_bytes, sm_clock_hz, n_sms),
+              "fused_gcl_bwd": bwd_bound}
     meta = {"fused_gcl": ("hierdiff_torch/csrc/fused_gcl.cu",
                           "hierdiff_tpu/ops/egnn_pallas.py:141"),
             "fused_coord_update": ("hierdiff_torch/csrc/fused_coord.cu",
-                                   "hierdiff_tpu/ops/egnn_pallas.py:492")}
+                                   "hierdiff_tpu/ops/egnn_pallas.py:492"),
+            "fused_gcl_bwd": ("hierdiff_torch/csrc/fused_gcl_bwd.cu",
+                              "hierdiff_tpu/ops/egnn_pallas.py:346")}
+    paths = {"sample": launches, "train": train_launches}
     kernels = []
     for name, runs in results.items():
         main_run = runs[0]   # random weights, attention on, f32: the main path's variant
         bound_ms, bound_by, parts = bounds[name]
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
-            "launches": launches[name], "max_abs_err": max(r["max_abs_err"] for r in runs),
+            "launches": sum(counts_[name] for counts_ in paths.values()),
+            "launches_by_path": {p_: counts_[name] for p_, counts_ in paths.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in runs),
             "rel_err": max(r["rel_err"] for r in runs), "ms": main_run["ms"],
             "plain_ms": main_run["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_parts_ms": parts, "library_ms": None, "w2_matmul_ms": w2_matmul_ms,
             "variants": runs, "planted_faults": faults[name],
             "ok": all(r["ok"] for r in runs)})
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "train": {
+        k: train[k] for k in ("steps", "seconds", "steps_per_sec", "molecules_per_sec")},
+        "cache_after_step": cache, "step_gradients": step_grads}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

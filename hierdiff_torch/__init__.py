@@ -1,7 +1,8 @@
-"""PyTorch + CUDA port of hierdiff_tpu (coarse sampler slice).
+"""PyTorch + CUDA port of hierdiff_tpu (coarse stage: sampler and training).
 
 The layout mirrors ``hierdiff_tpu`` module for module. Entry points run on
 the CUDA device unless the caller passes ``device="cpu"``; the two fused EGNN
 layers launch hand-written Hopper kernels (``csrc/``) on CUDA tensors and use
-their plain PyTorch versions only on CPU tensors.
+their plain PyTorch versions only on CPU tensors. Under autograd the GCL's
+kernel runs as an autograd Function whose backward is a kernel too.
 """

@@ -1,17 +1,19 @@
-"""Coarse-stage model configuration (the port's copy of
-``hierdiff_tpu/config.py:CoarseModelConfig``).
+"""Configuration of the coarse stage: model, optimizer and training loop
+(the port's copy of ``hierdiff_tpu/config.py``: ``CoarseModelConfig``,
+``OptimConfig``, ``TrainConfig`` and a ``Config`` holding them).
 
 Defaults are the GEOM-Drugs coarse model (reference
 endiffusion/conf/model/ddpmgblur.yaml). A YAML file in the JAX package's
 format (``configs/coarse_geom.yaml``) can override them; PyYAML is imported
-only when a path is given.
+only when a path is given. Dotted ``k=v`` overrides are parsed without it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Optional, Tuple
+import re
+from dataclasses import dataclass, field
+from typing import Any, Optional, Sequence, Tuple
 
 
 @dataclass
@@ -80,3 +82,125 @@ def load_coarse_config(path: Optional[str] = None) -> CoarseModelConfig:
             value = type(cur)(value)
         setattr(cfg, key, value)
     return cfg
+
+
+@dataclass
+class OptimConfig:
+    """conf/optim + conf/scheduler equivalents (``build_optimizer``)."""
+
+    optimizer: str = "adamw"             # adamw (adam, sgd: not ported)
+    lr: float = 4.0e-4
+    weight_decay: float = 4.0e-8
+    grad_clip: Optional[float] = 1.0
+    schedule: str = "constant"          # constant | cosine | step
+    warmup_steps: int = 0
+    decay_steps: int = 100_000
+    step_size: int = 15                  # StepLR epochs (reference scheduler/step.yaml)
+    step_gamma: float = 0.1
+    ema_decay: float = 0.999
+
+
+@dataclass
+class TrainConfig:
+    batch_size: int = 64
+    max_steps: int = 10_000
+    eval_every: int = 500
+    checkpoint_every: int = 1000
+    log_every: int = 50
+    seed: int = 2022
+    workdir: str = "runs/default"
+    data: str = "synthetic"              # 'synthetic' | directory of .npz trees
+    data_split: str = ""                 # optional JSON list of file names
+    num_train_trees: int = 4096          # synthetic pool size
+    buckets: Tuple[int, ...] = (8, 16, 24, 32, 48, 64, 96)
+
+
+@dataclass
+class Config:
+    stage: str = "coarse"
+    coarse: CoarseModelConfig = field(default_factory=CoarseModelConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+
+_INT = re.compile(r"[-+]?[0-9]+")
+_FLOAT = re.compile(r"[-+]?(\.[0-9]+|[0-9]+(\.[0-9]*)?)([eE][-+]?[0-9]+)?|[-+]?\.?(inf|Inf|INF)")
+
+
+def parse_value(text: str) -> Any:
+    """A scalar or flow list the way ``yaml.safe_load`` reads one on a
+    command line: null, booleans, ints, floats, ``[a, b]`` lists, else the
+    string itself (quotes stripped)."""
+    text = text.strip()
+    if text in ("", "~", "null", "Null", "NULL"):
+        return None
+    if text in ("true", "True", "TRUE", "yes", "Yes", "on", "On"):
+        return True
+    if text in ("false", "False", "FALSE", "no", "No", "off", "Off"):
+        return False
+    if text.startswith("[") and text.endswith("]"):
+        return [parse_value(v) for v in text[1:-1].split(",") if v.strip()]
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
+        return text[1:-1]
+    if _INT.fullmatch(text):
+        return int(text)
+    if _FLOAT.fullmatch(text):
+        return float(text)
+    return text
+
+
+def _apply(obj: Any, key: str, value: Any) -> None:
+    """Set a dotted field, cast to the type of its current value
+    (``hierdiff_tpu/config.py:_apply``)."""
+    parts = key.split(".")
+    tgt = obj
+    for p in parts[:-1]:
+        tgt = getattr(tgt, p)
+    name = parts[-1]
+    if not hasattr(tgt, name):
+        raise KeyError(f"unknown config key {key!r}")
+    cur = getattr(tgt, name)
+    if value is None and not isinstance(cur, bool):
+        pass   # null clears an optional field (optim.grad_clip=null)
+    elif isinstance(cur, bool):
+        value = value in (True, "true", "True", "1", 1)
+    elif isinstance(cur, int) and not isinstance(value, bool):
+        value = int(value)
+    elif isinstance(cur, float):
+        value = float(value)
+    elif isinstance(cur, tuple):
+        if isinstance(value, str):
+            value = tuple(type(cur[0])(v) for v in value.strip("()[]").split(",") if v.strip())
+        else:
+            value = tuple(value)
+    setattr(tgt, name, value)
+
+
+def _update_from_dict(cfg: Any, d: dict, prefix: str = "") -> None:
+    for k, v in d.items():
+        if isinstance(v, dict):
+            _update_from_dict(cfg, v, f"{prefix}{k}.")
+        elif prefix.split(".")[0] in ("coarse", "optim", "train") or (not prefix and k == "stage"):
+            _apply(cfg, f"{prefix}{k}", v)
+
+
+def load_config(path: Optional[str] = None, overrides: Sequence[str] = ()) -> Config:
+    """Defaults, then the YAML file's ``coarse`` / ``optim`` / ``train``
+    sections (other stages' sections are not ported and are skipped), then
+    ``key=value`` overrides such as ``train.max_steps=20``."""
+    cfg = Config()
+    if path:
+        import yaml
+
+        with open(path) as f:
+            raw = yaml.safe_load(f) or {}
+        names = {f.name for f in dataclasses.fields(CoarseModelConfig)}
+        raw["coarse"] = {k: v for k, v in (raw.get("coarse") or {}).items() if k in names}
+        _update_from_dict(cfg, raw)
+    for ov in overrides:
+        key, sep, val = ov.partition("=")
+        if not sep:
+            raise ValueError(f"override {ov!r} is not key=value")
+        _apply(cfg, key.strip(), parse_value(val))
+    return cfg
+

@@ -1,4 +1,5 @@
-// Shared pieces of the fused EGNN edge kernels (fused_gcl.cu, fused_coord.cu).
+// Shared pieces of the fused EGNN edge kernels (fused_gcl.cu, fused_coord.cu,
+// fused_gcl_bwd.cu).
 //
 // Both kernels run the same edge pipeline as hierdiff_tpu/ops/egnn_pallas.py
 // `_edge_mlp` (:95): pre_ij = h_i W_src + h_j W_dst + e_ij W_e + b1 -> silu
@@ -104,6 +105,14 @@ __device__ __forceinline__ float silu_act(float x) {
   return act<BF16>(x * sigmoid_act<BF16>(x));
 }
 
+// silu'(x) = s * (1 + x * (1 - s)), s = sigmoid(x), each step rounded to the
+// act dtype like the Pallas backward's `_dsilu` (egnn_pallas.py:227).
+template <bool BF16>
+__device__ __forceinline__ float dsilu_act(float x) {
+  const float s = sigmoid_act<BF16>(x);
+  return act<BF16>(s * act<BF16>(1.0f + act<BF16>(x * act<BF16>(1.0f - s))));
+}
+
 // P[M, NC] = bf16(A[M, K]) @ W[K, NC] (bf16, row-major), f32 out: the node
 // halves of the pair linear, [h W_src | h W_dst], for every node at once.
 constexpr int kProjTile = 64;
@@ -197,12 +206,13 @@ struct Tile {
   }
 };
 
-// Fill the tile's metadata for flat edges q0 .. q0 + kTileM - 1 of an item
+// Fill the tile's metadata for flat edges q0 .. q0 + TM - 1 of an item
 // with n_edges edges. The caller synchronises before reading it.
+template <int TM = kTileM>
 __device__ __forceinline__ void load_tile(Tile& tl, int q0, int n_edges,
                                           const float* __restrict__ emask) {
-  tl.n_valid = min(kTileM, n_edges - q0);
-  for (int t = threadIdx.x; t < kTileM; t += blockDim.x) {
+  tl.n_valid = min(TM, n_edges - q0);
+  for (int t = threadIdx.x; t < TM; t += blockDim.x) {
     const int q = q0 + t;
     const bool real = q < n_edges;
     tl.row[t] = real ? q / tl.N : -1;
@@ -212,8 +222,15 @@ __device__ __forceinline__ void load_tile(Tile& tl, int q0, int n_edges,
   }
 }
 
-// u[t][c] = bf16(silu(pre)), pre = ((hs_i + hd_j) + e_ij W_e) + b1 in the
-// act dtype; proj holds [h W_src | h W_dst] per node. Padding edges get 0.
+// pre = ((hs_i + hd_j) + e_ij W_e) + b1, each step rounded to the act dtype
+// (bias already rounded).
+template <bool BF16>
+__device__ __forceinline__ float pre_act(float hs, float hdst, float ep, float bias) {
+  return act<BF16>(act<BF16>(act<BF16>(act<BF16>(hs) + act<BF16>(hdst)) + act<BF16>(ep)) + bias);
+}
+
+// u[t][c] = bf16(silu(pre)) for the TM edges of a tile; proj holds
+// [h W_src | h W_dst] per node. Padding edges get 0.
 // Thread c keeps its column of b1 and the first kRegE rows of W_e in
 // registers. Edges go in batches of kBatch: all of a batch's loads are
 // issued before any of its arithmetic, so the batch waits for one memory
@@ -221,7 +238,7 @@ __device__ __forceinline__ void load_tile(Tile& tl, int q0, int n_edges,
 constexpr int kRegE = 4;
 constexpr int kBatch = 8;
 
-template <bool BF16>
+template <bool BF16, int TM = kTileM>
 __device__ __forceinline__ void build_pre_tile(const Tile& tl, const float* __restrict__ proj,
                                const float* __restrict__ e, const bf16* __restrict__ we,
                                const float* __restrict__ b1, bf16* u, int H, int E) {
@@ -232,7 +249,7 @@ __device__ __forceinline__ void build_pre_tile(const Tile& tl, const float* __re
 #pragma unroll
     for (int k = 0; k < kRegE; ++k) wreg[k] = k < E ? __bfloat162float(we[k * H + c]) : 0.0f;
     const float bias = act<BF16>(b1[c]);
-    for (int t0 = 0; t0 < kTileM; t0 += kBatch) {
+    for (int t0 = 0; t0 < TM; t0 += kBatch) {
       float hs[kBatch], hdst[kBatch], ev[kBatch][kRegE];
       const float* eij[kBatch];
 #pragma unroll
@@ -258,9 +275,7 @@ __device__ __forceinline__ void build_pre_tile(const Tile& tl, const float* __re
 #pragma unroll 1   // wide E (sinusoid embedding) only: keep the code small
           for (int r = kRegE; r < E; ++r)
             ep += round_bf16(eij[k][r]) * __bfloat162float(we[r * H + c]);
-          const float pre = act<BF16>(act<BF16>(act<BF16>(act<BF16>(hs[k]) + act<BF16>(hdst[k])) +
-                                                act<BF16>(ep)) + bias);
-          val = silu_act<BF16>(pre);
+          val = silu_act<BF16>(pre_act<BF16>(hs[k], hdst[k], ep, bias));
         }
         u[t * ldu + c] = __float2bfloat16(val);
       }
@@ -268,30 +283,40 @@ __device__ __forceinline__ void build_pre_tile(const Tile& tl, const float* __re
   }
 }
 
-// stage (kTileM x H, f32) = u (kTileM x H, bf16) @ w2s (H x H, bf16). Warp w
+// stage (TM x H, f32) = a (TM x H, bf16, row stride ldw) @ W, where W is
+// w2s (H x H, bf16, row stride ldw) or, with TRANS_B, its transpose (w2s
+// read as a column-major operand, so one resident copy serves both). Warp w
 // owns column fragments w, w + kWarps; all accumulators stay in registers
-// until every warp has finished reading u, because stage aliases u.
-__device__ __forceinline__ void tile_mma(const bf16* u, const bf16* w2s, float* stage, int H) {
+// until every warp has finished reading a, because stage may alias a.
+template <int TM, bool TRANS_B>
+__device__ __forceinline__ void tile_mma_t(const bf16* a, const bf16* w2s, float* stage, int H) {
   const int warp = threadIdx.x / 32;
   const int n_col_frags = H / 16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kMaxColFrags][kTileM / 16];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kMaxColFrags][TM / 16];
 #pragma unroll
   for (int ci = 0; ci < kMaxColFrags; ++ci)
 #pragma unroll
-    for (int m = 0; m < kTileM / 16; ++m) wmma::fill_fragment(acc[ci][m], 0.0f);
+    for (int m = 0; m < TM / 16; ++m) wmma::fill_fragment(acc[ci][m], 0.0f);
   for (int k = 0; k < H; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[kTileM / 16];
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[TM / 16];
 #pragma unroll
-    for (int m = 0; m < kTileM / 16; ++m)
-      wmma::load_matrix_sync(fa[m], u + m * 16 * ldw(H) + k, ldw(H));
+    for (int m = 0; m < TM / 16; ++m)
+      wmma::load_matrix_sync(fa[m], a + m * 16 * ldw(H) + k, ldw(H));
 #pragma unroll
     for (int ci = 0; ci < kMaxColFrags; ++ci) {
       const int cf = warp + ci * kWarps;
       if (cf < n_col_frags) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, w2s + k * ldw(H) + cf * 16, ldw(H));
+        if constexpr (TRANS_B) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+          wmma::load_matrix_sync(fb, w2s + cf * 16 * ldw(H) + k, ldw(H));
 #pragma unroll
-        for (int m = 0; m < kTileM / 16; ++m) wmma::mma_sync(acc[ci][m], fa[m], fb, acc[ci][m]);
+          for (int m = 0; m < TM / 16; ++m) wmma::mma_sync(acc[ci][m], fa[m], fb, acc[ci][m]);
+        } else {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+          wmma::load_matrix_sync(fb, w2s + k * ldw(H) + cf * 16, ldw(H));
+#pragma unroll
+          for (int m = 0; m < TM / 16; ++m) wmma::mma_sync(acc[ci][m], fa[m], fb, acc[ci][m]);
+        }
       }
     }
   }
@@ -301,12 +326,17 @@ __device__ __forceinline__ void tile_mma(const bf16* u, const bf16* w2s, float* 
     const int cf = warp + ci * kWarps;
     if (cf < n_col_frags) {
 #pragma unroll
-      for (int m = 0; m < kTileM / 16; ++m)
+      for (int m = 0; m < TM / 16; ++m)
         wmma::store_matrix_sync(stage + m * 16 * lds(H) + cf * 16, acc[ci][m], lds(H),
                                 wmma::mem_row_major);
     }
   }
   __syncthreads();
+}
+
+// stage (kTileM x H, f32) = u (kTileM x H, bf16) @ w2s, the forward's product.
+__device__ __forceinline__ void tile_mma(const bf16* u, const bf16* w2s, float* stage, int H) {
+  tile_mma_t<kTileM, false>(u, w2s, stage, H);
 }
 
 // Per-lane copies of a per-column vector: lane l holds columns l, l + 32, ...

@@ -31,6 +31,10 @@
 // tensor cores for its rows, with the node weights read from L2. This first
 // version is plain WMMA with one block per SM; wgmma, TMA and warp
 // specialisation are later work.
+//
+// For training, the caller may pass agg_out (B,N,H): the kernel then also
+// writes agg_i (already divided by norm), the one residual that
+// fused_gcl_bwd.cu needs besides the inputs.
 #include "edge_mlp.cuh"
 
 namespace hd {
@@ -52,6 +56,7 @@ struct GclArgs {
   const bf16* nw2;
   const float* nb2;
   float* out;
+  float* agg_out;   // may be null
   int B, N, H, E;
   float norm;
 };
@@ -115,8 +120,11 @@ __device__ __forceinline__ void node_mlp(int b, int i0, int rows, unsigned char*
   for (int idx = threadIdx.x; idx < kRows * 2 * H; idx += blockDim.x) {
     const int r = idx / (2 * H), c = idx % (2 * H);
     float v = 0.0f;
-    if (r < rows)
-      v = c < H ? a.h[((size_t)b * a.N + i0 + r) * H + c] : agg[r * H + c - H] / a.norm;
+    if (r < rows) {
+      const size_t node = (size_t)b * a.N + i0 + r;
+      v = c < H ? a.h[node * H + c] : agg[r * H + c - H] / a.norm;
+      if (c >= H && a.agg_out != nullptr) a.agg_out[node * H + c - H] = v;
+    }
     a1[r * lda1 + c] = __float2bfloat16(v);
   }
   __syncthreads();
@@ -218,7 +226,8 @@ extern "C" int hd_fused_gcl(const float* h, const float* e, const float* emask,
                             const float* b1, const hd::bf16* w2, const float* b2,
                             const hd::bf16* watt, const float* batt, const hd::bf16* nw1,
                             const float* nb1, const hd::bf16* nw2, const float* nb2,
-                            float* proj, float* out, int B, int N, int H, int E, float norm,
+                            float* proj, float* out, float* agg_out, int B, int N, int H,
+                            int E, float norm,
                             int attention, int bf16_act, int max_blocks, void* stream) {
   if (B * N == 0) return 0;
   if (H % 16 != 0 || H > hd::kMaxH || E > hd::kMaxE || max_blocks < 1)
@@ -227,7 +236,7 @@ extern "C" int hd_fused_gcl(const float* h, const float* e, const float* emask,
   cudaError_t err = hd::launch_proj(h, wsd, proj, B * N, H, st);
   if (err != cudaSuccess) return (int)err;
   const hd::GclArgs a{h, e, emask, nmask, proj, we, b1, w2, b2, watt, batt,
-                      nw1, nb1, nw2, nb2, out, B, N, H, E, norm};
+                      nw1, nb1, nw2, nb2, out, agg_out, B, N, H, E, norm};
   if (bf16_act)
     err = attention ? hd::launch_gcl<true, true>(a, max_blocks, st)
                     : hd::launch_gcl<true, false>(a, max_blocks, st);

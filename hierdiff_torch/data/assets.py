@@ -1,12 +1,16 @@
-"""Bundled node-count histograms (the port's own copies of
-``hierdiff_tpu/assets/*_histogram.json``)."""
+"""Bundled data artifacts: node-count histograms, the fragment vocabulary and
+its fingerprint tables (the port's own copies of ``hierdiff_tpu/assets/``:
+``*_histogram.json``, ``vocab.txt``, ``vocab_prop_fps.csv``,
+``vocab_elem_fps.csv``)."""
 
 from __future__ import annotations
 
 import json
 from functools import lru_cache
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
+
+import numpy as np
 
 ASSET_DIR = Path(__file__).resolve().parent.parent / "assets"
 
@@ -17,3 +21,25 @@ def load_histogram(name: str = "geom") -> Dict[int, int]:
     with open(ASSET_DIR / f"{name}_histogram.json") as f:
         raw = json.load(f)
     return {int(k): int(v) for k, v in raw.items()}
+
+
+@lru_cache(maxsize=None)
+def load_vocab_smiles() -> Tuple[str, ...]:
+    """The fragment vocabulary's SMILES strings, in file order."""
+    with open(ASSET_DIR / "vocab.txt") as f:
+        return tuple(line.strip() for line in f if line.strip())
+
+
+@lru_cache(maxsize=None)
+def load_vocab_fps(mode: str = "prop") -> Dict[str, np.ndarray]:
+    """Per-fragment fingerprint rows, smiles -> float64 vector: mode 'prop'
+    has 5 property columns (col 3 = heavy-atom count), 'elem' a 3-column
+    element bag."""
+    fname = "vocab_prop_fps.csv" if mode == "prop" else "vocab_elem_fps.csv"
+    out: Dict[str, np.ndarray] = {}
+    with open(ASSET_DIR / fname) as f:
+        f.readline()   # header
+        for line in f:
+            parts = line.rstrip("\n").split(",")
+            out[parts[0]] = np.array([float(v) for v in parts[1:]], dtype=np.float64)
+    return out

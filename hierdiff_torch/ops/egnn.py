@@ -8,7 +8,10 @@ a reference state dict loads with ``strict=True``.
 
 ``DenseGCL`` and ``DenseEquivariantUpdate`` run through the fused kernels of
 ``ops/egnn_kernels.py``: on CUDA tensors the hand-written kernels, on CPU
-tensors their plain versions.
+tensors their plain versions. Under autograd the GCL's CUDA path is
+``FusedGCLFunction`` (forward and backward kernels), and the coordinate
+update takes its plain, differentiable version: the JAX package trains that
+layer through XLA too, since no Pallas backward exists for it.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ from typing import Optional
 import torch
 from torch import Tensor, nn
 
-from hierdiff_torch.ops.egnn_kernels import fused_coord_update, fused_gcl
+from hierdiff_torch.ops import egnn_kernels
+from hierdiff_torch.ops.egnn_kernels import coord_update_plain, fused_coord_update, fused_gcl
 
 
 def resolve_compute_dtype(compute_dtype) -> Optional[torch.dtype]:
@@ -54,6 +58,15 @@ class _KernelLayer(nn.Module):
     def _apply(self, fn, *args, **kwargs):
         self._kernel_weights = None
         return super()._apply(fn, *args, **kwargs)
+
+
+def drop_kernel_caches(module: nn.Module) -> nn.Module:
+    """Forget every kernel-weight cache under ``module``, e.g. in a
+    ``copy.deepcopy`` that must build its own."""
+    for sub in module.modules():
+        if isinstance(sub, _KernelLayer):
+            sub._kernel_weights = None
+    return module
 
 
 def sinusoids_embedding(radial: Tensor, max_res: float = 30.0,
@@ -128,6 +141,11 @@ class DenseEquivariantUpdate(_KernelLayer):
 
     def forward(self, h: Tensor, x: Tensor, coord_diff: Tensor, edge_attr: Tensor,
                 node_mask: Tensor, edge_mask: Tensor) -> Tensor:
+        # chosen by the autograd mode, never by a failure: the kernel has no
+        # backward, so a recorded call takes the plain route and counts it
+        if egnn_kernels.records_grad(self, h, x, coord_diff, edge_attr):
+            egnn_kernels.launch_counts["coord_update_autograd"] += 1
+            return coord_update_plain(self, h, edge_attr, coord_diff, x, edge_mask, node_mask)
         return fused_coord_update(self, h, edge_attr, coord_diff, x, edge_mask, node_mask)
 
 

@@ -1,27 +1,36 @@
-"""The two fused EGNN layer kernels: wrappers, plain versions, launch counts.
+"""The fused EGNN layer kernels: wrappers, plain versions, launch counts.
 
-``fused_gcl`` and ``fused_coord_update`` are the port of the Pallas kernels
-in ``hierdiff_tpu/ops/egnn_pallas.py`` (``fused_gcl`` :141 and
-``fused_coord_update`` :492). Their CUDA sources are ``csrc/fused_gcl.cu``
-and ``csrc/fused_coord.cu``, built by ``ops/_build.py`` at first use.
+``fused_gcl``, ``fused_coord_update`` and ``fused_gcl_bwd`` are the port of
+the Pallas kernels in ``hierdiff_tpu/ops/egnn_pallas.py`` (``fused_gcl``
+:141, ``fused_coord_update`` :492, ``fused_gcl_bwd`` :346). Their CUDA
+sources are ``csrc/fused_gcl.cu``, ``csrc/fused_coord.cu`` and
+``csrc/fused_gcl_bwd.cu``, built by ``ops/_build.py`` at first use.
 
 A wrapper launches its kernel on a CUDA tensor and raises if it cannot; it
-takes the plain PyTorch version (``gcl_plain`` / ``coord_update_plain``)
-only for a tensor on the CPU. The plain versions follow the XLA layers of
-``hierdiff_tpu/ops/egnn.py`` (``DenseGCL`` :197, ``DenseEquivariantUpdate``
-:293), including their ``compute_dtype`` casts. The kernels use bf16 matmul
-operands with f32 accumulation like the Pallas kernels, so they agree with
-the plain versions to tolerance, not bitwise.
+takes the plain PyTorch version (``gcl_plain`` / ``coord_update_plain`` /
+``gcl_plain_vjp``) only for a tensor on the CPU. The plain versions follow
+the XLA layers of ``hierdiff_tpu/ops/egnn.py`` (``DenseGCL`` :197,
+``DenseEquivariantUpdate`` :293), including their ``compute_dtype`` casts.
+The kernels use bf16 matmul operands with f32 accumulation like the Pallas
+kernels, so they agree with the plain versions to tolerance, not bitwise.
+
+Autograd: when a gradient is being recorded, ``fused_gcl`` on CUDA runs as
+``FusedGCLFunction`` (forward ``fused_gcl``, backward ``fused_gcl_bwd``, the
+counterpart of ``gcl_vjp``); ``fused_coord_update`` has no backward kernel,
+as in the JAX package, and raises rather than return a detached result.
 
 Each wrapper adds one to ``launch_counts[name]`` per kernel launch and
-nowhere else; ``reset_launch_counts`` sets them to zero.
+nowhere else; ``coord_update_autograd`` counts the coordinate updates that
+took the plain, differentiable route (``ops/egnn.py``). ``reset_launch_counts``
+sets them all to zero.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional
+import math
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -29,7 +38,8 @@ from torch import Tensor
 
 from hierdiff_torch.ops import _build
 
-launch_counts: Dict[str, int] = {"fused_gcl": 0, "fused_coord_update": 0}
+launch_counts: Dict[str, int] = {"fused_gcl": 0, "fused_coord_update": 0, "fused_gcl_bwd": 0,
+                                 "coord_update_autograd": 0}
 
 # limits of the CUDA kernels (csrc/edge_mlp.cuh kMaxH, kMaxE)
 MAX_HIDDEN = 256
@@ -93,9 +103,9 @@ def _pair_preact(h: Tensor, edge_attr: Tensor, linear: torch.nn.Linear,
             + cast(_edge_proj(edge_attr, w_e, dt)) + cast(linear.bias))
 
 
-def gcl_plain(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor,
-              node_mask: Tensor) -> Tensor:
-    """Plain version of ``fused_gcl``: one DenseGCL forward."""
+def gcl_agg_plain(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor) -> Tensor:
+    """The GCL's aggregated messages sum_j m_ij * emask_ij / norm, (B, N, H)
+    f32: what ``fused_gcl`` saves for its backward."""
     dt = layer.compute_dtype
     cast = (lambda v: v.to(dt)) if dt is not None else (lambda v: v)
     e_in, e_out = layer.edge_mlp[0], layer.edge_mlp[2]
@@ -105,7 +115,14 @@ def gcl_plain(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor,
         att_lin = layer.att_mlp[0]
         att = torch.sigmoid(_mm(m, att_lin.weight.t(), dt, dt) + cast(att_lin.bias))
         m = m * att
-    agg = _masked_rowsum(m, edge_mask) / layer.normalization_factor
+    return _masked_rowsum(m, edge_mask) / layer.normalization_factor
+
+
+def gcl_plain(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor,
+              node_mask: Tensor) -> Tensor:
+    """Plain version of ``fused_gcl``: one DenseGCL forward."""
+    dt = layer.compute_dtype
+    agg = gcl_agg_plain(layer, h, edge_attr, edge_mask)
     n_in, n_out = layer.node_mlp[0], layer.node_mlp[2]
     out = F.silu(_mm(torch.cat([h, agg], dim=-1), n_in.weight.t(), dt) + n_in.bias)
     out = _mm(out, n_out.weight.t(), dt) + n_out.bias
@@ -133,6 +150,79 @@ def coord_update_plain(layer, h: Tensor, edge_attr: Tensor, coord_diff: Tensor,
     return (x + agg) * node_mask
 
 
+class GclGrads(NamedTuple):
+    """Gradients of one DenseGCL, in the JAX package's (in, out) layout
+    (``fused_gcl_bwd``'s outputs, egnn_pallas.py:430-441); ``w_att`` (H,)
+    and ``b_att`` (1,) are None without attention."""
+    dh: Tensor
+    de: Tensor
+    w_src: Tensor
+    w_dst: Tensor
+    w_e: Tensor
+    b1: Tensor
+    w2: Tensor
+    b2: Tensor
+    w_att: Optional[Tensor]
+    b_att: Optional[Tensor]
+    w_node_in: Tensor
+    b_node_in: Tensor
+    w_node_out: Tensor
+    b_node_out: Tensor
+
+
+def gcl_parameters(layer) -> List[torch.nn.Parameter]:
+    """The GCL's parameters in the order ``FusedGCLFunction`` takes them."""
+    params = [layer.edge_mlp[0].weight, layer.edge_mlp[0].bias, layer.edge_mlp[2].weight,
+              layer.edge_mlp[2].bias, layer.node_mlp[0].weight, layer.node_mlp[0].bias,
+              layer.node_mlp[2].weight, layer.node_mlp[2].bias]
+    if layer.attention:
+        params += [layer.att_mlp[0].weight, layer.att_mlp[0].bias]
+    return params
+
+
+def _grads_from_linear(layer, dh: Tensor, de: Tensor, dparams) -> GclGrads:
+    """nn.Linear-layout parameter gradients -> GclGrads."""
+    hidden = layer.edge_mlp[2].weight.shape[0]
+    g_pair, b1, g_w2, b2, g_n1, bn1, g_n2, bn2 = dparams[:8]
+    w_att = b_att = None
+    if layer.attention:
+        w_att, b_att = dparams[8].reshape(hidden), dparams[9].reshape(1)
+    return GclGrads(dh, de, g_pair[:, :hidden].t(), g_pair[:, hidden:2 * hidden].t(),
+                    g_pair[:, 2 * hidden:].t(), b1, g_w2.t(), b2, w_att, b_att,
+                    g_n1.t(), bn1, g_n2.t(), bn2)
+
+
+def linear_grads(grads: GclGrads) -> List[Tensor]:
+    """GclGrads -> gradients of ``gcl_parameters(layer)``, in nn.Linear layout
+    (``utils/weights.py:_pair`` for the pair linear's column blocks)."""
+    out = [torch.cat([grads.w_src.t(), grads.w_dst.t(), grads.w_e.t()], dim=1), grads.b1,
+           grads.w2.t().contiguous(), grads.b2, grads.w_node_in.t().contiguous(),
+           grads.b_node_in, grads.w_node_out.t().contiguous(), grads.b_node_out]
+    if grads.w_att is not None:
+        out += [grads.w_att.reshape(1, -1), grads.b_att.reshape(1)]
+    return out
+
+
+def gcl_plain_vjp(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor,
+                  node_mask: Tensor, g: Tensor) -> GclGrads:
+    """Plain version of ``fused_gcl_bwd``: autograd of ``gcl_plain`` against
+    the upstream gradient ``g``. The masks get no gradient."""
+    with torch.enable_grad():
+        h_ = h.detach().requires_grad_(True)
+        e_ = edge_attr.detach().requires_grad_(True)
+        params = gcl_parameters(layer)
+        out = gcl_plain(layer, h_, e_, edge_mask, node_mask)
+        grads = torch.autograd.grad(out, [h_, e_, *params], g)
+    return _grads_from_linear(layer, grads[0], grads[1], grads[2:])
+
+
+def records_grad(layer, *tensors: Tensor) -> bool:
+    """True when autograd records this call: grad mode is on and an input or
+    a parameter of ``layer`` requires a gradient."""
+    return torch.is_grad_enabled() and (any(t.requires_grad for t in tensors)
+                                        or any(p.requires_grad for p in layer.parameters()))
+
+
 # --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
@@ -140,22 +230,29 @@ def coord_update_plain(layer, h: Tensor, edge_attr: Tensor, coord_diff: Tensor,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_GCL_ARGTYPES = [_P] * 17 + [_I, _I, _I, _I, _F, _I, _I, _I, _P]
+_GCL_ARGTYPES = [_P] * 18 + [_I, _I, _I, _I, _F, _I, _I, _I, _P]
 _COORD_ARGTYPES = [_P] * 14 + [_I, _I, _I, _I, _F, _F, _I, _I, _I, _P]
+_BWD_ARGTYPES = [_P] * 24 + [_I, _I, _I, _I, _F, _I, _I, _I, _P]
 _num_sms: Dict[int, int] = {}
 
 
-_ENTRIES = {"fused_gcl": ("fused_gcl", "hd_fused_gcl", _GCL_ARGTYPES),
-            "fused_coord_update": ("fused_coord", "hd_fused_coord", _COORD_ARGTYPES)}
+# kernel -> (library, symbol, argtypes, restype)
+_ENTRIES = {
+    "fused_gcl": ("fused_gcl", "hd_fused_gcl", _GCL_ARGTYPES, ctypes.c_int),
+    "fused_coord_update": ("fused_coord", "hd_fused_coord", _COORD_ARGTYPES, ctypes.c_int),
+    "fused_gcl_bwd": ("fused_gcl_bwd", "hd_fused_gcl_bwd", _BWD_ARGTYPES, ctypes.c_int),
+    "fused_gcl_bwd_workspace": ("fused_gcl_bwd", "hd_fused_gcl_bwd_workspace", [_I] * 5,
+                                ctypes.c_longlong),
+}
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(kernel: str, phase_clocks: bool):
     """The C entry point of ``kernel`` in its (possibly instrumented) build."""
-    lib_name, symbol, argtypes = _ENTRIES[kernel]
+    lib_name, symbol, argtypes, restype = _ENTRIES[kernel]
     fn = getattr(_build.load_library(lib_name, phase_clocks), symbol)
     fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn
 
 
@@ -186,14 +283,22 @@ def _gcl_kernel_weights(layer) -> dict:
     hidden = w["w2"].shape[0]
     if layer.attention:
         w["watt"] = _bf16(layer.att_mlp[0].weight.reshape(hidden))
+        w["watt32"] = _f32(layer.att_mlp[0].weight.reshape(hidden))   # backward's dm0 term
         w["batt"] = _f32(layer.att_mlp[0].bias.reshape(1))
-    else:   # never read by the kernel; any valid pointer will do
+    else:   # never read by the kernels; any valid pointer will do
         w["watt"] = w["b2"].new_zeros(hidden, dtype=torch.bfloat16)
+        w["watt32"] = w["b2"].new_zeros(hidden)
         w["batt"] = w["b2"].new_zeros(1)
     w["nw1"] = _bf16(layer.node_mlp[0].weight.t())
     w["nb1"] = _f32(layer.node_mlp[0].bias)
     w["nw2"] = _bf16(layer.node_mlp[2].weight.t())
     w["nb2"] = _f32(layer.node_mlp[2].bias)
+    # the backward's transposed operands: nn.Linear weights are (out, in)
+    pair = layer.edge_mlp[0].weight
+    w["wsrct"] = _bf16(pair[:, :hidden])
+    w["wdstt"] = _bf16(pair[:, hidden:2 * hidden])
+    w["nw1t"] = _bf16(layer.node_mlp[0].weight)
+    w["nw2t"] = _bf16(layer.node_mlp[2].weight)
     return w
 
 
@@ -207,18 +312,23 @@ def _param_versions(params) -> tuple:
     return tuple((p.data_ptr(), p._version) for p in params)
 
 
-def _cached_weights(layer, build, device: torch.device) -> dict:
+def _cached_weights(layer, build, device: torch.device, rebuild: bool = False) -> dict:
     """Transposed bf16 kernel weights, built once per layer and rebuilt when
-    a parameter changes. The cache is keyed on each parameter's storage and
-    version counter, which every in-place update advances (``copy_``,
-    ``mul_``, an optimizer step); the layer drops the cache itself when
-    ``load_state_dict`` or ``.to()`` may replace its parameters. A parameter
-    replaced by plain attribute assignment is not seen."""
+    a parameter changes (or when ``rebuild`` asks). The cache is keyed on
+    each parameter's storage and version counter, which in-place tensor ops
+    advance (``copy_``, ``mul_``, the foreach and for-loop optimizer
+    steps); the layer drops the cache itself when ``load_state_dict`` or
+    ``.to()`` may replace its parameters. Not seen: a parameter replaced by
+    plain attribute assignment, and the fused optimizer kernels
+    (``torch.optim.AdamW(fused=True)``), which update parameters without
+    advancing their version counters (measured on the card). So the
+    recorded (training) forward always rebuilds, and ``drop_kernel_caches``
+    (``ops/egnn.py``) is for no-grad use after such an update."""
     cached = layer._kernel_weights
     params = list(layer.parameters()) if cached is None else cached[0]
     if params[0].device != device:
         raise ValueError(f"layer weights are on {params[0].device}, inputs on {device}")
-    if cached is not None and _param_versions(params) == cached[1]:
+    if cached is not None and not rebuild and _param_versions(params) == cached[1]:
         return cached[2]
     with torch.no_grad():
         weights = build(layer)
@@ -255,14 +365,8 @@ def _device_of(h: Tensor) -> Optional[torch.device]:
     return h.device
 
 
-def fused_gcl(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor,
-              node_mask: Tensor, *, phase_clocks: bool = False) -> Tensor:
-    """One DenseGCL forward. h (B,N,H), edge_attr (B,N,N,E), edge_mask
-    (B,N,N,1), node_mask (B,N,1), all float32. CUDA: ``csrc/fused_gcl.cu``;
-    ``phase_clocks`` launches its ``-DHD_PHASE_CLOCKS`` build."""
-    device = _device_of(h)
-    if device is None:
-        return gcl_plain(layer, h, edge_attr, edge_mask, node_mask)
+def _check_gcl_inputs(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor,
+                      node_mask: Tensor, device: torch.device) -> None:
     b, n, hidden = h.shape
     e_nf = edge_attr.shape[-1]
     _check("h", h, (b, n, hidden), device)
@@ -270,10 +374,22 @@ def fused_gcl(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor,
     _check("edge_mask", edge_mask, (b, n, n, 1), device)
     _check("node_mask", node_mask, (b, n, 1), device)
     _check_layer(h, edge_attr, layer.edge_mlp[2].weight.shape[0])
+
+
+def _launch_gcl(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor, node_mask: Tensor,
+                device: torch.device, agg_out: Optional[Tensor] = None,
+                phase_clocks: bool = False) -> Tensor:
+    """Launch ``csrc/fused_gcl.cu``; with ``agg_out`` (B,N,H) the kernel also
+    writes the aggregated messages for the backward, and the bf16 weights
+    are rebuilt from the parameters first (``_cached_weights``)."""
+    _check_gcl_inputs(layer, h, edge_attr, edge_mask, node_mask, device)
+    b, n, hidden = h.shape
     out = torch.empty_like(h)
     if b * n == 0:
         return out
-    w = _cached_weights(layer, _gcl_kernel_weights, device)
+    if agg_out is not None:
+        _check("agg_out", agg_out, h.shape, device)
+    w = _cached_weights(layer, _gcl_kernel_weights, device, rebuild=agg_out is not None)
     proj = torch.empty((b * n, 2 * hidden), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _entry("fused_gcl", phase_clocks)(
@@ -282,22 +398,150 @@ def fused_gcl(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor,
         w["w2"].data_ptr(), w["b2"].data_ptr(), w["watt"].data_ptr(),
         w["batt"].data_ptr(), w["nw1"].data_ptr(), w["nb1"].data_ptr(),
         w["nw2"].data_ptr(), w["nb2"].data_ptr(), proj.data_ptr(), out.data_ptr(),
-        b, n, hidden, e_nf, float(layer.normalization_factor), int(layer.attention),
-        int(layer.compute_dtype is torch.bfloat16), _sm_count(device), stream)
+        None if agg_out is None else agg_out.data_ptr(),
+        b, n, hidden, edge_attr.shape[-1], float(layer.normalization_factor),
+        int(layer.attention), int(layer.compute_dtype is torch.bfloat16), _sm_count(device),
+        stream)
     if err != 0:
         raise RuntimeError(f"fused_gcl kernel launch failed: CUDA error {err}")
     launch_counts["fused_gcl"] += 1
     return out
 
 
+def fused_gcl(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor,
+              node_mask: Tensor, *, phase_clocks: bool = False) -> Tensor:
+    """One DenseGCL forward. h (B,N,H), edge_attr (B,N,N,E), edge_mask
+    (B,N,N,1), node_mask (B,N,1), all float32. CUDA: ``csrc/fused_gcl.cu``;
+    ``phase_clocks`` launches its ``-DHD_PHASE_CLOCKS`` build. When autograd
+    records the call, the CUDA path runs as ``FusedGCLFunction``, whose
+    backward is ``fused_gcl_bwd``."""
+    device = _device_of(h)
+    if device is None:
+        return gcl_plain(layer, h, edge_attr, edge_mask, node_mask)
+    if records_grad(layer, h, edge_attr):
+        return FusedGCLFunction.apply(layer, h, edge_attr, edge_mask, node_mask,
+                                      *gcl_parameters(layer))
+    return _launch_gcl(layer, h, edge_attr, edge_mask, node_mask, device,
+                       phase_clocks=phase_clocks)
+
+
+class FusedGCLFunction(torch.autograd.Function):
+    """The GCL on CUDA under autograd, the counterpart of ``gcl_vjp``
+    (egnn_pallas.py:444): forward ``fused_gcl`` (which also writes agg),
+    backward ``fused_gcl_bwd``. It saves the inputs and agg (B,N,H), no
+    (B,N,N,H) tensor. The layer's fp32 parameters are inputs, so autograd
+    attributes their gradients to them; the forward rebuilds the layer's
+    bf16 copies from them, and the backward reads those same copies."""
+
+    @staticmethod
+    def forward(ctx, layer, h, edge_attr, edge_mask, node_mask, *params):
+        agg = torch.empty_like(h)
+        out = _launch_gcl(layer, h, edge_attr, edge_mask, node_mask, h.device, agg_out=agg)
+        ctx.layer = layer
+        ctx.save_for_backward(h, edge_attr, edge_mask, node_mask, agg)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h, edge_attr, edge_mask, node_mask, agg = ctx.saved_tensors
+        grads = fused_gcl_bwd(ctx.layer, h, edge_attr, edge_mask, node_mask, g.contiguous(), agg)
+        return (None, grads.dh, grads.de, None, None, *linear_grads(grads))
+
+
+def bwd_part_floats(hidden: int, e_nf: int) -> int:
+    """Floats of the block-partial group at the head of the backward's
+    gradient buffer (``part_floats`` in csrc/fused_gcl_bwd.cu)."""
+    return (hidden * hidden + e_nf * hidden + 3 * hidden + 1 + 7) // 8 * 8
+
+
+def _split_bwd_grads(layer, grads: Tensor, dh: Tensor, de: Tensor) -> GclGrads:
+    """Views of the kernel's flat gradient buffer (layout in fused_gcl_bwd.cu)."""
+    hidden, e_nf = dh.shape[-1], de.shape[-1]
+    offset = 0
+
+    def take(*shape):
+        nonlocal offset
+        size = math.prod(shape)
+        out = grads[offset:offset + size].view(shape)
+        offset += size
+        return out
+
+    w2, w_e, b1, b2 = take(hidden, hidden), take(e_nf, hidden), take(hidden), take(hidden)
+    w_att, b_att = take(hidden), take(1)
+    offset = bwd_part_floats(hidden, e_nf)
+    w_src, w_dst = take(hidden, hidden), take(hidden, hidden)
+    w_node_in, b_node_in = take(2 * hidden, hidden), take(hidden)
+    w_node_out, b_node_out = take(hidden, hidden), take(hidden)
+    if not layer.attention:
+        w_att = b_att = None
+    return GclGrads(dh, de, w_src, w_dst, w_e, b1, w2, b2, w_att, b_att,
+                    w_node_in, b_node_in, w_node_out, b_node_out)
+
+
+def fused_gcl_bwd(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor, node_mask: Tensor,
+                  g: Tensor, agg: Tensor, *, phase_clocks: bool = False) -> GclGrads:
+    """Backward of one DenseGCL forward: the gradients of every input but
+    the masks and of every parameter, against the upstream gradient ``g``
+    (B,N,H). ``agg`` is the forward's residual (``fused_gcl`` writes it
+    under autograd; ``gcl_agg_plain`` computes it). CUDA:
+    ``csrc/fused_gcl_bwd.cu``; on CPU tensors ``gcl_plain_vjp`` (``agg``
+    unused)."""
+    device = _device_of(h)
+    if device is None:
+        return gcl_plain_vjp(layer, h, edge_attr, edge_mask, node_mask, g)
+    return _launch_gcl_bwd(layer, h, edge_attr, edge_mask, node_mask, g, agg, device,
+                           phase_clocks)
+
+
+def _launch_gcl_bwd(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor, node_mask: Tensor,
+                    g: Tensor, agg: Tensor, device: torch.device,
+                    phase_clocks: bool = False) -> GclGrads:
+    _check_gcl_inputs(layer, h, edge_attr, edge_mask, node_mask, device)
+    _check("g", g, h.shape, device)
+    _check("agg", agg, h.shape, device)
+    b, n, hidden = h.shape
+    e_nf = edge_attr.shape[-1]
+    n_grads = bwd_part_floats(hidden, e_nf) + 5 * hidden * hidden + 2 * hidden
+    if b * n == 0:
+        return _split_bwd_grads(layer, h.new_zeros(n_grads), torch.zeros_like(h),
+                                torch.zeros_like(edge_attr))
+    dh, de = torch.empty_like(h), torch.empty_like(edge_attr)
+    grads = torch.empty(n_grads, dtype=torch.float32, device=device)
+    w = _cached_weights(layer, _gcl_kernel_weights, device)
+    blocks = _sm_count(device)
+    ws = torch.empty(int(_entry("fused_gcl_bwd_workspace", phase_clocks)(b, n, hidden, e_nf, blocks)),
+                     dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = _entry("fused_gcl_bwd", phase_clocks)(
+        g.data_ptr(), h.data_ptr(), edge_attr.data_ptr(), edge_mask.data_ptr(),
+        node_mask.data_ptr(), agg.data_ptr(), w["wsd"].data_ptr(), w["we"].data_ptr(),
+        w["b1"].data_ptr(), w["w2"].data_ptr(), w["b2"].data_ptr(), w["watt"].data_ptr(),
+        w["watt32"].data_ptr(), w["batt"].data_ptr(), w["nw1"].data_ptr(), w["nb1"].data_ptr(),
+        w["nw1t"].data_ptr(), w["nw2t"].data_ptr(), w["wsrct"].data_ptr(),
+        w["wdstt"].data_ptr(), ws.data_ptr(), dh.data_ptr(), de.data_ptr(), grads.data_ptr(),
+        b, n, hidden, e_nf, float(layer.normalization_factor), int(layer.attention),
+        int(layer.compute_dtype is torch.bfloat16), blocks, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_gcl_bwd kernel launch failed: CUDA error {err}")
+    launch_counts["fused_gcl_bwd"] += 1
+    return _split_bwd_grads(layer, grads, dh, de)
+
+
 def fused_coord_update(layer, h: Tensor, edge_attr: Tensor, coord_diff: Tensor,
                        x: Tensor, edge_mask: Tensor, node_mask: Tensor, *,
                        phase_clocks: bool = False) -> Tensor:
     """One DenseEquivariantUpdate forward; positions stay float32.
-    CUDA: ``csrc/fused_coord.cu``; ``phase_clocks`` as for ``fused_gcl``."""
+    CUDA: ``csrc/fused_coord.cu``; ``phase_clocks`` as for ``fused_gcl``.
+    On CUDA it raises when autograd would record the call: the kernel has
+    no backward, and a detached result would silently drop gradients."""
     device = _device_of(h)
     if device is None:
         return coord_update_plain(layer, h, edge_attr, coord_diff, x, edge_mask, node_mask)
+    if records_grad(layer, h, edge_attr, coord_diff, x):
+        raise RuntimeError(
+            "fused_coord_update has no backward kernel (nor has the JAX package's Pallas "
+            "kernel); call it under torch.no_grad(), or use coord_update_plain when a "
+            "gradient is needed (DenseEquivariantUpdate does so)")
     b, n, hidden = h.shape
     e_nf = edge_attr.shape[-1]
     _check("h", h, (b, n, hidden), device)

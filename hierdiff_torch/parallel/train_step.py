@@ -1,0 +1,158 @@
+"""One coarse training step on one device: optimizer, clipping, EMA.
+
+Port of ``hierdiff_tpu/parallel/train_step.py`` (``TrainState``,
+``make_train_step``) and of ``hierdiff_tpu/train/trainer.py:build_optimizer``:
+gradients from ``loss.backward()``; ``grad_norm`` is the global L2 norm
+before clipping; clipping follows ``optax.clip_by_global_norm`` exactly
+(``g / norm * max_norm`` only when ``norm >= max_norm``; torch's
+``clip_grad_norm_`` would add 1e-6 to the norm); then AdamW with optax's
+defaults and decoupled weight decay on every parameter, the learning rate taken from optax's schedules at the
+update's count; then the EMA, in the model's own ``deepcopy``, after the
+update. The JAX package's data-parallel mesh is not ported.
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+from typing import Callable, Dict, List
+
+import torch
+from torch import Tensor, nn
+
+from hierdiff_torch.config import OptimConfig
+from hierdiff_torch.ops.egnn import drop_kernel_caches
+
+
+def _cosine(init_value: float, decay_steps: int, alpha: float = 0.0) -> Callable[[int], float]:
+    def schedule(count: int) -> float:
+        count = min(count, decay_steps)
+        cosine = 0.5 * (1 + math.cos(math.pi * count / decay_steps))
+        return init_value * ((1 - alpha) * cosine + alpha)
+    return schedule
+
+
+def learning_rate_schedule(cfg: OptimConfig) -> Callable[[int], float]:
+    """The learning rate at update ``count`` (0 for the first update), as
+    ``build_optimizer``'s optax schedules compute it: constant, cosine
+    decay, staircase exponential decay (``step``), or, with
+    ``warmup_steps``, linear warmup from 0 joined to cosine decay."""
+    if cfg.warmup_steps > 0:
+        warm, cos = cfg.warmup_steps, _cosine(cfg.lr, cfg.decay_steps - cfg.warmup_steps)
+        return lambda count: (cfg.lr * min(count, warm) / warm if count < warm
+                              else cos(count - warm))
+    if cfg.schedule == "cosine":
+        return _cosine(cfg.lr, cfg.decay_steps)
+    if cfg.schedule == "step":
+        return lambda count: cfg.lr * cfg.step_gamma ** (count // cfg.step_size)
+    return lambda count: cfg.lr
+
+
+def build_optimizer(cfg: OptimConfig, params: List[nn.Parameter]) -> torch.optim.Optimizer:
+    """optax.adamw with optax's defaults (the JAX package's ``adam`` and
+    ``sgd`` choices are not ported); the learning rate is set per update
+    by ``TrainState``."""
+    if cfg.optimizer != "adamw":
+        raise NotImplementedError(f"optimizer {cfg.optimizer!r}: only 'adamw' is ported")
+    return torch.optim.AdamW(params, lr=learning_rate_schedule(cfg)(0), betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=cfg.weight_decay)
+
+
+def global_norm(tensors: List[Tensor]) -> Tensor:
+    """The L2 norm of all elements together (optax.global_norm), from the
+    per-tensor norms of one foreach launch."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+class TrainState:
+    """Model, optimizer, EMA copy and update count.
+
+    The EMA model is a ``deepcopy`` of the model with its own kernel-weight
+    caches (dropped at the copy, so the two never share bf16 weights); its
+    parameters are updated in place after every step, which rebuilds its
+    caches when it next runs."""
+
+    def __init__(self, model: nn.Module, cfg: OptimConfig):
+        self.model = model
+        self.params = list(model.parameters())
+        self.schedule = learning_rate_schedule(cfg)
+        self.optimizer = build_optimizer(cfg, self.params)
+        self.grad_clip = cfg.grad_clip
+        self.ema_decay = cfg.ema_decay
+        self.ema = None
+        if cfg.ema_decay > 0:
+            self.ema = drop_kernel_caches(copy.deepcopy(model)).requires_grad_(False)
+        self.step = 0
+
+    def apply_gradients(self) -> Tensor:
+        """Clip, step the optimizer and the EMA; returns the gradient's
+        global norm before clipping."""
+        norm = self.update()
+        self.update_ema()
+        return norm
+
+    def update(self) -> Tensor:
+        """Clip and step the optimizer; returns the norm before clipping."""
+        for p in self.params:   # every parameter takes part, as in optax
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        norm = global_norm(grads)
+        if self.grad_clip:
+            # g if norm < max_norm else g / norm * max_norm, on the device
+            # (no host sync): each branch is multiplied by an exact 1 or 0
+            keep = (norm < self.grad_clip).to(norm.dtype)
+            clipped = torch._foreach_div(grads, norm)
+            torch._foreach_mul_(clipped, self.grad_clip)
+            torch._foreach_mul_(clipped, 1.0 - keep)
+            torch._foreach_mul_(grads, keep)
+            torch._foreach_add_(grads, clipped)
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.schedule(self.step)
+        self.optimizer.step()
+        drop_kernel_caches(self.model)   # a fused step leaves version counters as they were
+        self.step += 1
+        return norm.detach()
+
+    def update_ema(self) -> None:
+        """ema = ema * decay + (1 - decay) * params, after the update."""
+        if self.ema is not None:
+            with torch.no_grad():
+                ema_params = list(self.ema.parameters())
+                torch._foreach_mul_(ema_params, self.ema_decay)
+                torch._foreach_add_(ema_params, self.params, alpha=1.0 - self.ema_decay)
+
+    def state_dict(self) -> dict:
+        out = {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+               "step": self.step}
+        if self.ema is not None:
+            out["ema"] = self.ema.state_dict()
+        return out
+
+    def load_state_dict(self, state: dict) -> None:
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+        if self.ema is not None:
+            self.ema.load_state_dict(state["ema"], strict=True)
+
+
+def train_step(state: TrainState, batch: Dict[str, Tensor],
+               generator: torch.Generator) -> Dict[str, Tensor]:
+    """Loss, gradients and one update. Returns device scalars: loss, the
+    batch-mean eps error and grad_norm (not synchronised)."""
+    out = state.model(batch, generator, train=True)
+    state.optimizer.zero_grad(set_to_none=True)
+    out["loss"].backward()
+    grad_norm = state.apply_gradients()
+    return {"loss": out["loss"].detach(), "error": out["error"].detach().mean(),
+            "grad_norm": grad_norm}
+
+
+def eval_step(model: nn.Module, batch: Dict[str, Tensor],
+              generator: torch.Generator) -> Dict[str, Tensor]:
+    """The training loss of ``model`` on a batch, without gradients (the
+    JAX package's eval step runs its loss_fn with train=True as well)."""
+    with torch.no_grad():
+        out = model(batch, generator, train=True)
+    return {"loss": out["loss"], "error": out["error"].mean()}

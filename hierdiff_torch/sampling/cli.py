@@ -37,10 +37,11 @@ def build_coarse_from_cfg(cfg: CoarseModelConfig, compute_dtype=None,
     PyTorch's default initialisation. ``compute_dtype`` overrides the
     config's elementwise type ('bfloat16' or 'float32')."""
     if cfg.pocket:
-        raise NotImplementedError("pocket-conditioned sampling is not ported")
+        raise NotImplementedError("the pocket-conditioned model is not ported")
     device = resolve_device(device)
     model = CoarseDiffusion(
-        in_node_nf=cfg.in_node_nf, timesteps=cfg.timesteps,
+        in_node_nf=cfg.in_node_nf, int_nf=cfg.int_nf, cont_nf=cfg.cont_nf,
+        timesteps=cfg.timesteps, loss_type=cfg.loss_type,
         noise_schedule=cfg.noise_schedule, noise_precision=cfg.noise_precision,
         norm_values=cfg.norm_values, norm_biases=cfg.norm_biases,
         hidden_nf=cfg.hidden_nf, n_layers=cfg.n_layers, inv_sublayers=cfg.inv_sublayers,

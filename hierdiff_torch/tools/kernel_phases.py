@@ -1,17 +1,27 @@
-"""Where the time goes in the fused EGNN kernels and in the coarse sampler.
+"""Where the time goes in the fused EGNN kernels, the coarse sampler and the
+coarse training step.
 
     python -m hierdiff_torch.tools.kernel_phases
 
-Needs a CUDA GPU. Three measurements, one JSON line each:
-  1. per-phase SM cycles inside ``fused_gcl`` and ``fused_coord_update`` at
-     the sampler's shapes (B=64, N=32, H=256, E=2, ragged node counts),
-     launched with ``phase_clocks=True``: their ``-DHD_PHASE_CLOCKS`` build
-     (separate libraries), whose thread 0 of every block reads ``clock64``
-     after each barrier;
+Needs a CUDA GPU. Four measurements, JSON lines:
+  1. per-phase SM cycles inside ``fused_gcl``, ``fused_coord_update`` and
+     ``fused_gcl_bwd`` (its edge kernel) at the GEOM layer shapes (B=64,
+     N=32, H=256, E=2, ragged node counts), launched with
+     ``phase_clocks=True``: their ``-DHD_PHASE_CLOCKS`` build (separate
+     libraries), whose thread 0 of every block reads ``clock64`` after each
+     barrier;
   2. torch.profiler's device time per CUDA kernel for the same calls;
   3. the sampler's main path (GEOM config, random weights, batch 64, a few
      reverse steps) under torch.profiler: device time by kernel and the
-     device's busy share of the wall time.
+     device's busy share of the wall time;
+  4. the training step (GEOM config, bf16 elementwise as
+     configs/coarse_geom.yaml trains, batch 64 from the synthetic GEOM pool's
+     bucket mix): CUDA-event times of the forward, the backward, the
+     optimizer update and the EMA, the host wall per step, and under
+     torch.profiler the device time of the forward kernels, of the
+     backward kernel's launches and of everything else (the plain
+     coordinate-update autograd, the loss, the optimizer), and the device's
+     busy share.
 """
 
 from __future__ import annotations
@@ -29,6 +39,11 @@ GCL_PHASES = ("tile setup", "pre-activation build", "W2 product", "gate and mask
               "row sums", "node MLP")
 COORD_PHASES = ("tile setup", "pre-activation build", "W2 product", "head and coord terms",
                 "coord sums", "output")
+BWD_PHASES = ("tile setup", "pre-activation build", "W2 product", "gate and silu backward",
+              "du product and dW2 partial", "dpre, sums and dW_e", "de")
+# CUDA kernels of csrc/fused_gcl_bwd.cu besides proj_kernel
+BACKWARD_KERNELS = ("gcl_bwd_kernel", "gemm_kernel", "node_prep_kernel", "node_act_kernel",
+                    "node_dz_kernel", "node_split_kernel", "reduce_kernel", "colsum_kernel")
 
 
 def layer_inputs(rng: np.random.Generator, device, b: int = B, n: int = N, h: int = H):
@@ -58,8 +73,8 @@ def _device_us(prof, calls: int) -> dict:
 
     out = {}
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
+        if evt.device_type != DeviceType.CUDA or evt.key.startswith("Optimizer."):
+            continue   # the optimizer's range annotation repeats its kernels' time
         t = getattr(evt, "self_device_time_total", None)
         if t is None:
             t = evt.self_cuda_time_total
@@ -78,15 +93,22 @@ def main() -> None:
     from hierdiff_torch.utils.weights import init_weights
 
     device = torch.device("cuda")
-    hh, x, e, cdiff, em, nm, _ = layer_inputs(np.random.default_rng(0), device)
+    torch.set_grad_enabled(False)
+    rng = np.random.default_rng(0)
+    hh, x, e, cdiff, em, nm, _ = layer_inputs(rng, device)
     gcl = init_weights(DenseGCL(H, E, normalization_factor=10.0, attention=True).to(device),
                        torch.Generator().manual_seed(0))
+    g = torch.from_numpy(rng.standard_normal(hh.shape).astype(np.float32)).to(device)
+    agg = torch.empty_like(hh)
+    ek._launch_gcl(gcl, hh, e, em, nm, hh.device, agg_out=agg)
     equ = init_weights(DenseEquivariantUpdate(H, E, normalization_factor=10.0, tanh=True,
                                               coords_range=5.0).to(device),
                        torch.Generator().manual_seed(0))
     calls = {"fused_gcl": (partial(ek.fused_gcl, gcl, hh, e, em, nm), "fused_gcl", GCL_PHASES),
              "fused_coord_update": (partial(ek.fused_coord_update, equ, hh, e, cdiff, x, em, nm),
-                                    "fused_coord", COORD_PHASES)}
+                                    "fused_coord", COORD_PHASES),
+             "fused_gcl_bwd": (partial(ek.fused_gcl_bwd, gcl, hh, e, em, nm, g, agg),
+                               "fused_gcl_bwd", BWD_PHASES)}
     reps = 10
 
     # 1. phase clocks (instrumented build)
@@ -146,6 +168,78 @@ def main() -> None:
                                     "steps": steps, "wall_ms_per_forward": wall * 1e3 / (steps + 1),
                                     "device_busy_share": busy_us * (steps + 1) / (wall * 1e6),
                                     "device_us_per_forward": per_kernel}}))
+
+    # 4. the training step
+    torch.set_grad_enabled(True)
+    print(json.dumps({"train_step": train_step_breakdown(device)}))
+
+
+def train_step_breakdown(device: torch.device, steps: int = 8) -> dict:
+    """Per-step times of the GEOM training step (see the module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hierdiff_torch.config import load_config
+    from hierdiff_torch.parallel.train_step import TrainState
+    from hierdiff_torch.sampling.cli import build_coarse_from_cfg
+    from hierdiff_torch.train.data_iters import coarse_iter, load_tree_pool, to_device
+    from hierdiff_torch.utils.weights import init_weights
+
+    cfg = load_config(None, ["coarse.compute_dtype=bfloat16", f"train.batch_size={B}",
+                             "train.num_train_trees=512"])
+    model = init_weights(build_coarse_from_cfg(cfg.coarse, device=device).train(),
+                         torch.Generator().manual_seed(0))
+    state = TrainState(model, cfg.optim)
+    gen = torch.Generator(device=device).manual_seed(0)
+    it = coarse_iter(cfg, load_tree_pool(cfg, seed=0), seed=0)
+    batches = [to_device(next(it), device) for _ in range(steps + 2)]
+
+    def step(batch, events=None):
+        mark = (lambda i: events[i].record()) if events else (lambda i: None)
+        mark(0)
+        out = model(batch, gen, train=True)
+        mark(1)
+        state.optimizer.zero_grad(set_to_none=True)
+        out["loss"].backward()
+        mark(2)
+        state.update()
+        mark(3)
+        state.update_ema()
+        mark(4)
+
+    for batch in batches[:2]:   # warm-up: kernel build, caches, allocator
+        step(batch)
+    torch.cuda.synchronize()
+    parts = np.zeros(4)
+    start = time.perf_counter()
+    for batch in batches[2:]:
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        step(batch, events)
+        torch.cuda.synchronize()
+        parts += [events[i].elapsed_time(events[i + 1]) for i in range(4)]
+    wall_ms = (time.perf_counter() - start) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        p_start = time.perf_counter()
+        for batch in batches[2:]:
+            step(batch)
+        torch.cuda.synchronize()
+        p_wall = time.perf_counter() - p_start
+    per_kernel = _device_us(prof, steps)
+    group = lambda names: sum(v for k, v in per_kernel.items()   # noqa: E731
+                              if any(f"hd::{n}" in k for n in names))
+    busy_us = sum(per_kernel.values())
+    # proj_kernel runs once in each GCL forward and once in each backward, at
+    # the same shape (the coordinate update takes its plain route here)
+    fwd_us = group(("gcl_kernel",)) + group(("proj_kernel",)) / 2
+    bwd_us = group(BACKWARD_KERNELS) + group(("proj_kernel",)) / 2
+    return {"batch": B, "steps": steps, "bucket_mix": [int(b["positions"].shape[1]) for b in batches[2:]],
+            "wall_ms_per_step": wall_ms,
+            "event_ms_per_step": dict(zip(("forward", "backward", "optimizer", "ema"),
+                                          (parts / steps).tolist())),
+            "device_us_per_step": {"forward_kernels": fwd_us, "backward_kernel": bwd_us,
+                                   "other": busy_us - fwd_us - bwd_us},
+            "device_busy_share": busy_us / (wall_ms * 1e3),
+            "device_busy_share_under_profiler": busy_us * steps / (p_wall * 1e6),
+            "top_kernels_us_per_step": dict(list(per_kernel.items())[:25])}
 
 
 if __name__ == "__main__":

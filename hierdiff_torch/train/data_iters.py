@@ -1,0 +1,124 @@
+"""Batch iterators of the coarse training stage.
+
+Port of the coarse half of ``hierdiff_tpu/train/data_iters.py``: the
+synthetic GEOM-like pool or a directory of preprocessed ``.npz`` trees
+(``load_tree_pool``), batches of one bucket each, the bucket drawn in
+proportion to its population (``coarse_iter``; the same Python and numpy
+draws as the JAX package, so the same seed gives the same batches), and a
+prefetcher that collates on a thread and copies pinned host tensors to the
+device with ``non_blocking=True``.
+"""
+
+from __future__ import annotations
+
+import json
+import queue
+import random
+import threading
+from pathlib import Path
+from typing import Dict, Iterator, List
+
+import numpy as np
+import torch
+
+from hierdiff_torch.config import Config
+from hierdiff_torch.data.collate import bucket_for, collate_coarse
+from hierdiff_torch.data.synthetic import SyntheticTree, SyntheticTreeGenerator
+
+
+def load_tree_pool(cfg: Config, seed: int = 0) -> List[SyntheticTree]:
+    """Synthetic pool of ``train.num_train_trees`` trees, or the ``.npz``
+    tree files under ``train.data`` (optionally those named by the JSON list
+    ``train.data_split``)."""
+    src = cfg.train.data
+    if src == "synthetic":
+        gen = SyntheticTreeGenerator(seed=seed, mode=cfg.coarse.node_coarse_type,
+                                     dataset=cfg.coarse.dataset)
+        return gen.sample_trees(cfg.train.num_train_trees)
+    names = None
+    if cfg.train.data_split:
+        names = set(json.loads(Path(cfg.train.data_split).read_text()))
+    pool = []
+    for p in sorted(Path(src).glob("*.npz")):
+        if names is not None and p.name not in names:
+            continue
+        with np.load(p) as z:
+            pool.append(SyntheticTree(feats=z["feats"], pos=z["pos"], adj=z["adj"],
+                                      wids=z["wids"], sizes=z["sizes"]))
+    if not pool:
+        raise FileNotFoundError(f"no .npz trees under {src}")
+    return pool
+
+
+def _group_by_bucket(pool, buckets) -> Dict[int, List]:
+    groups: Dict[int, List] = {}
+    dropped = 0
+    for t in pool:
+        if t.feats.shape[0] > max(buckets):
+            dropped += 1
+            continue
+        groups.setdefault(bucket_for(t.feats.shape[0], buckets), []).append(t)
+    if dropped:
+        print(f"[data] dropped {dropped} trees larger than bucket {max(buckets)}")
+    return groups
+
+
+def coarse_iter(cfg: Config, pool, seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """Endless numpy batches: a bucket drawn in proportion to its trees,
+    then ``train.batch_size`` trees of it with replacement."""
+    if cfg.coarse.pocket:
+        raise NotImplementedError("pocket-conditioned training is not ported")
+    rng = random.Random(seed)
+    groups = _group_by_bucket(pool, cfg.train.buckets)
+    keys = list(groups.keys())
+    weights = [len(groups[k]) for k in keys]
+    while True:
+        bkt = rng.choices(keys, weights=weights)[0]
+        trees = rng.choices(groups[bkt], k=cfg.train.batch_size)
+        yield collate_coarse(trees, max_n=bkt)
+
+
+def finite(it: Iterator, n: int) -> Iterator:
+    for _ in range(n):
+        yield next(it)
+
+
+def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+    """numpy batch -> tensors on ``device``; for CUDA through pinned host
+    memory with ``non_blocking=True`` copies."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        else:
+            t = t.to(device)
+        out[k] = t
+    return out
+
+
+def prefetch_to_device(it: Iterator[Dict[str, np.ndarray]], device: torch.device,
+                       size: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
+    """Collate and copy the next ``size`` batches on a background thread
+    while the current step runs. The copies are issued on the device's
+    current stream, so a step that uses a batch is ordered after its copy."""
+    q: "queue.Queue" = queue.Queue(maxsize=size)
+    end = object()
+
+    def worker():
+        try:
+            for batch in it:
+                q.put(to_device(batch, device))
+        except BaseException as exc:   # re-raised in the consumer
+            q.put(exc)
+        finally:
+            q.put(end)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is end:
+            return
+        if isinstance(item, BaseException):
+            raise item
+        yield item

@@ -1,0 +1,200 @@
+"""Training loop of the coarse stage: steps, evaluation, checkpoints, metrics.
+
+Port of ``hierdiff_tpu/train/trainer.py`` (``Trainer``): ``fit`` runs
+``train.max_steps`` steps, evaluates on the EMA weights every
+``train.eval_every`` steps (under ``torch.no_grad()``), keeps the last 3
+checkpoints under ``checkpoints/`` and the best-eval one under
+``checkpoints_best/`` (the reference's save_last + top-1 policy), writes the
+EMA weights to ``ema.pt`` at every save (a state dict that
+``python -m hierdiff_torch.sampling.cli coarse --weights`` loads with
+``strict=True``), appends every logged row to ``metrics.csv`` and prints it
+with ``steps_per_sec`` and ``molecules_per_sec``. ``try_resume`` continues
+from the latest checkpoint; ``find_lr`` is the exponential learning-rate
+sweep. Checkpoints are ``torch.save`` files; TensorBoard and W&B logging are
+not ported.
+"""
+
+from __future__ import annotations
+
+import copy
+import csv
+import dataclasses
+import json
+import math
+import os
+import time
+from pathlib import Path
+from typing import Callable, Dict, Iterator, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from hierdiff_torch.config import Config
+from hierdiff_torch.ops.egnn import drop_kernel_caches
+from hierdiff_torch.parallel.train_step import TrainState, eval_step, train_step
+
+CSV_FIELDS = ("step", "split", "loss", "error", "grad_norm", "steps_per_sec",
+              "molecules_per_sec")
+KEEP_LAST = 3
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Trainer:
+    """Loop over a model whose ``forward(batch, generator, train=True)``
+    returns ``{"loss", "error", ...}`` (``models/diffusion.py``)."""
+
+    def __init__(self, cfg: Config, model: nn.Module, device: torch.device,
+                 monitor: str = "loss"):
+        self.cfg = cfg
+        self.device = device
+        self.workdir = Path(cfg.train.workdir)
+        self.workdir.mkdir(parents=True, exist_ok=True)
+        (self.workdir / "config.json").write_text(json.dumps(dataclasses.asdict(cfg), indent=2))
+        self.state = TrainState(model, cfg.optim)
+        self.generator = torch.Generator(device=device).manual_seed(cfg.train.seed)
+        self.monitor = monitor
+        self.best = float("inf")
+        self.ckpt_dir = self.workdir / "checkpoints"
+        self.best_dir = self.workdir / "checkpoints_best"
+        self.metrics_file = self.workdir / "metrics.csv"
+
+    # --- checkpointing -----------------------------------------------------
+
+    def save(self, best: bool = False) -> Path:
+        """A checkpoint of model, optimizer, EMA, step and generator; the
+        periodic ones also refresh ``ema.pt``."""
+        directory = self.best_dir if best else self.ckpt_dir
+        directory.mkdir(parents=True, exist_ok=True)
+        payload = self.state.state_dict()
+        payload["generator"] = self.generator.get_state()
+        payload["best"] = self.best
+        path = directory / f"step_{self.state.step:08d}.pt"
+        tmp = path.with_suffix(".tmp")
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        for old in sorted(directory.glob("step_*.pt"))[:-(1 if best else KEEP_LAST)]:
+            old.unlink()
+        if not best:
+            weights = self.state.ema if self.state.ema is not None else self.state.model
+            torch.save(weights.state_dict(), self.workdir / "ema.tmp")
+            os.replace(self.workdir / "ema.tmp", self.workdir / "ema.pt")
+        return path
+
+    def try_resume(self) -> bool:
+        """Continue from the latest checkpoint under ``checkpoints/``, if any
+        (the reference's try_resume, endiffusion/train.py:35-85)."""
+        ckpts = sorted(self.ckpt_dir.glob("step_*.pt"))
+        if not ckpts:
+            return False
+        payload = torch.load(ckpts[-1], map_location="cpu", weights_only=True)
+        self.state.load_state_dict(payload)
+        self.generator.set_state(payload["generator"])
+        self.best = float(payload["best"])
+        return True
+
+    # --- logging -----------------------------------------------------------
+
+    def log(self, step: int, metrics: Dict[str, float], split: str = "train") -> None:
+        row = {"step": step, "split": split, **metrics}
+        new = not self.metrics_file.exists()
+        with open(self.metrics_file, "a", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=CSV_FIELDS, extrasaction="ignore")
+            if new:
+                writer.writeheader()
+            writer.writerow(row)
+        msg = " ".join(f"{k}={v:.6g}" for k, v in metrics.items())
+        print(f"[{split}] step {step}: {msg}", flush=True)
+
+    # --- loop --------------------------------------------------------------
+
+    def fit(self, train_iter: Iterator[Dict[str, torch.Tensor]],
+            eval_iter: Optional[Callable[[], Iterator]] = None) -> Dict[str, float]:
+        """Train to ``train.max_steps``. Returns the run's step count, wall
+        seconds, and steps/s and molecules/s over the training steps after
+        the first (which pays for the kernel build and first-use set-up);
+        evaluations and checkpoint writes are left out of those rates."""
+        cfg = self.cfg.train
+        start = self.state.step
+        t_start = t_log = time.perf_counter()
+        t_after_first, side = None, 0.0
+        for step in range(start, cfg.max_steps):
+            batch = next(train_iter)
+            metrics = train_step(self.state, batch, self.generator)
+            if step == start:
+                _sync(self.device)
+                t_after_first = time.perf_counter()
+            if (step + 1) % cfg.log_every == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                now = time.perf_counter()
+                m["steps_per_sec"] = cfg.log_every / max(now - t_log, 1e-9)
+                m["molecules_per_sec"] = m["steps_per_sec"] * cfg.batch_size
+                t_log = now
+                self.log(step + 1, m)
+            evaluate = eval_iter is not None and (step + 1) % cfg.eval_every == 0
+            if evaluate or (step + 1) % cfg.checkpoint_every == 0:
+                _sync(self.device)
+                t_side = time.perf_counter()
+                if evaluate:
+                    ev = self.evaluate(eval_iter())
+                    self.log(step + 1, ev, split="val")
+                    if ev[self.monitor] < self.best:
+                        self.best = ev[self.monitor]
+                        self.save(best=True)
+                if (step + 1) % cfg.checkpoint_every == 0:
+                    self.save()
+                _sync(self.device)
+                side += time.perf_counter() - t_side
+                t_log += time.perf_counter() - t_side
+        _sync(self.device)
+        end = time.perf_counter()
+        self.save()
+        steps = cfg.max_steps - start
+        timed = steps - 1 if steps > 1 else 0
+        busy = end - t_after_first - side if t_after_first is not None else 0.0
+        rate = timed / busy if timed and busy > 0 else float("nan")
+        return {"steps": steps, "seconds": end - t_start, "steps_per_sec": rate,
+                "molecules_per_sec": rate * cfg.batch_size}
+
+    def evaluate(self, it: Iterator) -> Dict[str, float]:
+        """Mean loss and error on the EMA weights (the weights sampling
+        uses), or on the model's own when EMA is off."""
+        model = self.state.ema if self.state.ema is not None else self.state.model
+        acc: Dict[str, list] = {}
+        for batch in it:
+            for k, v in eval_step(model, batch, self.generator).items():
+                acc.setdefault(k, []).append(float(v))
+        return {k: float(np.mean(v)) for k, v in acc.items()}
+
+    # --- LR finder -----------------------------------------------------------
+
+    def find_lr(self, train_iter: Iterator, min_lr: float = 1e-6, max_lr: float = 1.0,
+                n_steps: int = 100) -> float:
+        """Exponential LR sweep (the reference's find_lr mode,
+        endiffusion/train.py:93-125) on a copy of the model: writes
+        ``lr_find.csv`` and returns the rate a tenth of the sweep below the
+        lowest loss."""
+        lrs = np.exp(np.linspace(np.log(min_lr), np.log(max_lr), n_steps))
+        optim = dataclasses.replace(self.cfg.optim, ema_decay=0.0)
+        state = TrainState(drop_kernel_caches(copy.deepcopy(self.state.model)), optim)
+        state.schedule = lambda count: float(lrs[count])
+        losses = []
+        best = float("inf")
+        for _ in range(n_steps):
+            loss = float(train_step(state, next(train_iter), self.generator)["loss"])
+            losses.append(loss)
+            best = min(best, loss)
+            if not math.isfinite(loss) or loss > 10 * abs(best) + 1e3:
+                break   # diverged
+        with open(self.workdir / "lr_find.csv", "w", newline="") as f:
+            writer = csv.writer(f)
+            writer.writerow(["lr", "loss"])
+            writer.writerows(zip(lrs[: len(losses)], losses))
+        suggestion = float(lrs[max(int(np.nanargmin(losses)) - n_steps // 10, 0)])
+        print(f"find_lr: {len(losses)} steps, min loss {min(losses):.4g}, "
+              f"suggested lr {suggestion:.3g}")
+        return suggestion

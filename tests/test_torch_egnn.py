@@ -8,6 +8,7 @@ CUDA kernels are held to the plain path on the card (``gpu`` marker here,
 and chip_smoke.py).
 """
 
+import copy
 import functools
 
 import jax
@@ -250,6 +251,150 @@ def test_phase_clock_build_is_a_separate_library():
         assert _build.library_path(name, phase_clocks=True) != _build.library_path(name)
 
 
+def _out_loss(out):
+    """A scalar whose gradient w.r.t. the layer output varies per element."""
+    return (out * (out * 0.1).cos()).sum()
+
+
+def _kernel_layout(flat: dict, attention: bool) -> dict:
+    """A DenseGCL's flat flax params (or grads) -> the Pallas kernels' tree."""
+    kp = {"edge_in": {"w_src": flat["edge_in_w_src"], "w_dst": flat["edge_in_w_dst"],
+                      "w_e": flat["edge_in_w_e"], "bias": flat["edge_in_bias"]},
+          "edge_out": {"kernel": flat["edge_out_kernel"], "bias": flat["edge_out_bias"]},
+          "node_in": {"kernel": flat["node_in_kernel"], "bias": flat["node_in_bias"]},
+          "node_out": {"kernel": flat["node_out_kernel"], "bias": flat["node_out_bias"]}}
+    if attention:
+        kp["att"] = {"kernel": flat["att_kernel"], "bias": flat["att_bias"]}
+    return kp
+
+
+@pytest.mark.parametrize("attention", [True, False])
+def test_gcl_gradients_match_xla_ad(attention):
+    """Autograd of the port's DenseGCL (the plain path, the reference of the
+    backward kernel) against jax.grad of the XLA DenseGCL: dh, de and every
+    parameter, f32."""
+    jl, params, port, (hh, x, e, em, nm) = _gcl_pair(32, 2, attention)
+
+    def loss(p, hh_, e_):
+        with jax.default_matmul_precision("highest"):
+            out = jl.apply(p, hh_, e_, nm, em)
+        return jax.numpy.sum(out * jax.numpy.cos(out * 0.1))
+
+    g_p, g_h, g_e = jax.grad(loss, argnums=(0, 1, 2))(params, hh, e)
+    ref = _port_state(tw._gcl, jax.tree_util.tree_map(np.asarray, g_p["params"]))
+    th, tev = (t.requires_grad_(True) for t in _t(hh, e))
+    _out_loss(port(th, tev, *_t(nm, em))).backward()
+    assert _rel(th.grad, g_h) < F32_REL and _rel(tev.grad, g_e) < F32_REL
+    assert sorted(ref) == sorted(n for n, _ in port.named_parameters())
+    for name, param in port.named_parameters():
+        assert _rel(param.grad, ref[name]) < F32_REL, name
+
+
+@pytest.mark.parametrize("cd", [None, "bfloat16"])
+@pytest.mark.parametrize("attention", [True, False])
+def test_gcl_plain_vjp_matches_pallas_gcl_vjp(interpret_pallas, cd, attention):
+    """``gcl_plain_vjp`` (what the backward kernel is held to on the card)
+    against the JAX package's ``gcl_vjp`` under the Pallas interpreter, at
+    the bars gcl_vjp meets against XLA (tests/test_pallas_interpret.py:151):
+    2e-2 in f32, 4e-2 with bf16 elementwise."""
+    from hierdiff_tpu.ops import egnn_pallas as ep
+
+    _, params, port, (hh, x, e, em, nm) = _gcl_pair(32, 2, attention, cd=cd)
+    kp = _kernel_layout(params["params"], attention)
+    f = ep.gcl_vjp(10.0, attention, cd)
+
+    def loss(kp_, hh_, e_):
+        out = f(hh_, e_, em, nm, kp_)
+        return jax.numpy.sum(out * jax.numpy.cos(out * 0.1))
+
+    g_k, g_h, g_e = jax.grad(loss, argnums=(0, 1, 2))(kp, hh, e)
+    th, tev, tem, tnm = _t(hh, e, em, nm)
+    out = ek.gcl_plain(port, th, tev, tem, tnm).detach().requires_grad_(True)
+    _out_loss(out).backward()
+    grads = ek.gcl_plain_vjp(port, th, tev, tem, tnm, out.grad)
+    tol = PALLAS_REL if cd is None else 2 * PALLAS_REL
+    pairs = {"dh": g_h, "de": g_e, "w_src": g_k["edge_in"]["w_src"],
+             "w_dst": g_k["edge_in"]["w_dst"], "w_e": g_k["edge_in"]["w_e"],
+             "b1": g_k["edge_in"]["bias"], "w2": g_k["edge_out"]["kernel"],
+             "b2": g_k["edge_out"]["bias"], "w_node_in": g_k["node_in"]["kernel"],
+             "b_node_in": g_k["node_in"]["bias"], "w_node_out": g_k["node_out"]["kernel"],
+             "b_node_out": g_k["node_out"]["bias"]}
+    if attention:
+        pairs.update(w_att=g_k["att"]["kernel"][:, 0], b_att=g_k["att"]["bias"])
+    else:
+        assert grads.w_att is None and grads.b_att is None
+    for name, ref in pairs.items():
+        assert _rel(getattr(grads, name), ref) < tol, name
+
+
+def test_autograd_takes_the_kernel_function_and_the_plain_coordinate_update(monkeypatch):
+    """The repaired fault: a kernel's output has no autograd history, so on
+    the card the GCL must run as FusedGCLFunction (whose backward is the
+    backward kernel) and the coordinate update, which has no backward
+    kernel, must take its plain version when a gradient is recorded. Here
+    the device check reports CUDA and the launches are stood in for by the
+    plain versions computed without history, as a kernel's are."""
+    egnn = te.DenseEGNN(9, hidden_nf=32, n_layers=2, inv_sublayers=2, attention=True,
+                        tanh=True, coords_range=30.0, norm_constant=0.0,
+                        normalization_factor=10.0)
+    tw.init_weights(egnn, torch.Generator().manual_seed(0))
+    hh, x, _, em, nm = _inputs(h=9)
+    args = _t(hh, x, nm, em)
+    ref = copy.deepcopy(egnn)
+    out_ref = ref(*args)
+    (_out_loss(out_ref[0]) + _out_loss(out_ref[1])).backward()
+
+    calls = {"fwd_agg": [], "bwd": 0, "coord": 0}
+
+    def fake_launch(layer, h, e, em_, nm_, device, agg_out=None, phase_clocks=False):
+        calls["fwd_agg"].append(agg_out is not None)
+        with torch.no_grad():
+            if agg_out is not None:
+                agg_out.copy_(ek.gcl_agg_plain(layer, h, e, em_))
+            return ek.gcl_plain(layer, h, e, em_, nm_)
+
+    def fake_bwd(layer, h, e, em_, nm_, g, agg, device, phase_clocks=False):
+        calls["bwd"] += 1
+        return ek.gcl_plain_vjp(layer, h, e, em_, nm_, g)
+
+    def fake_coord(layer, h, e, cdiff, x_, em_, nm_):
+        calls["coord"] += 1
+        with torch.no_grad():
+            return ek.coord_update_plain(layer, h, e, cdiff, x_, em_, nm_)
+
+    monkeypatch.setattr(ek, "_device_of", lambda h: torch.device("cuda"))
+    monkeypatch.setattr(ek, "_launch_gcl", fake_launch)
+    monkeypatch.setattr(ek, "_launch_gcl_bwd", fake_bwd)
+    monkeypatch.setattr(te, "fused_coord_update", fake_coord)
+    monkeypatch.setattr(ek, "launch_counts", dict.fromkeys(ek.launch_counts, 0))
+
+    # the fault's mechanism: what a kernel returns carries no history
+    layer = egnn.e_block_0.gcl_0
+    probe = torch.zeros(3, 9, 32)
+    assert not fake_launch(layer, probe, torch.zeros(3, 9, 9, 2), *_t(em, nm), None).requires_grad
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        ek.fused_coord_update(egnn.e_block_0.gcl_equiv, probe, torch.zeros(3, 9, 9, 2),
+                              torch.zeros(3, 9, 9, 3), torch.zeros(3, 9, 3), *_t(em, nm))
+    calls["fwd_agg"].clear()
+
+    with torch.no_grad():   # sampling: both kernels, no residual
+        out_ng = egnn(*args)
+    assert calls == {"fwd_agg": [False] * 4, "bwd": 0, "coord": 2}
+    assert ek.launch_counts["coord_update_autograd"] == 0
+    assert _rel(out_ng[0], out_ref[0].detach()) < F32_REL
+
+    calls.update(fwd_agg=[], coord=0)
+    out = egnn(*args)   # training: the autograd Function and the plain coordinate update
+    assert calls == {"fwd_agg": [True] * 4, "bwd": 0, "coord": 0}
+    assert ek.launch_counts["coord_update_autograd"] == 2
+    assert out[0].grad_fn is not None
+    (_out_loss(out[0]) + _out_loss(out[1])).backward()
+    assert calls["bwd"] == 4
+    for (name, p), p_ref in zip(egnn.named_parameters(), ref.parameters()):
+        assert p.grad is not None and p.grad.abs().max() > 0, name
+        assert _rel(p.grad, p_ref.grad) < F32_REL, name
+
+
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions():
     """On the card: each kernel against its plain version at the sampler's
@@ -268,3 +413,23 @@ def test_cuda_kernels_match_plain_versions():
     with torch.no_grad():
         out = ek.fused_coord_update(equ, *args).cpu()
         assert _rel(out, ek.coord_update_plain(equ, *args).cpu()) < PALLAS_REL
+
+
+@pytest.mark.gpu
+def test_cuda_backward_kernel_matches_plain_vjp():
+    """On the card: fused_gcl_bwd against gcl_plain_vjp (chip_smoke.py phase
+    2b runs the same check at the training shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    _, _, gcl, (hh, x, e, em, nm) = _gcl_pair(256, 2, True)
+    gcl.to(dev)
+    args = [t.to(dev) for t in _t(hh, e, em, nm)]
+    g = torch.randn(hh.shape, generator=torch.Generator().manual_seed(0)).to(dev)
+    with torch.no_grad():
+        agg = torch.empty_like(args[0])
+        ek._launch_gcl(gcl, *args, args[0].device, agg_out=agg)
+        got = ek.fused_gcl_bwd(gcl, *args, g, agg)
+    ref = ek.gcl_plain_vjp(gcl, *args, g)
+    for name, a, r in zip(ek.GclGrads._fields, got, ref):
+        assert _rel(a.cpu(), r.cpu()) < PALLAS_REL, name

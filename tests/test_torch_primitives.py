@@ -174,8 +174,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          text=True, check=True, timeout=120)
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
-    assert "hierdiff_torch.sampling.cli" in report["modules"]
-    assert "hierdiff_torch.ops.egnn_kernels" in report["modules"]
+    for name in ("sampling.cli", "ops.egnn_kernels", "ops.losses", "models.diffusion",
+                 "data.synthetic", "data.collate", "train.data_iters", "train.trainer",
+                 "train.cli", "parallel.train_step"):
+        assert f"hierdiff_torch.{name}" in report["modules"], name
 
 
 def test_entry_points_need_cuda_unless_told_otherwise(monkeypatch, tmp_path):
@@ -190,4 +192,8 @@ def test_entry_points_need_cuda_unless_told_otherwise(monkeypatch, tmp_path):
         cli.build_coarse_from_cfg(CoarseModelConfig(hidden_nf=16, n_layers=1))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["coarse", "--init-seed", "0", "--out", str(tmp_path / "x.pkl")])
+    from hierdiff_torch.train import cli as train_cli
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(["coarse", "--init-seed", "0", f"train.workdir={tmp_path / 'run'}"])
+    assert not (tmp_path / "run").exists()
     assert resolve_device("cpu") == torch.device("cpu")
