@@ -6,7 +6,7 @@
 Phases, one output line each, any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions, then the nvcc build of ``hierdiff_torch/csrc`` and its time;
-  2. each kernel against its plain PyTorch version at the sampler's shapes
+  2. each kernel against its plain PyTorch version at the kernel shape
      (B=64, N=32, H=256, E=2, ragged node counts), on what the layer adds
      to its input (out - h for fused_gcl, out - x for fused_coord_update):
      the max error over the largest reference value must stay below 2e-2
@@ -14,10 +14,19 @@ Phases, one output line each, any failure exits non-zero:
      tests/test_pallas_interpret.py). fused_gcl runs once more with a node
      MLP that passes the aggregated messages through, so the edge path is
      not hidden behind the node MLP's h term, and fused_coord_update with a
-     coordinate head large enough to saturate tanh. Planted faults
-     (gate skipped, a W2 output channel zeroed, edge mask ignored, tanh
-     skipped), each run through the kernel, must fail that check. Kernel,
-     plain and bound times;
+     coordinate head large enough to saturate tanh. fused_gcl, which
+     computes only the edges its edge mask holds, also runs (pass-through
+     node MLP, all four variants) at the sampler's shape (GEOM-histogram
+     counts, N = their maximum), on a batch with 83-node molecules (rows
+     longer than a 64-edge tile), on node masks that do not start at node 0
+     with ~20% of the real edges masked out and nonzero h in padded rows,
+     and on molecules of 0 and 1 nodes; two of its runs must be bitwise
+     equal. Planted faults (gate skipped, a W2 output channel zeroed, edge
+     mask ignored, the edge mask without its holes given to the kernel
+     only, tanh skipped), each run through the kernel, must fail that
+     check. Kernel, plain and bound times, and with ``--parent-csrc DIR``
+     the time of an earlier fused_gcl source (tools/gcl_ab.py) at the
+     kernel and the sampler's shapes;
   2b. the backward kernel ``fused_gcl_bwd`` against autograd of the plain
      version (``gcl_plain_vjp``) at the same shapes with a random upstream
      gradient, attention on and off x f32 and bf16 elementwise, plus the
@@ -52,6 +61,7 @@ Phases, one output line each, any failure exits non-zero:
 
 from __future__ import annotations
 
+import argparse
 import copy
 import csv
 import json
@@ -203,7 +213,44 @@ def card_against_cpu(cli, ek, CoarseModelConfig, init_weights, gen, device) -> d
             "launches": launches, "missing": missing, "ok": ok}
 
 
+def holey_inputs(rng: np.random.Generator, device, b: int, n: int):
+    """fused_gcl inputs that prefix masks never give: node masks with random
+    members (node 0 absent in every other molecule), an edge mask with ~20%
+    of the real edges zeroed, nonzero h in padded rows. Returns h, edge_attr,
+    the holey edge mask, node_mask and the edge mask without the holes."""
+    from hierdiff_torch.ops.egnn import coord2diff_dense
+
+    nm = (rng.random((b, n, 1)) < 0.7).astype(np.float32)
+    nm[::2, 0] = 0.0
+    full = nm * np.transpose(nm, (0, 2, 1)) * (1.0 - np.eye(n, dtype=np.float32))
+    holey = full * (rng.random((b, n, n)) >= 0.2)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)  # noqa: E731
+    x = dev(rng.standard_normal((b, n, 3)) * 2 * nm)
+    radial, _ = coord2diff_dense(x, 0.0)
+    d0, _ = coord2diff_dense(x, 1.0)
+    return (dev(rng.standard_normal((b, n, H))), torch.cat([radial, d0], dim=-1).contiguous(),
+            dev(holey[..., None]), dev(nm), dev(full[..., None]))
+
+
+def gcl_work(counts: np.ndarray, b: int, n: int):
+    """fused_gcl's least work for a batch: bf16 FLOPs, SFU operations and
+    bytes over the real edges and nodes (each input read once, out written)."""
+    c = counts.astype(np.int64)
+    n_edges, n_nodes = float((c * (c - 1)).sum()), float(c.sum())
+    w_bytes_pair = (2 * H * H + E * H + H * H) * 2 + 2 * H * 4
+    flops = n_edges * (2 * H * H + 2 * E * H + 2 * H) + n_nodes * 10 * H * H
+    sfu = n_edges * (4 * H + 2) + n_nodes * 2 * H
+    nbytes = (b * n * H * 4 * 2 + b * n * n * E * 4 + b * n * n * 4 + b * n * 4
+              + w_bytes_pair + (H + 3 * H * H) * 2 + 3 * H * 4)
+    return flops, sfu, nbytes
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
+    ap.add_argument("--parent-csrc", type=Path, default=None,
+                    help="directory with an earlier fused_gcl.cu and its headers, timed "
+                         "beside the current one (tools/gcl_ab.py)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA GPU")
     from hierdiff_torch.config import CoarseModelConfig
@@ -211,7 +258,7 @@ def main() -> None:
     from hierdiff_torch.ops.egnn import DenseEGNN, DenseEquivariantUpdate, DenseGCL
     from hierdiff_torch.ops.masked import mean_zero_max_violation, masking_violation
     from hierdiff_torch.sampling import cli
-    from hierdiff_torch.tools.kernel_phases import layer_inputs
+    from hierdiff_torch.tools.kernel_phases import layer_inputs, sampler_counts
     from hierdiff_torch.train import cli as train_cli
     from hierdiff_torch.utils.weights import init_weights
 
@@ -244,16 +291,21 @@ def main() -> None:
     n_edges, n_nodes = float((c * (c - 1)).sum()), float(c.sum())
     w_bytes_pair = (2 * H * H + E * H + H * H) * 2 + 2 * H * 4
     results = {}
+    gcl_extra = {}
 
-    def check(name, variant, kernel_fn, plain_fn, base):
+    def check(name, variant, kernel_fn, plain_fn, base, timed=True):
         """What the kernel adds to ``base`` against what the plain version adds."""
         out, ref = kernel_fn() - base, plain_fn() - base
         torch.cuda.synchronize()
         abs_err, rel = rel_err(out, ref)
         ok = bool(torch.isfinite(out).all().item()) and rel < TOL
-        k_ms, p_ms = time_ms(kernel_fn), time_ms(plain_fn, reps=5, warmup=1)
+        k_ms = p_ms = None
+        times = ""
+        if timed:
+            k_ms, p_ms = time_ms(kernel_fn), time_ms(plain_fn, reps=5, warmup=1)
+            times = f" kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f}"
         print(f"kernel {name} [{variant}]: max_abs_err {abs_err:.3e} rel_err {rel:.3e} "
-              f"(bar {TOL}) kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} {'ok' if ok else 'FAIL'}")
+              f"(bar {TOL}){times} {'ok' if ok else 'FAIL'}")
         results.setdefault(name, []).append(
             {"variant": variant, "max_abs_err": abs_err, "rel_err": rel, "ms": k_ms,
              "plain_ms": p_ms, "ok": ok})
@@ -291,10 +343,67 @@ def main() -> None:
                       f"elementwise={cd or 'float32'}",
                       lambda: ek.fused_gcl(layer, h, e, em, nm),
                       lambda: ek.gcl_plain(layer, h, e, em, nm), h)
-    gcl_flops = n_edges * (2 * H * H + 2 * E * H + 2 * H) + n_nodes * 10 * H * H
-    gcl_sfu = n_edges * (4 * H + 2) + n_nodes * 2 * H
-    gcl_bytes = (h.numel() * 4 * 2 + e.numel() * 4 + em.numel() * 4 + nm.numel() * 4
-                 + w_bytes_pair + (H + 3 * H * H) * 2 + 3 * H * 4)
+    gcl_flops, gcl_sfu, gcl_bytes = gcl_work(counts, B, N)
+
+    # fused_gcl on shapes and masks that the prefix masks above never give
+    s_counts = sampler_counts(B, SEED)
+    s_n = int(s_counts.max())
+    sampler_in = layer_inputs(np.random.default_rng(SEED), device, B, s_n, H, counts=s_counts)
+    big_counts = np.array([83, 40, 12, 1, 0, 64, 83, 25, 70, 2, 33, 9, 65, 17, 80, 5])
+    big_in = layer_inputs(np.random.default_rng(SEED), device, len(big_counts), 83, H,
+                          counts=big_counts)
+    tiny_counts = np.array([0, 1, 0, 1, 5, 16, 1, 0])
+    tiny_in = layer_inputs(np.random.default_rng(SEED), device, len(tiny_counts), 16, H,
+                           counts=tiny_counts)
+    hh_h, e_h, em_h, nm_h, em_full = holey_inputs(np.random.default_rng(SEED + 2), device, B, N)
+    cases = {f"sampler shape B={B} N={s_n}": (sampler_in[0], sampler_in[2], sampler_in[4], sampler_in[5]),
+             f"83-node rows B={len(big_counts)} N=83": (big_in[0], big_in[2], big_in[4], big_in[5]),
+             f"holey masks B={B} N={N}": (hh_h, e_h, em_h, nm_h),
+             f"0- and 1-node molecules B={len(tiny_counts)} N=16": (
+                 tiny_in[0], tiny_in[2], tiny_in[4], tiny_in[5])}
+    for case, (h_, e_, em_, nm_) in cases.items():
+        print(f"fused_gcl case {case}: real edges {int(em_.sum().item())} of {em_.numel()} "
+              f"({em_.sum().item() / em_.numel():.3f})")
+        for attention in (True, False):
+            for cd in (None, "bfloat16"):
+                layer = pass_through(init_weights(DenseGCL(
+                    H, E, normalization_factor=10.0, attention=attention,
+                    compute_dtype=cd).to(device), gen()))
+                check("fused_gcl", f"{case} node_mlp=pass-through attention={attention} "
+                      f"elementwise={cd or 'float32'}",
+                      lambda: ek.fused_gcl(layer, h_, e_, em_, nm_),
+                      lambda: ek.gcl_plain(layer, h_, e_, em_, nm_), h_ * nm_, timed=False)
+    main_gcl = init_weights(DenseGCL(H, E, normalization_factor=10.0, attention=True).to(device),
+                            gen())
+    h_s, e_s, em_s, nm_s = cases[f"sampler shape B={B} N={s_n}"]
+    sampler_ms = time_ms(lambda: ek.fused_gcl(main_gcl, h_s, e_s, em_s, nm_s))
+    sampler_plain_ms = time_ms(lambda: ek.gcl_plain(main_gcl, h_s, e_s, em_s, nm_s), reps=5, warmup=1)
+    sampler_bound = bound(*gcl_work(s_counts, B, s_n), sm_clock_hz, n_sms)
+    print(f"kernel fused_gcl [sampler shape B={B} N={s_n}, node_mlp=random attention=True "
+          f"elementwise=float32]: kernel_ms {sampler_ms:.4f} plain_ms {sampler_plain_ms:.4f} "
+          f"bound_ms {sampler_bound[0]:.5f} ({sampler_bound[1]})")
+    bitwise = {}
+    for case, (h_, e_, em_, nm_) in [("kernel shape", (h, e, em, nm)),
+                                     ("holey masks", cases[f"holey masks B={B} N={N}"])]:
+        first, again = ek.fused_gcl(main_gcl, h_, e_, em_, nm_), ek.fused_gcl(main_gcl, h_, e_, em_, nm_)
+        bitwise[case] = torch.equal(first, again)
+    print(f"fused_gcl two runs bitwise equal: {bitwise}")
+    if not all(bitwise.values()):
+        fail(f"fused_gcl is not deterministic: {bitwise}")
+    parent_ms = {"kernel_shape": None, "sampler_shape": None}
+    if args.parent_csrc is not None:
+        from hierdiff_torch.tools import gcl_ab
+
+        parent_fn = gcl_ab.build_parent(args.parent_csrc)
+        for key, (h_, e_, em_, nm_) in [("kernel_shape", (h, e, em, nm)),
+                                        ("sampler_shape", (h_s, e_s, em_s, nm_s))]:
+            parent_ms[key] = gcl_ab.ab(parent_fn, main_gcl, h_, e_, em_, nm_)
+            print(f"fused_gcl against the parent source [{key}, node_mlp=random attention=True "
+                  f"elementwise=float32]: {parent_ms[key]}")
+    gcl_extra["fused_gcl"] = {
+        "sampler_shape": {"B": B, "N": s_n, "ms": sampler_ms, "plain_ms": sampler_plain_ms,
+                          "bound_ms": sampler_bound[0], "bound_by": sampler_bound[1]},
+        "parent": parent_ms, "bitwise_repeat": bitwise}
 
     probe = pass_through(init_weights(DenseGCL(H, E, normalization_factor=10.0,
                                                attention=True).to(device), gen()))
@@ -308,6 +417,9 @@ def main() -> None:
           lambda: ek.fused_gcl(no_w2_row, h, e, em, nm), plain_gcl, h)
     plant("fused_gcl", "edge mask ignored",
           lambda: ek.fused_gcl(probe, h, e, torch.ones_like(em), nm), plain_gcl, h)
+    plant("fused_gcl", "edge mask without its holes fed to the kernel only",
+          lambda: ek.fused_gcl(probe, hh_h, e_h, em_full, nm_h),
+          lambda: ek.gcl_plain(probe, hh_h, e_h, em_h, nm_h), hh_h * nm_h)
 
     equ = init_weights(DenseEquivariantUpdate(H, E, normalization_factor=10.0, tanh=True,
                                               coords_range=30.0 / 6).to(device), gen())
@@ -566,7 +678,7 @@ def main() -> None:
             "plain_ms": main_run["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_parts_ms": parts, "library_ms": None, "w2_matmul_ms": w2_matmul_ms,
             "variants": runs, "planted_faults": faults[name],
-            "ok": all(r["ok"] for r in runs)})
+            "ok": all(r["ok"] for r in runs), **gcl_extra.get(name, {})})
     print(json.dumps({"kernels": kernels, "train": {
         k: train[k] for k in ("steps", "seconds", "steps_per_sec", "molecules_per_sec")},
         "cache_after_step": cache, "step_gradients": step_grads}))

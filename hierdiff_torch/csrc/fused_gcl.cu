@@ -12,30 +12,27 @@
 // with bf16 matmul operands and f32 accumulation everywhere, like the Pallas
 // kernel. The (B,N,N,H) message tensor never reaches device memory.
 //
-// What bounds it: at the GEOM shape (B=64, N=32, H=256, E=2) the work is
-// ~10 GFLOP of bf16 products (the H x H edge product dominates) against ~3 MB
-// of device memory traffic, so bytes never bound it. The limit is the
-// arithmetic: 10 GFLOP is ~10 us at the bf16 tensor-core peak, while the
-// ~2 silu + 1 sigmoid per edge-channel need ~4 SFU operations (exp and
-// reciprocal) each, ~67 M in all, ~16 us at 16 SFU results per clock per SM.
+// What bounds it: per real edge 2 H^2 bf16 FLOPs of the W2 product against
+// ~4 H SFU operations (exp and reciprocal of two silus), so at H = 256 the
+// SFU, not the tensor cores or device memory, sets the bound.
 //
-// Design: two launches on the caller's stream. proj_kernel (edge_mlp.cuh)
-// computes [h W_src | h W_dst] for all nodes once (the Pallas kernel
-// recomputes the destination half per row chunk). gcl_kernel then walks work
-// items of kRows source rows (edge_mlp.cuh); per tile of kTileM edges it
-// builds the bf16 pre-activation in shared memory, runs the W2 product on the
-// tensor cores (WMMA, W2 resident in shared memory for the whole kernel),
-// applies bias, silu, gate and edge mask warp-per-edge, and adds the tile
-// into the f32 row sums column-per-thread (a fixed order, so the result is
-// deterministic). After the last tile of an item the node MLP runs on the
-// tensor cores for its rows, with the node weights read from L2. This first
-// version is plain WMMA with one block per SM; wgmma, TMA and warp
-// specialisation are later work.
-//
-// For training, the caller may pass agg_out (B,N,H): the kernel then also
-// writes agg_i (already divided by norm), the one residual that
-// fused_gcl_bwd.cu needs besides the inputs.
+// Design: five launches on the caller's stream.
+//  1-2. the real-edge work list (sm90.cuh): only edges with emask != 0 are
+//       computed, in (row, neighbour) order, packed into tiles of kTileM;
+//  3.   proj_kernel (edge_mlp.cuh): [h W_src | h W_dst] for every node;
+//  4.   gcl_edge_kernel: persistent blocks walk the tiles; per tile the bf16
+//       pre-activation is built in shared memory, multiplied by W2 (resident
+//       in shared memory) on the tensor cores, gated and masked, and the
+//       f32 messages are summed per source row in a fixed order. A row's
+//       run of edges that starts in the tile goes to agg[row]; the run that
+//       continues a row from the tile before goes to heads[tile];
+//  5.   gcl_node_kernel: agg_i = (agg[i] + heads of the tiles the row runs
+//       into, in tile order) / norm, written back to agg, then the node MLP
+//       over all B*N rows on the tensor cores.
+// No float atomics: two runs are bitwise equal. agg is the caller's buffer;
+// for training it is the residual that fused_gcl_bwd.cu reads.
 #include "edge_mlp.cuh"
+#include "sm90.cuh"
 
 namespace hd {
 
@@ -55,46 +52,28 @@ struct GclArgs {
   const float* nb1;
   const bf16* nw2;
   const float* nb2;
+  const int* rowstart;   // work list (sm90.cuh)
+  const int* edges;
+  float* heads;          // (tiles, H): the run of a row continued from the tile before
+  float* agg;            // (B*N, H): runs that start in a tile, then agg / norm
   float* out;
-  float* agg_out;   // may be null
   int B, N, H, E;
   float norm;
 };
 
-__host__ __device__ inline int gcl_smem_bytes(int H) {
-  return w2_bytes(H) + stage_bytes(H) + align128(kRows * H * 4) + 3 * kTileM * 4;
-}
-
-// out (kRows x Nc, f32, smem) = a (kRows x K, bf16, smem) @ w (K x Nc, bf16,
-// row-major, device memory); warp w owns column fragments w, w + kWarps, ...
-__device__ __forceinline__ void rows_mma(const bf16* a, int lda, const bf16* __restrict__ w, int K, int Nc,
-                         float* out, int ldo) {
-  static_assert(kRows == 16, "one WMMA row fragment per work item");
-  const int warp = threadIdx.x / 32;
-  for (int cf = warp; cf < Nc / 16; cf += kWarps) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll 8   // several weight fragments in flight from L2
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, a + k, lda);
-      wmma::load_matrix_sync(fb, w + (size_t)k * Nc + cf * 16, Nc);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(out + cf * 16, acc, ldo, wmma::mem_row_major);
-  }
+__host__ __device__ inline int edge_smem_bytes(int H) {
+  return w2_bytes(H) + stage_bytes(H) + 3 * kTileM * 4 + 128;
 }
 
 // Gate and mask one staged tile in place: warp per edge.
 template <bool BF16, bool ATT>
 __device__ __forceinline__ void gate_and_mask(const Tile& tl, float* stage, const float (&b2)[kColsPerLane],
-                              const float (&watt)[kColsPerLane], float batt, const GclArgs& a) {
+                              const float (&watt)[kColsPerLane], float batt, int H) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int t = warp; t < tl.n_valid; t += kWarps) {
-    float* row = stage + t * lds(a.H);
+    float* row = stage + t * lds(H);
     float m[kColsPerLane];
-    edge_message<BF16>(row, b2, a.H, m);
+    edge_message<BF16>(row, b2, H, m);
     float att = 1.0f;
     if (ATT) {
       const float z = act<BF16>(act<BF16>(warp_dot_bf16(m, watt)) + batt);
@@ -103,59 +82,72 @@ __device__ __forceinline__ void gate_and_mask(const Tile& tl, float* stage, cons
 #pragma unroll
     for (int s = 0; s < kColsPerLane; ++s) {
       const int c = lane + 32 * s;
-      if (c < a.H) row[c] = act<BF16>(act<BF16>(m[s] * att) * tl.emask[t]);
+      if (c < H) row[c] = act<BF16>(act<BF16>(m[s] * att) * tl.emask[t]);
     }
   }
 }
 
-// The block's rows: out = (h + node_mlp([h, agg / norm])) * nmask.
-__device__ __forceinline__ void node_mlp(int b, int i0, int rows, unsigned char* stage_raw, const float* agg,
-                         const GclArgs& a) {
-  const int H = a.H;
-  const int lda1 = 2 * H + 8, lda2 = H + 8, ldo = lds(H);
-  bf16* a1 = reinterpret_cast<bf16*>(stage_raw);
-  float* o = reinterpret_cast<float*>(stage_raw + align128(kRows * lda1 * 2));
-  bf16* a2 = reinterpret_cast<bf16*>(stage_raw + align128(kRows * lda1 * 2) +
-                                     align128(kRows * ldo * 4));
-  for (int idx = threadIdx.x; idx < kRows * 2 * H; idx += blockDim.x) {
-    const int r = idx / (2 * H), c = idx % (2 * H);
-    float v = 0.0f;
-    if (r < rows) {
-      const size_t node = (size_t)b * a.N + i0 + r;
-      v = c < H ? a.h[node * H + c] : agg[r * H + c - H] / a.norm;
-      if (c >= H && a.agg_out != nullptr) a.agg_out[node * H + c - H] = v;
+// u[t][c] = bf16(silu(pre)) for the tile's edges, which may span molecules:
+// edge t joins global source row row[t] = b * N + i to node b * N + col[t].
+// Padding edges get 0. As build_pre_tile (edge_mlp.cuh), whose tiles lie in
+// one molecule, with the destination row taken from the source row's molecule.
+template <bool BF16>
+__device__ __forceinline__ void build_pre_list(const Tile& tl, const float* __restrict__ proj,
+                                               const float* __restrict__ e, const bf16* __restrict__ we,
+                                               const float* __restrict__ b1, bf16* u, int H, int E) {
+  const int ldu = ldw(H);
+  for (int c = threadIdx.x; c < H; c += blockDim.x) {
+    float wreg[kRegE];
+#pragma unroll
+    for (int k = 0; k < kRegE; ++k) wreg[k] = k < E ? __bfloat162float(we[k * H + c]) : 0.0f;
+    const float bias = act<BF16>(b1[c]);
+    for (int t0 = 0; t0 < kTileM; t0 += kBatch) {
+      float hs[kBatch], hdst[kBatch], ev[kBatch][kRegE];
+      const float* eij[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int t = t0 + k;
+        const bool real = t < tl.n_valid;
+        const int i = real ? tl.row[t] : 0, j = real ? tl.col[t] : 0;
+        hs[k] = real ? proj[(size_t)i * 2 * H + c] : 0.0f;
+        hdst[k] = real ? proj[((size_t)(i / tl.N) * tl.N + j) * 2 * H + H + c] : 0.0f;
+        eij[k] = e + ((size_t)i * tl.N + j) * E;
+#pragma unroll
+        for (int r = 0; r < kRegE; ++r) ev[k][r] = real && r < E ? eij[k][r] : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int t = t0 + k;
+        float val = 0.0f;
+        if (t < tl.n_valid) {
+          float ep = 0.0f;
+#pragma unroll
+          for (int r = 0; r < kRegE; ++r)
+            if (r < E) ep += round_bf16(ev[k][r]) * wreg[r];
+#pragma unroll 1
+          for (int r = kRegE; r < E; ++r) ep += round_bf16(eij[k][r]) * __bfloat162float(we[r * H + c]);
+          val = silu_act<BF16>(pre_act<BF16>(hs[k], hdst[k], ep, bias));
+        }
+        u[t * ldu + c] = __float2bfloat16(val);
+      }
     }
-    a1[r * lda1 + c] = __float2bfloat16(v);
   }
-  __syncthreads();
-  rows_mma(a1, lda1, a.nw1, 2 * H, H, o, ldo);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kRows * H; idx += blockDim.x) {
-    const int r = idx / H, c = idx % H;
-    const float z = o[r * ldo + c] + a.nb1[c];
-    a2[r * lda2 + c] = __float2bfloat16(z / (1.0f + expf(-z)));
-  }
-  __syncthreads();
-  rows_mma(a2, lda2, a.nw2, H, H, o, ldo);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < rows * H; idx += blockDim.x) {
-    const int r = idx / H, c = idx % H;
-    const size_t node = (size_t)b * a.N + i0 + r;
-    a.out[node * H + c] = (a.h[node * H + c] + (o[r * ldo + c] + a.nb2[c])) * a.nmask[node];
-  }
-  __syncthreads();
 }
 
 template <bool BF16, bool ATT>
-__global__ void __launch_bounds__(kThreads, 1) gcl_kernel(GclArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
+__global__ void __launch_bounds__(kThreads, 1) gcl_edge_kernel(GclArgs a) {
   const int H = a.H;
+  const int n_edges = a.rowstart[a.B * a.N];
+  const int n_tiles = (n_edges + kTileM - 1) / kTileM;
+  if (blockIdx.x >= n_tiles) return;
+  extern __shared__ __align__(128) unsigned char smem[];
   bf16* w2s = reinterpret_cast<bf16*>(smem);
   unsigned char* stage_raw = smem + w2_bytes(H);
   float* stage = reinterpret_cast<float*>(stage_raw);
   bf16* u = reinterpret_cast<bf16*>(stage_raw);
-  float* agg = reinterpret_cast<float*>(stage_raw + stage_bytes(H));
-  float* meta = reinterpret_cast<float*>(stage_raw + stage_bytes(H) + align128(kRows * H * 4));
+  float* meta = reinterpret_cast<float*>(stage_raw + stage_bytes(H));
+  int* cont = reinterpret_cast<int*>(meta + 3 * kTileM);
+  // tile edge t: global source row row[t] = b * N + i, neighbour col[t] = j
   Tile tl{0, 0, a.N, 0, meta, reinterpret_cast<int*>(meta + kTileM),
           reinterpret_cast<int*>(meta + 2 * kTileM)};
 
@@ -165,57 +157,139 @@ __global__ void __launch_bounds__(kThreads, 1) gcl_kernel(GclArgs a) {
   lane_cols<BF16>(a.b2, H, b2);
   lane_cols_bf16(a.watt, H, watt);   // zeros when attention is off
   const float batt = ATT ? act<BF16>(a.batt[0]) : 0.0f;
-  const int row_blocks = (a.N + kRows - 1) / kRows;
-  const int item_rows = (a.N + row_blocks - 1) / row_blocks;   // balanced, <= kRows
-  const int n_items = a.B * row_blocks;
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const int b = item / row_blocks, i0 = (item % row_blocks) * item_rows;
-    const int rows = min(item_rows, a.N - i0);
-    for (int idx = threadIdx.x; idx < kRows * H; idx += blockDim.x) agg[idx] = 0.0f;
-    tl.b = b;
-    tl.i0 = i0;
-    for (int q0 = 0; q0 < rows * a.N; q0 += kTileM) {
-      load_tile(tl, q0, rows * a.N, a.emask);
-      __syncthreads();
-      HD_PHASE(0, clk);
-      build_pre_tile<BF16>(tl, a.proj, a.e, a.we, a.b1, u, H, a.E);
-      __syncthreads();
-      HD_PHASE(1, clk);
-      tile_mma(u, w2s, stage, H);
-      HD_PHASE(2, clk);
-      gate_and_mask<BF16, ATT>(tl, stage, b2, watt, batt, a);
-      __syncthreads();
-      HD_PHASE(3, clk);
-      // row sums, one column per thread: a register sum per run of one row
-      for (int c = threadIdx.x; c < H; c += blockDim.x) {
-        int cur = tl.row[0];
-        float sum = 0.0f;
-        for (int t = 0; t < tl.n_valid; ++t) {
-          if (tl.row[t] != cur) {
-            agg[cur * H + c] += sum;
-            sum = 0.0f;
-            cur = tl.row[t];
-          }
-          sum += stage[t * lds(H) + c];
-        }
-        agg[cur * H + c] += sum;
-      }
-      __syncthreads();
-      HD_PHASE(4, clk);
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int q0 = tile * kTileM;
+    tl.n_valid = min(kTileM, n_edges - q0);
+    for (int t = threadIdx.x; t < kTileM; t += blockDim.x) {
+      const bool real = t < tl.n_valid;
+      const int q = real ? a.edges[q0 + t] : 0;
+      tl.row[t] = real ? q / a.N : -1;
+      tl.col[t] = real ? q % a.N : 0;
+      tl.emask[t] = real ? round_bf16(a.emask[q]) : 0.0f;
     }
-    node_mlp(b, i0, rows, stage_raw, agg, a);
-    HD_PHASE(5, clk);
+    if (threadIdx.x == 0) {
+      *cont = q0 > 0 && a.edges[q0 - 1] / a.N == a.edges[q0] / a.N;
+      HD_COUNT_EDGES(kTileM, tl.n_valid);
+    }
+    __syncthreads();
+    HD_PHASE(0, clk);
+    build_pre_list<BF16>(tl, a.proj, a.e, a.we, a.b1, u, H, a.E);
+    __syncthreads();
+    HD_PHASE(1, clk);
+    tile_mma(u, w2s, stage, H);
+    HD_PHASE(2, clk);
+    gate_and_mask<BF16, ATT>(tl, stage, b2, watt, batt, H);
+    __syncthreads();
+    HD_PHASE(3, clk);
+    // row sums, one column per thread, in edge order
+    for (int c = threadIdx.x; c < H; c += blockDim.x) {
+      int cur = tl.row[0];
+      bool first = true;
+      float sum = 0.0f;
+      for (int t = 0; t < tl.n_valid; ++t) {
+        if (tl.row[t] != cur) {
+          float* dst = first && *cont ? a.heads + (size_t)tile * H : a.agg + (size_t)cur * H;
+          dst[c] = sum;
+          first = false;
+          sum = 0.0f;
+          cur = tl.row[t];
+        }
+        sum += stage[t * lds(H) + c];
+      }
+      float* dst = first && *cont ? a.heads + (size_t)tile * H : a.agg + (size_t)cur * H;
+      dst[c] = sum;
+    }
+    __syncthreads();
+    HD_PHASE(4, clk);
+  }
+}
+
+// The node MLP over kNodeRows rows per block.
+constexpr int kNodeRows = 32;
+
+__host__ __device__ inline int node_smem_bytes(int H) {
+  return align128(kNodeRows * (2 * H + 8) * 2) + align128(kNodeRows * lds(H) * 4) +
+         align128(kNodeRows * ldw(H) * 2);
+}
+
+// out (kNodeRows x Nc, f32, smem) = a (kNodeRows x K, bf16, smem) @ w (K x Nc,
+// bf16, row-major, device memory); warp w owns column fragments w, w + kWarps, ...
+__device__ __forceinline__ void node_mma(const bf16* a, int lda, const bf16* __restrict__ w, int K, int Nc,
+                                         float* out, int ldo) {
+  constexpr int kFrags = kNodeRows / 16;
+  const int warp = threadIdx.x / 32;
+  for (int cf = warp; cf < Nc / 16; cf += kWarps) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kFrags];
+#pragma unroll
+    for (int m = 0; m < kFrags; ++m) wmma::fill_fragment(acc[m], 0.0f);
+#pragma unroll 4   // several weight fragments in flight from L2
+    for (int k = 0; k < K; k += 16) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+      wmma::load_matrix_sync(fb, w + (size_t)k * Nc + cf * 16, Nc);
+#pragma unroll
+      for (int m = 0; m < kFrags; ++m) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+        wmma::load_matrix_sync(fa, a + m * 16 * lda + k, lda);
+        wmma::mma_sync(acc[m], fa, fb, acc[m]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kFrags; ++m)
+      wmma::store_matrix_sync(out + m * 16 * ldo + cf * 16, acc[m], ldo, wmma::mem_row_major);
+  }
+}
+
+// agg = (agg + heads) / norm in place, then out = (h + node_mlp([h, agg])) * nmask.
+__global__ void __launch_bounds__(kThreads) gcl_node_kernel(GclArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int H = a.H, rows = a.B * a.N, r0 = blockIdx.x * kNodeRows;
+  const int lda1 = 2 * H + 8, lda2 = ldw(H), ldo = lds(H);
+  bf16* a1 = reinterpret_cast<bf16*>(smem);
+  float* o = reinterpret_cast<float*>(smem + align128(kNodeRows * lda1 * 2));
+  bf16* a2 = reinterpret_cast<bf16*>(smem + align128(kNodeRows * lda1 * 2) + align128(kNodeRows * ldo * 4));
+  for (int idx = threadIdx.x; idx < kNodeRows * H; idx += blockDim.x) {
+    const int r = idx / H, c = idx % H, node = r0 + r;
+    float hv = 0.0f, v = 0.0f;
+    if (node < rows) {
+      hv = a.h[(size_t)node * H + c];
+      const int s = a.rowstart[node], e = a.rowstart[node + 1];
+      if (s < e) {
+        float sum = a.agg[(size_t)node * H + c];
+        for (int t = s / kTileM + 1; t <= (e - 1) / kTileM; ++t) sum += a.heads[(size_t)t * H + c];
+        v = sum / a.norm;
+      }
+      a.agg[(size_t)node * H + c] = v;
+    }
+    a1[r * lda1 + c] = __float2bfloat16(hv);
+    a1[r * lda1 + H + c] = __float2bfloat16(v);
+  }
+  __syncthreads();
+  node_mma(a1, lda1, a.nw1, 2 * H, H, o, ldo);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < kNodeRows * H; idx += blockDim.x) {
+    const int r = idx / H, c = idx % H;
+    const float z = o[r * ldo + c] + a.nb1[c];
+    a2[r * lda2 + c] = __float2bfloat16(z / (1.0f + expf(-z)));
+  }
+  __syncthreads();
+  node_mma(a2, lda2, a.nw2, H, H, o, ldo);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < kNodeRows * H; idx += blockDim.x) {
+    const int r = idx / H, c = idx % H, node = r0 + r;
+    if (node < rows)
+      a.out[(size_t)node * H + c] = (a.h[(size_t)node * H + c] + (o[r * ldo + c] + a.nb2[c])) * a.nmask[node];
   }
 }
 
 template <bool BF16, bool ATT>
-cudaError_t launch_gcl(const GclArgs& a, int max_blocks, cudaStream_t stream) {
-  const int smem = gcl_smem_bytes(a.H);
-  cudaError_t err = cudaFuncSetAttribute(gcl_kernel<BF16, ATT>,
+cudaError_t launch_edges(const GclArgs& a, int max_blocks, cudaStream_t stream) {
+  const int smem = edge_smem_bytes(a.H);
+  cudaError_t err = cudaFuncSetAttribute(gcl_edge_kernel<BF16, ATT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int items = a.B * ((a.N + kRows - 1) / kRows);
-  gcl_kernel<BF16, ATT><<<(items < max_blocks ? items : max_blocks), kThreads, smem, stream>>>(a);
+  const long long max_tiles = ((long long)a.B * a.N * a.N + kTileM - 1) / kTileM;
+  const int blocks = (int)(max_tiles < max_blocks ? max_tiles : max_blocks);
+  gcl_edge_kernel<BF16, ATT><<<blocks, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -226,22 +300,30 @@ extern "C" int hd_fused_gcl(const float* h, const float* e, const float* emask,
                             const float* b1, const hd::bf16* w2, const float* b2,
                             const hd::bf16* watt, const float* batt, const hd::bf16* nw1,
                             const float* nb1, const hd::bf16* nw2, const float* nb2,
-                            float* proj, float* out, float* agg_out, int B, int N, int H,
-                            int E, float norm,
+                            float* proj, int* rowstart, int* totals, int* edges, float* heads,
+                            float* agg, float* out, int B, int N, int H, int E, float norm,
                             int attention, int bf16_act, int max_blocks, void* stream) {
   if (B * N == 0) return 0;
   if (H % 16 != 0 || H > hd::kMaxH || E > hd::kMaxE || max_blocks < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = hd::launch_proj(h, wsd, proj, B * N, H, st);
+  cudaError_t err = hd::launch_edge_list(emask, B * N, N, rowstart, totals, edges, st);
   if (err != cudaSuccess) return (int)err;
-  const hd::GclArgs a{h, e, emask, nmask, proj, we, b1, w2, b2, watt, batt,
-                      nw1, nb1, nw2, nb2, out, agg_out, B, N, H, E, norm};
+  err = hd::launch_proj(h, wsd, proj, B * N, H, st);
+  if (err != cudaSuccess) return (int)err;
+  const hd::GclArgs a{h, e, emask, nmask, proj, we, b1, w2, b2, watt, batt, nw1, nb1, nw2, nb2,
+                      rowstart, edges, heads, agg, out, B, N, H, E, norm};
   if (bf16_act)
-    err = attention ? hd::launch_gcl<true, true>(a, max_blocks, st)
-                    : hd::launch_gcl<true, false>(a, max_blocks, st);
+    err = attention ? hd::launch_edges<true, true>(a, max_blocks, st)
+                    : hd::launch_edges<true, false>(a, max_blocks, st);
   else
-    err = attention ? hd::launch_gcl<false, true>(a, max_blocks, st)
-                    : hd::launch_gcl<false, false>(a, max_blocks, st);
-  return (int)err;
+    err = attention ? hd::launch_edges<false, true>(a, max_blocks, st)
+                    : hd::launch_edges<false, false>(a, max_blocks, st);
+  if (err != cudaSuccess) return (int)err;
+  const int node_smem = hd::node_smem_bytes(H);
+  err = cudaFuncSetAttribute(hd::gcl_node_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             node_smem);
+  if (err != cudaSuccess) return (int)err;
+  hd::gcl_node_kernel<<<(B * N + hd::kNodeRows - 1) / hd::kNodeRows, hd::kThreads, node_smem, st>>>(a);
+  return (int)cudaGetLastError();
 }

@@ -44,6 +44,10 @@ launch_counts: Dict[str, int] = {"fused_gcl": 0, "fused_coord_update": 0, "fused
 # limits of the CUDA kernels (csrc/edge_mlp.cuh kMaxH, kMaxE)
 MAX_HIDDEN = 256
 MAX_EDGE_FEATURES = 32
+# fused_gcl's real-edge work list: edges per tile (csrc/edge_mlp.cuh kTileM)
+# and source rows per block of the list kernels (csrc/sm90.cuh kListRows)
+GCL_TILE_EDGES = 64
+GCL_LIST_ROWS = 32
 
 
 def reset_launch_counts() -> None:
@@ -230,7 +234,7 @@ def records_grad(layer, *tensors: Tensor) -> bool:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_GCL_ARGTYPES = [_P] * 18 + [_I, _I, _I, _I, _F, _I, _I, _I, _P]
+_GCL_ARGTYPES = [_P] * 22 + [_I, _I, _I, _I, _F, _I, _I, _I, _P]
 _COORD_ARGTYPES = [_P] * 14 + [_I, _I, _I, _I, _F, _F, _I, _I, _I, _P]
 _BWD_ARGTYPES = [_P] * 24 + [_I, _I, _I, _I, _F, _I, _I, _I, _P]
 _num_sms: Dict[int, int] = {}
@@ -376,12 +380,27 @@ def _check_gcl_inputs(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor,
     _check_layer(h, edge_attr, layer.edge_mlp[2].weight.shape[0])
 
 
+def gcl_workspace(b: int, n: int, hidden: int) -> Dict[str, int]:
+    """Element counts of ``fused_gcl``'s scratch buffers for h (b, n, hidden):
+    the work list (int32: ``rowstart`` b*n + 1, ``totals`` one per list
+    block, ``edges`` room for every edge) and ``heads`` (float32, one row of
+    ``hidden`` per possible tile: the part of a source row continued from
+    the tile before). Sized for a full edge mask; what a call uses depends
+    on the mask, which stays on the device."""
+    rows = b * n
+    if rows * n >= 2 ** 31:
+        raise ValueError(f"fused_gcl indexes edges with int32; b*n*n = {rows * n} is too many")
+    tiles = -(-rows * n // GCL_TILE_EDGES)
+    return {"rowstart": rows + 1, "totals": -(-rows // GCL_LIST_ROWS), "edges": rows * n,
+            "heads": tiles * hidden}
+
+
 def _launch_gcl(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor, node_mask: Tensor,
                 device: torch.device, agg_out: Optional[Tensor] = None,
                 phase_clocks: bool = False) -> Tensor:
-    """Launch ``csrc/fused_gcl.cu``; with ``agg_out`` (B,N,H) the kernel also
-    writes the aggregated messages for the backward, and the bf16 weights
-    are rebuilt from the parameters first (``_cached_weights``)."""
+    """Launch ``csrc/fused_gcl.cu``; with ``agg_out`` (B,N,H) the aggregated
+    messages the kernel computes are left there for the backward, and the
+    bf16 weights are rebuilt from the parameters first (``_cached_weights``)."""
     _check_gcl_inputs(layer, h, edge_attr, edge_mask, node_mask, device)
     b, n, hidden = h.shape
     out = torch.empty_like(h)
@@ -390,15 +409,21 @@ def _launch_gcl(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor, node_mas
     if agg_out is not None:
         _check("agg_out", agg_out, h.shape, device)
     w = _cached_weights(layer, _gcl_kernel_weights, device, rebuild=agg_out is not None)
+    ws = gcl_workspace(b, n, hidden)
     proj = torch.empty((b * n, 2 * hidden), dtype=torch.float32, device=device)
+    rowstart, totals, edges = torch.empty(ws["rowstart"] + ws["totals"] + ws["edges"],
+                                          dtype=torch.int32, device=device).split(
+        [ws["rowstart"], ws["totals"], ws["edges"]])
+    heads = torch.empty(ws["heads"], dtype=torch.float32, device=device)
+    agg = torch.empty_like(h) if agg_out is None else agg_out
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _entry("fused_gcl", phase_clocks)(
         h.data_ptr(), edge_attr.data_ptr(), edge_mask.data_ptr(), node_mask.data_ptr(),
         w["wsd"].data_ptr(), w["we"].data_ptr(), w["b1"].data_ptr(),
         w["w2"].data_ptr(), w["b2"].data_ptr(), w["watt"].data_ptr(),
         w["batt"].data_ptr(), w["nw1"].data_ptr(), w["nb1"].data_ptr(),
-        w["nw2"].data_ptr(), w["nb2"].data_ptr(), proj.data_ptr(), out.data_ptr(),
-        None if agg_out is None else agg_out.data_ptr(),
+        w["nw2"].data_ptr(), w["nb2"].data_ptr(), proj.data_ptr(), rowstart.data_ptr(),
+        totals.data_ptr(), edges.data_ptr(), heads.data_ptr(), agg.data_ptr(), out.data_ptr(),
         b, n, hidden, edge_attr.shape[-1], float(layer.normalization_factor),
         int(layer.attention), int(layer.compute_dtype is torch.bfloat16), _sm_count(device),
         stream)

@@ -4,12 +4,15 @@ coarse training step.
     python -m hierdiff_torch.tools.kernel_phases
 
 Needs a CUDA GPU. Four measurements, JSON lines:
-  1. per-phase SM cycles inside ``fused_gcl``, ``fused_coord_update`` and
-     ``fused_gcl_bwd`` (its edge kernel) at the GEOM layer shapes (B=64,
-     N=32, H=256, E=2, ragged node counts), launched with
-     ``phase_clocks=True``: their ``-DHD_PHASE_CLOCKS`` build (separate
-     libraries), whose thread 0 of every block reads ``clock64`` after each
-     barrier;
+  1. per-phase SM cycles inside ``fused_gcl`` (its edge kernel),
+     ``fused_coord_update`` and ``fused_gcl_bwd`` (its edge kernel) at the
+     GEOM layer shapes (B=64, N=32, H=256, E=2, ragged node counts),
+     launched with ``phase_clocks=True``: their ``-DHD_PHASE_CLOCKS`` build
+     (separate libraries), whose thread 0 of every block (of every
+     warpgroup in fused_gcl's edge kernel, whose two warpgroups run apart)
+     reads ``clock64`` after each barrier. For ``fused_gcl`` the same build
+     counts the edge slots its edge kernel computes per call and the real
+     edges among them, printed beside nnz(edge_mask);
   2. torch.profiler's device time per CUDA kernel for the same calls;
   3. the sampler's main path (GEOM config, random weights, batch 64, a few
      reverse steps) under torch.profiler: device time by kernel and the
@@ -35,8 +38,10 @@ import numpy as np
 import torch
 
 B, N, H, E = 64, 32, 256, 2
-GCL_PHASES = ("tile setup", "pre-activation build", "W2 product", "gate and mask",
-              "row sums", "node MLP")
+GCL_PHASES = ("W2 load and tile setup", "pre-activation build", "W2 product (wgmma)",
+              "bias, silu, gate and mask (registers)", "row sums (staged halves)")
+# CUDA kernels of csrc/fused_gcl.cu besides proj_kernel
+GCL_KERNELS = ("gcl_edge_kernel", "gcl_node_kernel", "edge_count_kernel", "edge_fill_kernel")
 COORD_PHASES = ("tile setup", "pre-activation build", "W2 product", "head and coord terms",
                 "coord sums", "output")
 BWD_PHASES = ("tile setup", "pre-activation build", "W2 product", "gate and silu backward",
@@ -46,15 +51,18 @@ BACKWARD_KERNELS = ("gcl_bwd_kernel", "gemm_kernel", "node_prep_kernel", "node_a
                     "node_dz_kernel", "node_split_kernel", "reduce_kernel", "colsum_kernel")
 
 
-def layer_inputs(rng: np.random.Generator, device, b: int = B, n: int = N, h: int = H):
-    """Masked layer inputs with ragged node counts (the first molecule full):
-    h, x, edge_attr = [radial, distances0] (E=2), coord_diff, edge_mask
-    (b,n,n,1), node_mask (b,n,1), counts."""
+def layer_inputs(rng: np.random.Generator, device, b: int = B, n: int = N, h: int = H,
+                 counts=None):
+    """Masked layer inputs with ragged node counts (uniform in [n // 4, n],
+    the first molecule full, unless ``counts`` are given): h, x, edge_attr =
+    [radial, distances0] (E=2), coord_diff, edge_mask (b,n,n,1), node_mask
+    (b,n,1), counts."""
     from hierdiff_torch.ops.egnn import coord2diff_dense
     from hierdiff_torch.sampling.coarse import make_masks_for_counts
 
-    counts = rng.integers(n // 4, n + 1, size=b)
-    counts[0] = n
+    if counts is None:
+        counts = rng.integers(n // 4, n + 1, size=b)
+        counts[0] = n
     nm, em = make_masks_for_counts(counts, n)
     node_mask = torch.from_numpy(nm).to(device)
     edge_mask = torch.from_numpy(em).to(device)[..., None].contiguous()
@@ -64,6 +72,15 @@ def layer_inputs(rng: np.random.Generator, device, b: int = B, n: int = N, h: in
     d0, _ = coord2diff_dense(x, 1.0)
     edge_attr = torch.cat([radial, d0], dim=-1).contiguous()
     return hh, x, edge_attr, coord_diff.contiguous(), edge_mask, node_mask, counts
+
+
+def sampler_counts(b: int = B, seed: int = 0) -> np.ndarray:
+    """Node counts of one sampler batch: b draws from the GEOM histogram
+    (the sampler's own shape is then N = their maximum)."""
+    from hierdiff_torch.data.assets import load_histogram
+    from hierdiff_torch.ops.distributions import DistributionNodes
+
+    return DistributionNodes(load_histogram("geom")).sample_np(np.random.default_rng(seed), b)
 
 
 def _device_us(prof, calls: int) -> dict:
@@ -128,9 +145,22 @@ def main() -> None:
         if lib.hd_read_phase_cycles(counters) != 0:
             raise RuntimeError("reading the phase counters failed")
         total = sum(counters[i] for i in range(len(phases)))
-        print(json.dumps({"kernel": name, "phase_cycle_share": {
+        line = {"kernel": name, "phase_cycle_share": {
             p: counters[i] / total for i, p in enumerate(phases)},
-            "cycles_per_call_summed_over_blocks": total / reps}))
+            "cycles_per_call_summed_over_blocks": total / reps}
+        if name == "fused_gcl":   # edges computed against the mask's real edges
+            edges = (ctypes.c_ulonglong * 2)()
+            lib.hd_read_edge_counts.argtypes = [ctypes.c_void_p]
+            lib.hd_read_edge_counts(edges)   # the warm-up and the calls above
+            fn(phase_clocks=True)
+            torch.cuda.synchronize()
+            if lib.hd_read_edge_counts(edges) != 0:
+                raise RuntimeError("reading the edge counts failed")
+            line.update({"edge_slots_computed_per_call": edges[0],
+                         "real_edges_computed_per_call": edges[1],
+                         "nnz_edge_mask": int((em != 0).sum().item()),
+                         "dense_edges": em.numel()})
+        print(json.dumps(line))
 
     # 2. device time per CUDA kernel, uninstrumented build
     for name, (fn, _, _) in calls.items():
@@ -228,8 +258,9 @@ def train_step_breakdown(device: torch.device, steps: int = 8) -> dict:
                               if any(f"hd::{n}" in k for n in names))
     busy_us = sum(per_kernel.values())
     # proj_kernel runs once in each GCL forward and once in each backward, at
-    # the same shape (the coordinate update takes its plain route here)
-    fwd_us = group(("gcl_kernel",)) + group(("proj_kernel",)) / 2
+    # the same shape (the coordinate update takes its plain route here); the
+    # work-list kernels of sm90.cuh run in the forward only
+    fwd_us = group(GCL_KERNELS) + group(("proj_kernel",)) / 2
     bwd_us = group(BACKWARD_KERNELS) + group(("proj_kernel",)) / 2
     return {"batch": B, "steps": steps, "bucket_mix": [int(b["positions"].shape[1]) for b in batches[2:]],
             "wall_ms_per_step": wall_ms,

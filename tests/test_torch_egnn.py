@@ -58,6 +58,20 @@ def _inputs(b=3, n=9, h=32, e_nf=2, seed=0):
     return hh, x, e, em, nm
 
 
+def _holey(hh, nm, seed=0):
+    """Masks that prefix masks never give: node masks with random members
+    (node 0 absent in every other molecule), ~20% of the real edges masked
+    out, and nonzero h in the padded rows (the kernel computes only the
+    edges its edge mask holds)."""
+    rng = np.random.default_rng(seed + 100)
+    b, n = nm.shape[:2]
+    nm = (rng.random((b, n, 1)) < 0.7).astype(np.float32)
+    nm[::2, 0] = 0.0
+    em = nm * np.transpose(nm, (0, 2, 1)) * (1 - np.eye(n, dtype=np.float32))
+    em = (em * (rng.random((b, n, n)) >= 0.2)).astype(np.float32)[..., None]
+    return rng.standard_normal(hh.shape).astype(np.float32), em, nm
+
+
 def _port_state(mapper, params, prefix="m"):
     out = {}
     mapper(out, prefix, params)
@@ -93,10 +107,13 @@ def _equiv_pair(h, e_nf, tanh, cd=None, seed=1, **jax_kw):
     return jl, params, port, (hh, x, cdiff, e, em, nm)
 
 
+@pytest.mark.parametrize("masks", ["prefix", "holey"])
 @pytest.mark.parametrize("attention", [True, False])
 @pytest.mark.parametrize("e_nf", [2, 24])
-def test_gcl_matches_xla(attention, e_nf):
+def test_gcl_matches_xla(attention, e_nf, masks):
     jl, params, port, (hh, x, e, em, nm) = _gcl_pair(32, e_nf, attention)
+    if masks == "holey":
+        hh, em, nm = _holey(hh, nm)
     with jax.default_matmul_precision("highest"):
         ref = jl.apply(params, hh, e, nm, em)
     with torch.no_grad():
@@ -240,6 +257,23 @@ def test_kernel_weight_layout_and_cache_invalidation():
 
     port.to(torch.float32)
     assert port._kernel_weights is None and cached() is not w
+
+
+@pytest.mark.parametrize("n", [1, 32, 83])
+def test_gcl_workspace_sizes(n):
+    """fused_gcl's scratch: the work list holds every edge of a full mask,
+    one list block per 32 source rows, one heads row per possible tile."""
+    ws = ek.gcl_workspace(64, n, 256)
+    rows = 64 * n
+    assert ws == {"rowstart": rows + 1, "totals": -(-rows // ek.GCL_LIST_ROWS),
+                  "edges": rows * n, "heads": -(-rows * n // ek.GCL_TILE_EDGES) * 256}
+    assert ws["totals"] * ek.GCL_LIST_ROWS >= rows > (ws["totals"] - 1) * ek.GCL_LIST_ROWS
+    assert ws["heads"] // 256 * ek.GCL_TILE_EDGES >= rows * n
+
+
+def test_gcl_workspace_rejects_int32_overflow():
+    with pytest.raises(ValueError, match="int32"):
+        ek.gcl_workspace(4096, 1024, 256)
 
 
 def test_phase_clock_build_is_a_separate_library():
@@ -403,10 +437,21 @@ def test_cuda_kernels_match_plain_versions():
         pytest.skip("needs a CUDA device; the CUDA kernels have no CPU mode")
     dev = torch.device("cuda")
     _, _, gcl, (hh, x, e, em, nm) = _gcl_pair(256, 2, True)
-    args = [t.to(dev) for t in _t(hh, e, em, nm)]
     gcl.to(dev)
-    with torch.no_grad():
-        assert _rel(ek.fused_gcl(gcl, *args).cpu(), ek.gcl_plain(gcl, *args).cpu()) < PALLAS_REL
+    h_holey, em_holey, nm_holey = _holey(hh, nm)
+    rng = np.random.default_rng(3)
+    counts = np.array([83, 1, 0, 40])   # rows longer than a 64-edge tile, 0- and 1-node molecules
+    nm83 = (np.arange(83)[None, :] < counts[:, None]).astype(np.float32)[..., None]
+    em83 = (nm83 * np.transpose(nm83, (0, 2, 1)) * (1 - np.eye(83, dtype=np.float32)))[..., None]
+    h83 = rng.standard_normal((4, 83, 256)).astype(np.float32) * nm83
+    e83 = rng.standard_normal((4, 83, 83, 2)).astype(np.float32)
+    for h_, e_, em_, nm_ in [(hh, e, em, nm), (h_holey, e, em_holey, nm_holey),
+                             (h83, e83, em83, nm83)]:
+        args = [t.to(dev) for t in _t(h_, e_, em_, nm_)]
+        base = args[0] * args[3]
+        with torch.no_grad():
+            out, ref = ek.fused_gcl(gcl, *args) - base, ek.gcl_plain(gcl, *args) - base
+        assert _rel(out.cpu(), ref.cpu()) < PALLAS_REL
     _, _, equ, (hh, x, cdiff, e, em, nm) = _equiv_pair(256, 2, True)
     args = [t.to(dev) for t in _t(hh, e, cdiff, x, em, nm)]
     equ.to(dev)
