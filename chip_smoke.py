@@ -5,7 +5,9 @@
 
 Phases, one output line each, any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
-     versions, then the nvcc build of ``hierdiff_torch/csrc`` and its time;
+     versions, then the nvcc build of ``hierdiff_torch/csrc`` and its time,
+     and the number of HGMMA (wgmma) instructions in the built fused_gcl
+     library (``cuobjdump --dump-sass``), which must not be 0;
   2. each kernel against its plain PyTorch version at the kernel shape
      (B=64, N=32, H=256, E=2, ragged node counts), on what the layer adds
      to its input (out - h for fused_gcl, out - x for fused_coord_update):
@@ -66,6 +68,7 @@ import copy
 import csv
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -282,6 +285,13 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas[{name}]: {line.strip()}")
     print(f"build: {sorted(logs)} compiled in {build_s:.2f} s")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(_build.library_path("fused_gcl"))],
+                          check=True, capture_output=True, text=True).stdout
+    n_hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    print(f"fused_gcl SASS: {n_hgmma} HGMMA instructions (cuobjdump --dump-sass)")
+    if n_hgmma == 0:
+        fail("the fused_gcl library has no HGMMA instruction: its W2 product is not on wgmma")
 
     # ---- 2. kernels against their plain versions (forward: no autograd)
     torch.set_grad_enabled(False)

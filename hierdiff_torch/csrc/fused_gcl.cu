@@ -20,12 +20,19 @@
 //  1-2. the real-edge work list (sm90.cuh): only edges with emask != 0 are
 //       computed, in (row, neighbour) order, packed into tiles of kTileM;
 //  3.   proj_kernel (edge_mlp.cuh): [h W_src | h W_dst] for every node;
-//  4.   gcl_edge_kernel: persistent blocks walk the tiles; per tile the bf16
-//       pre-activation is built in shared memory, multiplied by W2 (resident
-//       in shared memory) on the tensor cores, gated and masked, and the
-//       f32 messages are summed per source row in a fixed order. A row's
-//       run of edges that starts in the tile goes to agg[row]; the run that
-//       continues a row from the tile before goes to heads[tile];
+//  4.   gcl_edge_kernel: one persistent block per SM holds W2 in shared
+//       memory (256 x 256 bf16, K-major, 128-byte swizzle: the layout wgmma
+//       reads) and runs two warpgroups that walk their own tiles apart, so
+//       one's SFU-heavy pre-activation build and epilogue overlap the
+//       other's W2 product. Per 64-edge tile a warpgroup builds the bf16
+//       silu(pre) tile in its own swizzled buffer (16-byte stores), runs
+//       the 64 x 256 x 256 product as wgmma m64n256k16 (f32 accumulators in
+//       registers), applies b2, silu, the gate (a row's dot over the 4 lanes
+//       of a quad) and the edge mask on the accumulators, and sums the f32
+//       messages per source row in edge order through its buffer, 128
+//       columns at a time. A row's run of edges that starts in the tile
+//       goes to agg[row]; the run that continues a row from the tile before
+//       goes to heads[tile];
 //  5.   gcl_node_kernel: agg_i = (agg[i] + heads of the tiles the row runs
 //       into, in tile order) / norm, written back to agg, then the node MLP
 //       over all B*N rows on the tensor cores.
@@ -61,146 +68,265 @@ struct GclArgs {
   float norm;
 };
 
-__host__ __device__ inline int edge_smem_bytes(int H) {
-  return w2_bytes(H) + stage_bytes(H) + 3 * kTileM * 4 + 128;
+// Phase clocks per warpgroup: thread 0 of each warpgroup adds its cycles.
+#ifdef HD_PHASE_CLOCKS
+#define HD_WG_PHASE(k, t)                                                            \
+  do {                                                                               \
+    if (threadIdx.x % 128 == 0) {                                                    \
+      const long long now_ = clock64();                                              \
+      atomicAdd(&hd_phase_cycles[k], static_cast<unsigned long long>(now_ - (t)));   \
+      (t) = now_;                                                                    \
+    }                                                                                \
+  } while (0)
+#else
+#define HD_WG_PHASE(k, t) do { } while (0)
+#endif
+
+// The edge kernel: kEdgeWGs warpgroups per block, one block per SM, each
+// warpgroup walking its own tiles with its own pre-activation buffer.
+constexpr int kEdgeWGs = 1;
+constexpr int kEdgeThreads = 128 * kEdgeWGs;
+constexpr int kW2Bytes = kMaxH * kMaxH * 2;          // W2, K-major, zero-padded to 256 x 256
+constexpr int kUBytes = kTileM * kMaxH * 2;          // one bf16 pre-activation tile
+constexpr int kStageCols = kUBytes / (kTileM * 4);   // f32 columns staged at once (128)
+constexpr int kMetaBytes = 1024;                     // per warpgroup: rows, cols, mask, flag
+
+struct TileMeta {
+  int row[kTileM];     // global source row b * N + i, -1 past the last real edge
+  int col[kTileM];     // neighbour j
+  float emask[kTileM]; // bf16-rounded edge mask
+  int cont;            // the tile's first run continues a row from the tile before
+};
+static_assert(sizeof(TileMeta) <= kMetaBytes, "tile metadata");
+
+__host__ __device__ constexpr int edge_smem_bytes() {
+  return 1024 + kW2Bytes + kEdgeWGs * (kUBytes + kMetaBytes) + 2 * kMaxH * 4;
 }
 
-// Gate and mask one staged tile in place: warp per edge.
-template <bool BF16, bool ATT>
-__device__ __forceinline__ void gate_and_mask(const Tile& tl, float* stage, const float (&b2)[kColsPerLane],
-                              const float (&watt)[kColsPerLane], float batt, int H) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int t = warp; t < tl.n_valid; t += kWarps) {
-    float* row = stage + t * lds(H);
-    float m[kColsPerLane];
-    edge_message<BF16>(row, b2, H, m);
-    float att = 1.0f;
-    if (ATT) {
-      const float z = act<BF16>(act<BF16>(warp_dot_bf16(m, watt)) + batt);
-      att = sigmoid_act<BF16>(z);
-    }
-#pragma unroll
-    for (int s = 0; s < kColsPerLane; ++s) {
-      const int c = lane + 32 * s;
-      if (c < H) row[c] = act<BF16>(act<BF16>(m[s] * att) * tl.emask[t]);
-    }
-  }
-}
-
-// u[t][c] = bf16(silu(pre)) for the tile's edges, which may span molecules:
-// edge t joins global source row row[t] = b * N + i to node b * N + col[t].
-// Padding edges get 0. As build_pre_tile (edge_mlp.cuh), whose tiles lie in
-// one molecule, with the destination row taken from the source row's molecule.
+// u (64 x 256 bf16, K-major SWIZZLE_128B) = silu(pre) for the tile's edges;
+// warp w of the warpgroup builds edges w, w + 4, ..., lane l columns 8l .. 8l + 7,
+// written as one 16-byte vector. Padding edges and columns >= H get 0.
 template <bool BF16>
-__device__ __forceinline__ void build_pre_list(const Tile& tl, const float* __restrict__ proj,
-                                               const float* __restrict__ e, const bf16* __restrict__ we,
-                                               const float* __restrict__ b1, bf16* u, int H, int E) {
-  const int ldu = ldw(H);
-  for (int c = threadIdx.x; c < H; c += blockDim.x) {
-    float wreg[kRegE];
+__device__ __forceinline__ void build_tile(const TileMeta& tm, int nv, const GclArgs& a, bf16* u) {
+  constexpr int kEdgesPerWarp = kTileM / 4, kB = 4;
+  const int warp = (threadIdx.x % 128) / 32, c0 = 8 * (threadIdx.x % 32);
+  const int H = a.H, N = a.N, E = a.E;
+  const bool col_ok = c0 < H;
+  float bias[8], wreg[kRegE][8];
 #pragma unroll
-    for (int k = 0; k < kRegE; ++k) wreg[k] = k < E ? __bfloat162float(we[k * H + c]) : 0.0f;
-    const float bias = act<BF16>(b1[c]);
-    for (int t0 = 0; t0 < kTileM; t0 += kBatch) {
-      float hs[kBatch], hdst[kBatch], ev[kBatch][kRegE];
-      const float* eij[kBatch];
+  for (int cc = 0; cc < 8; ++cc) {
+    bias[cc] = col_ok ? act<BF16>(a.b1[c0 + cc]) : 0.0f;
 #pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        const int t = t0 + k;
-        const bool real = t < tl.n_valid;
-        const int i = real ? tl.row[t] : 0, j = real ? tl.col[t] : 0;
-        hs[k] = real ? proj[(size_t)i * 2 * H + c] : 0.0f;
-        hdst[k] = real ? proj[((size_t)(i / tl.N) * tl.N + j) * 2 * H + H + c] : 0.0f;
-        eij[k] = e + ((size_t)i * tl.N + j) * E;
+    for (int r = 0; r < kRegE; ++r) wreg[r][cc] = col_ok && r < E ? __bfloat162float(a.we[r * H + c0 + cc]) : 0.0f;
+  }
+  for (int i0 = 0; i0 < kEdgesPerWarp; i0 += kB) {
+    float4 hs[kB][2], hdst[kB][2];
+    float ev[kB][kRegE];
+    int q[kB];
 #pragma unroll
-        for (int r = 0; r < kRegE; ++r) ev[k][r] = real && r < E ? eij[k][r] : 0.0f;
+    for (int k = 0; k < kB; ++k) {   // all loads of the batch first
+      const int p = warp + 4 * (i0 + k);
+      const bool real = p < nv && col_ok;
+      const int row = real ? tm.row[p] : 0, col = real ? tm.col[p] : 0;
+      q[k] = row * N + col;
+      const float* s = a.proj + (size_t)row * 2 * H + c0;
+      const float* d = a.proj + ((size_t)(row / N) * N + col) * 2 * H + H + c0;
+      hs[k][0] = real ? *reinterpret_cast<const float4*>(s) : make_float4(0.f, 0.f, 0.f, 0.f);
+      hs[k][1] = real ? *reinterpret_cast<const float4*>(s + 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+      hdst[k][0] = real ? *reinterpret_cast<const float4*>(d) : make_float4(0.f, 0.f, 0.f, 0.f);
+      hdst[k][1] = real ? *reinterpret_cast<const float4*>(d + 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int r = 0; r < kRegE; ++r) ev[k][r] = real && r < E ? a.e[(size_t)q[k] * E + r] : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < kB; ++k) {
+      const int p = warp + 4 * (i0 + k);
+      const bool real = p < nv && col_ok;
+      const float hsv[8] = {hs[k][0].x, hs[k][0].y, hs[k][0].z, hs[k][0].w,
+                            hs[k][1].x, hs[k][1].y, hs[k][1].z, hs[k][1].w};
+      const float hdv[8] = {hdst[k][0].x, hdst[k][0].y, hdst[k][0].z, hdst[k][0].w,
+                            hdst[k][1].x, hdst[k][1].y, hdst[k][1].z, hdst[k][1].w};
+      float ep[8];
+#pragma unroll
+      for (int cc = 0; cc < 8; ++cc) {
+        ep[cc] = 0.0f;
+#pragma unroll
+        for (int r = 0; r < kRegE; ++r)
+          if (r < E) ep[cc] += round_bf16(ev[k][r]) * wreg[r][cc];
       }
+      if (real && E > kRegE) {   // wide E (sinusoid embedding): the rest from L1
+        for (int r = kRegE; r < E; ++r) {
+          const float er = round_bf16(a.e[(size_t)q[k] * E + r]);
+          const uint4 wv = *reinterpret_cast<const uint4*>(a.we + r * H + c0);
+          const bf16* w8 = reinterpret_cast<const bf16*>(&wv);
 #pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        const int t = t0 + k;
-        float val = 0.0f;
-        if (t < tl.n_valid) {
-          float ep = 0.0f;
-#pragma unroll
-          for (int r = 0; r < kRegE; ++r)
-            if (r < E) ep += round_bf16(ev[k][r]) * wreg[r];
-#pragma unroll 1
-          for (int r = kRegE; r < E; ++r) ep += round_bf16(eij[k][r]) * __bfloat162float(we[r * H + c]);
-          val = silu_act<BF16>(pre_act<BF16>(hs[k], hdst[k], ep, bias));
+          for (int cc = 0; cc < 8; ++cc) ep[cc] += er * __bfloat162float(w8[cc]);
         }
-        u[t * ldu + c] = __float2bfloat16(val);
       }
+      uint4 packed;
+      __nv_bfloat162* pk = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+      for (int cc = 0; cc < 8; cc += 2) {
+        const float v0 = real ? silu_act<BF16>(pre_act<BF16>(hsv[cc], hdv[cc], ep[cc], bias[cc])) : 0.0f;
+        const float v1 =
+            real ? silu_act<BF16>(pre_act<BF16>(hsv[cc + 1], hdv[cc + 1], ep[cc + 1], bias[cc + 1])) : 0.0f;
+        pk[cc / 2] = __floats2bfloat162_rn(v0, v1);
+      }
+      *reinterpret_cast<uint4*>(u + sw128_offset(p, c0, kTileM)) = packed;
     }
   }
 }
 
+// The row sums of the gated messages: write one run's sum to agg[row] or,
+// for the run that continues a row from the tile before, to heads[tile].
+__device__ __forceinline__ void flush_run(const GclArgs& a, const TileMeta& tm, int tile, int row,
+                                          bool first, int c, float sum) {
+  float* dst = first && tm.cont ? a.heads + (size_t)tile * a.H : a.agg + (size_t)row * a.H;
+  dst[c] = sum;
+}
+
 template <bool BF16, bool ATT>
-__global__ void __launch_bounds__(kThreads, 1) gcl_edge_kernel(GclArgs a) {
+__global__ void __launch_bounds__(kEdgeThreads, 1) gcl_edge_kernel(GclArgs a) {
   const int H = a.H;
   const int n_edges = a.rowstart[a.B * a.N];
   const int n_tiles = (n_edges + kTileM - 1) / kTileM;
-  if (blockIdx.x >= n_tiles) return;
-  extern __shared__ __align__(128) unsigned char smem[];
+  if (blockIdx.x * kEdgeWGs >= n_tiles) return;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  unsigned char* smem = smem_raw + ((1024 - (base & 1023)) & 1023);   // swizzle atoms on 1 KB
   bf16* w2s = reinterpret_cast<bf16*>(smem);
-  unsigned char* stage_raw = smem + w2_bytes(H);
-  float* stage = reinterpret_cast<float*>(stage_raw);
-  bf16* u = reinterpret_cast<bf16*>(stage_raw);
-  float* meta = reinterpret_cast<float*>(stage_raw + stage_bytes(H));
-  int* cont = reinterpret_cast<int*>(meta + 3 * kTileM);
-  // tile edge t: global source row row[t] = b * N + i, neighbour col[t] = j
-  Tile tl{0, 0, a.N, 0, meta, reinterpret_cast<int*>(meta + kTileM),
-          reinterpret_cast<int*>(meta + 2 * kTileM)};
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  bf16* u = reinterpret_cast<bf16*>(smem + kW2Bytes + wg * kUBytes);
+  float* stage = reinterpret_cast<float*>(u);   // the f32 messages, kStageCols at a time
+  TileMeta& tm = *reinterpret_cast<TileMeta*>(smem + kW2Bytes + kEdgeWGs * kUBytes + wg * kMetaBytes);
+  float* b2s = reinterpret_cast<float*>(smem + kW2Bytes + kEdgeWGs * (kUBytes + kMetaBytes));
+  float* watts = b2s + kMaxH;
 
   HD_PHASE_START(clk);
-  load_w2(a.w2, w2s, H);
-  float b2[kColsPerLane], watt[kColsPerLane];
-  lane_cols<BF16>(a.b2, H, b2);
-  lane_cols_bf16(a.watt, H, watt);   // zeros when attention is off
+  // W2 (K x H, row-major) into shared memory as the B operand: N x K, K-major
+  for (int idx = threadIdx.x; idx < kMaxH * kMaxH / 2; idx += blockDim.x) {
+    const int n = idx % kMaxH, k = 2 * (idx / kMaxH);
+    const bool ok = n < H && k < H;
+    __nv_bfloat162 v;
+    v.x = ok ? a.w2[(size_t)k * H + n] : __float2bfloat16(0.0f);
+    v.y = ok ? a.w2[(size_t)(k + 1) * H + n] : __float2bfloat16(0.0f);
+    *reinterpret_cast<__nv_bfloat162*>(w2s + sw128_offset(n, k, kMaxH)) = v;
+  }
+  for (int c = threadIdx.x; c < kMaxH; c += blockDim.x) {
+    b2s[c] = c < H ? act<BF16>(a.b2[c]) : 0.0f;
+    watts[c] = ATT && c < H ? __bfloat162float(a.watt[c]) : 0.0f;
+  }
   const float batt = ATT ? act<BF16>(a.batt[0]) : 0.0f;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int q0 = tile * kTileM;
-    tl.n_valid = min(kTileM, n_edges - q0);
-    for (int t = threadIdx.x; t < kTileM; t += blockDim.x) {
-      const bool real = t < tl.n_valid;
-      const int q = real ? a.edges[q0 + t] : 0;
-      tl.row[t] = real ? q / a.N : -1;
-      tl.col[t] = real ? q % a.N : 0;
-      tl.emask[t] = real ? round_bf16(a.emask[q]) : 0.0f;
-    }
-    if (threadIdx.x == 0) {
-      *cont = q0 > 0 && a.edges[q0 - 1] / a.N == a.edges[q0] / a.N;
-      HD_COUNT_EDGES(kTileM, tl.n_valid);
-    }
-    __syncthreads();
-    HD_PHASE(0, clk);
-    build_pre_list<BF16>(tl, a.proj, a.e, a.we, a.b1, u, H, a.E);
-    __syncthreads();
-    HD_PHASE(1, clk);
-    tile_mma(u, w2s, stage, H);
-    HD_PHASE(2, clk);
-    gate_and_mask<BF16, ATT>(tl, stage, b2, watt, batt, H);
-    __syncthreads();
-    HD_PHASE(3, clk);
-    // row sums, one column per thread, in edge order
-    for (int c = threadIdx.x; c < H; c += blockDim.x) {
-      int cur = tl.row[0];
-      bool first = true;
-      float sum = 0.0f;
-      for (int t = 0; t < tl.n_valid; ++t) {
-        if (tl.row[t] != cur) {
-          float* dst = first && *cont ? a.heads + (size_t)tile * H : a.agg + (size_t)cur * H;
-          dst[c] = sum;
-          first = false;
-          sum = 0.0f;
-          cur = tl.row[t];
-        }
-        sum += stage[t * lds(H) + c];
+  fence_proxy_async();
+  __syncthreads();
+
+  const int bar = 1 + wg;
+  const int warp = tid / 32, lane = tid % 32;
+  const int ra = warp * 16 + lane / 4, rb = ra + 8;   // accumulator rows of this thread
+  for (int tile = blockIdx.x * kEdgeWGs + wg; tile < n_tiles; tile += gridDim.x * kEdgeWGs) {
+    const int q0 = tile * kTileM, nv = min(kTileM, n_edges - q0);
+    if (tid < kTileM) {
+      const bool real = tid < nv;
+      const int q = real ? a.edges[q0 + tid] : 0;
+      tm.row[tid] = real ? q / a.N : -1;
+      tm.col[tid] = q % a.N;
+      tm.emask[tid] = real ? round_bf16(a.emask[q]) : 0.0f;
+      if (tid == 0) {
+        tm.cont = q0 > 0 && a.edges[q0 - 1] / a.N == q / a.N;
+        HD_COUNT_EDGES(kTileM, nv);
       }
-      float* dst = first && *cont ? a.heads + (size_t)tile * H : a.agg + (size_t)cur * H;
-      dst[c] = sum;
     }
-    __syncthreads();
-    HD_PHASE(4, clk);
+    wg_barrier(bar);
+    HD_WG_PHASE(0, clk);
+    build_tile<BF16>(tm, nv, a, u);
+    fence_proxy_async();
+    wg_barrier(bar);
+    HD_WG_PHASE(1, clk);
+
+    float d[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) fence_operand(d[i]);
+    wgmma_fence();
+    for (int s = 0; s < H / 16; ++s)
+      wgmma_m64n256k16(d, sw128_desc(u + sw128_offset(0, 16 * s, kTileM)),
+                       sw128_desc(w2s + sw128_offset(0, 16 * s, kMaxH)));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 128; ++i) fence_operand(d[i]);
+    HD_WG_PHASE(2, clk);
+
+    // bias, silu, gate and edge mask on the accumulators
+    float dot_a = 0.0f, dot_b = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = 8 * j + 2 * (lane % 4);
+      const float2 bb = *reinterpret_cast<const float2*>(b2s + c);
+      d[4 * j] = silu_act<BF16>(act<BF16>(act<BF16>(d[4 * j]) + bb.x));
+      d[4 * j + 1] = silu_act<BF16>(act<BF16>(act<BF16>(d[4 * j + 1]) + bb.y));
+      d[4 * j + 2] = silu_act<BF16>(act<BF16>(act<BF16>(d[4 * j + 2]) + bb.x));
+      d[4 * j + 3] = silu_act<BF16>(act<BF16>(act<BF16>(d[4 * j + 3]) + bb.y));
+      if (ATT) {
+        const float2 ww = *reinterpret_cast<const float2*>(watts + c);
+        dot_a += round_bf16(d[4 * j]) * ww.x + round_bf16(d[4 * j + 1]) * ww.y;
+        dot_b += round_bf16(d[4 * j + 2]) * ww.x + round_bf16(d[4 * j + 3]) * ww.y;
+      }
+    }
+    float gate_a = 1.0f, gate_b = 1.0f;
+    if (ATT) {   // the row's dot: the 4 lanes of a quad hold its columns
+      dot_a += __shfl_xor_sync(0xffffffffu, dot_a, 1);
+      dot_a += __shfl_xor_sync(0xffffffffu, dot_a, 2);
+      dot_b += __shfl_xor_sync(0xffffffffu, dot_b, 1);
+      dot_b += __shfl_xor_sync(0xffffffffu, dot_b, 2);
+      gate_a = sigmoid_act<BF16>(act<BF16>(act<BF16>(dot_a) + batt));
+      gate_b = sigmoid_act<BF16>(act<BF16>(act<BF16>(dot_b) + batt));
+    }
+    const float em_a = tm.emask[ra], em_b = tm.emask[rb];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      d[4 * j] = act<BF16>(act<BF16>(d[4 * j] * gate_a) * em_a);
+      d[4 * j + 1] = act<BF16>(act<BF16>(d[4 * j + 1] * gate_a) * em_a);
+      d[4 * j + 2] = act<BF16>(act<BF16>(d[4 * j + 2] * gate_b) * em_b);
+      d[4 * j + 3] = act<BF16>(act<BF16>(d[4 * j + 3] * gate_b) * em_b);
+    }
+    HD_WG_PHASE(3, clk);
+
+    // row sums: stage kStageCols columns of f32 messages in u's place, then
+    // each thread walks one column over the tile's edges in order
+#pragma unroll
+    for (int half = 0; half < kMaxH / kStageCols; ++half) {
+      wg_barrier(bar);
+#pragma unroll
+      for (int jj = 0; jj < kStageCols / 8; ++jj) {
+        const int j = half * (kStageCols / 8) + jj, cc = 8 * jj + 2 * (lane % 4);
+        *reinterpret_cast<float2*>(stage + ra * kStageCols + (cc ^ ((ra & 7) << 3))) =
+            make_float2(d[4 * j], d[4 * j + 1]);
+        *reinterpret_cast<float2*>(stage + rb * kStageCols + (cc ^ ((rb & 7) << 3))) =
+            make_float2(d[4 * j + 2], d[4 * j + 3]);
+      }
+      wg_barrier(bar);
+      const int c = half * kStageCols + tid;
+      if (c < H) {
+        int cur = tm.row[0];
+        bool first = true;
+        float sum = 0.0f;
+        for (int p = 0; p < nv; ++p) {
+          const int row = tm.row[p];
+          if (row != cur) {
+            flush_run(a, tm, tile, cur, first, c, sum);
+            first = false;
+            sum = 0.0f;
+            cur = row;
+          }
+          sum += stage[p * kStageCols + (tid ^ ((p & 7) << 3))];
+        }
+        flush_run(a, tm, tile, cur, first, c, sum);
+      }
+    }
+    wg_barrier(bar);
+    HD_WG_PHASE(4, clk);
   }
 }
 
@@ -283,13 +409,13 @@ __global__ void __launch_bounds__(kThreads) gcl_node_kernel(GclArgs a) {
 
 template <bool BF16, bool ATT>
 cudaError_t launch_edges(const GclArgs& a, int max_blocks, cudaStream_t stream) {
-  const int smem = edge_smem_bytes(a.H);
+  const int smem = edge_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(gcl_edge_kernel<BF16, ATT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const long long max_tiles = ((long long)a.B * a.N * a.N + kTileM - 1) / kTileM;
-  const int blocks = (int)(max_tiles < max_blocks ? max_tiles : max_blocks);
-  gcl_edge_kernel<BF16, ATT><<<blocks, kThreads, smem, stream>>>(a);
+  const long long want = (max_tiles + kEdgeWGs - 1) / kEdgeWGs;
+  gcl_edge_kernel<BF16, ATT><<<(int)(want < max_blocks ? want : max_blocks), kEdgeThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
