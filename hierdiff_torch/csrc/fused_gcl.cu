@@ -84,7 +84,7 @@ struct GclArgs {
 
 // The edge kernel: kEdgeWGs warpgroups per block, one block per SM, each
 // warpgroup walking its own tiles with its own pre-activation buffer.
-constexpr int kEdgeWGs = 1;
+constexpr int kEdgeWGs = 2;
 constexpr int kEdgeThreads = 128 * kEdgeWGs;
 constexpr int kW2Bytes = kMaxH * kMaxH * 2;          // W2, K-major, zero-padded to 256 x 256
 constexpr int kUBytes = kTileM * kMaxH * 2;          // one bf16 pre-activation tile
