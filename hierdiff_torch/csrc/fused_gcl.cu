@@ -19,7 +19,9 @@
 // Design: five launches on the caller's stream.
 //  1-2. the real-edge work list (sm90.cuh): only edges with emask != 0 are
 //       computed, in (row, neighbour) order, packed into tiles of kTileM;
-//  3.   proj_kernel (edge_mlp.cuh): [h W_src | h W_dst] for every node;
+//  3.   proj_sm90_kernel: the products of h that need no message, [h W_src |
+//       h W_dst] and z1h = h Wn1[:H], for every node, 64 rows per block, on
+//       wgmma with the weight copied into shared memory by cp.async;
 //  4.   gcl_edge_kernel: one persistent block per SM holds W2 in shared
 //       memory (256 x 256 bf16, K-major, 128-byte swizzle: the layout wgmma
 //       reads) and runs two warpgroups that walk their own tiles apart, so
@@ -35,7 +37,8 @@
 //       goes to heads[tile];
 //  5.   gcl_node_kernel: agg_i = (agg[i] + heads of the tiles the row runs
 //       into, in tile order) / norm, written back to agg, then the node MLP
-//       over all B*N rows on the tensor cores.
+//       over all B*N rows, 64 per block: z1 = z1h + agg Wn1[H:] + bn1 and
+//       silu(z1) Wn2 as two wgmma products.
 // No float atomics: two runs are bitwise equal. agg is the caller's buffer;
 // for training it is the residual that fused_gcl_bwd.cu reads.
 #include "edge_mlp.cuh"
@@ -55,12 +58,13 @@ struct GclArgs {
   const float* b2;
   const bf16* watt;
   const float* batt;
-  const bf16* nw1;
+  const bf16* nw1t;      // node weights, nn.Linear layout (N x K): wgmma's B
   const float* nb1;
-  const bf16* nw2;
+  const bf16* nw2t;
   const float* nb2;
   const int* rowstart;   // work list (sm90.cuh)
   const int* edges;
+  const float* z1h;      // (B*N, H): h Wn1[:H], the h half of the node MLP's first layer
   float* heads;          // (tiles, H): the run of a row continued from the tile before
   float* agg;            // (B*N, H): runs that start in a tile, then agg / norm
   float* out;
@@ -177,6 +181,26 @@ __device__ __forceinline__ void build_tile(const TileMeta& tm, int nv, const Gcl
   }
 }
 
+// A tile's metadata, read one tile ahead: thread t < kTileM holds edge t's
+// flat index (-1 past the last real edge) and bf16-rounded mask, thread 0
+// also whether the tile's first run continues a row from the tile before.
+struct MetaPrefetch {
+  int q;
+  float emask;
+  int cont;
+};
+
+__device__ __forceinline__ MetaPrefetch fetch_meta(const GclArgs& a, int tile, int n_edges, int tid) {
+  MetaPrefetch m{-1, 0.0f, 0};
+  const int q0 = tile * kTileM;
+  if (tid < kTileM && q0 + tid < n_edges) {
+    m.q = a.edges[q0 + tid];
+    m.emask = round_bf16(a.emask[m.q]);
+    if (tid == 0) m.cont = q0 > 0 && a.edges[q0 - 1] / a.N == m.q / a.N;
+  }
+  return m;
+}
+
 // The row sums of the gated messages: write one run's sum to agg[row] or,
 // for the run that continues a row from the tile before, to heads[tile].
 __device__ __forceinline__ void flush_run(const GclArgs& a, const TileMeta& tm, int tile, int row,
@@ -203,14 +227,27 @@ __global__ void __launch_bounds__(kEdgeThreads, 1) gcl_edge_kernel(GclArgs a) {
   float* watts = b2s + kMaxH;
 
   HD_PHASE_START(clk);
-  // W2 (K x H, row-major) into shared memory as the B operand: N x K, K-major
-  for (int idx = threadIdx.x; idx < kMaxH * kMaxH / 2; idx += blockDim.x) {
-    const int n = idx % kMaxH, k = 2 * (idx / kMaxH);
-    const bool ok = n < H && k < H;
-    __nv_bfloat162 v;
-    v.x = ok ? a.w2[(size_t)k * H + n] : __float2bfloat16(0.0f);
-    v.y = ok ? a.w2[(size_t)(k + 1) * H + n] : __float2bfloat16(0.0f);
-    *reinterpret_cast<__nv_bfloat162*>(w2s + sw128_offset(n, k, kMaxH)) = v;
+  // W2 (K x H, row-major) into shared memory as the B operand: N x K, K-major.
+  // A thread reads 8 columns of rows k and k + 1 (two 16-byte loads) and
+  // writes 8 (k, k + 1) pairs; a warp's 32 consecutive k pairs fill whole
+  // 128-byte rows, so the 4-byte stores meet no bank conflict.
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < (kMaxH / 2) * (kMaxH / 8); idx += blockDim.x) {
+    const int k = 2 * (idx % (kMaxH / 2)), n0 = 8 * (idx / (kMaxH / 2));
+    uint4 r0 = make_uint4(0, 0, 0, 0), r1 = r0;
+    if (k < H && n0 < H) {
+      r0 = *reinterpret_cast<const uint4*>(a.w2 + (size_t)k * H + n0);
+      r1 = *reinterpret_cast<const uint4*>(a.w2 + (size_t)(k + 1) * H + n0);
+    }
+    const bf16* v0 = reinterpret_cast<const bf16*>(&r0);
+    const bf16* v1 = reinterpret_cast<const bf16*>(&r1);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      __nv_bfloat162 pair;
+      pair.x = v0[i];
+      pair.y = v1[i];
+      *reinterpret_cast<__nv_bfloat162*>(w2s + sw128_offset(n0 + i, k, kMaxH)) = pair;
+    }
   }
   for (int c = threadIdx.x; c < kMaxH; c += blockDim.x) {
     b2s[c] = c < H ? act<BF16>(a.b2[c]) : 0.0f;
@@ -223,22 +260,24 @@ __global__ void __launch_bounds__(kEdgeThreads, 1) gcl_edge_kernel(GclArgs a) {
   const int bar = 1 + wg;
   const int warp = tid / 32, lane = tid % 32;
   const int ra = warp * 16 + lane / 4, rb = ra + 8;   // accumulator rows of this thread
-  for (int tile = blockIdx.x * kEdgeWGs + wg; tile < n_tiles; tile += gridDim.x * kEdgeWGs) {
+  const int stride = gridDim.x * kEdgeWGs;
+  int tile = blockIdx.x * kEdgeWGs + wg;
+  MetaPrefetch pf = fetch_meta(a, tile, n_edges, tid);
+  for (; tile < n_tiles; tile += stride) {
     const int q0 = tile * kTileM, nv = min(kTileM, n_edges - q0);
     if (tid < kTileM) {
-      const bool real = tid < nv;
-      const int q = real ? a.edges[q0 + tid] : 0;
-      tm.row[tid] = real ? q / a.N : -1;
-      tm.col[tid] = q % a.N;
-      tm.emask[tid] = real ? round_bf16(a.emask[q]) : 0.0f;
+      tm.row[tid] = pf.q >= 0 ? pf.q / a.N : -1;
+      tm.col[tid] = pf.q >= 0 ? pf.q % a.N : 0;
+      tm.emask[tid] = pf.emask;
       if (tid == 0) {
-        tm.cont = q0 > 0 && a.edges[q0 - 1] / a.N == q / a.N;
+        tm.cont = pf.cont;
         HD_COUNT_EDGES(kTileM, nv);
       }
     }
     wg_barrier(bar);
     HD_WG_PHASE(0, clk);
     build_tile<BF16>(tm, nv, a, u);
+    pf = fetch_meta(a, tile + stride, n_edges, tid);   // in flight during this tile
     fence_proxy_async();
     wg_barrier(bar);
     HD_WG_PHASE(1, clk);
@@ -330,81 +369,247 @@ __global__ void __launch_bounds__(kEdgeThreads, 1) gcl_edge_kernel(GclArgs a) {
   }
 }
 
-// The node MLP over kNodeRows rows per block.
-constexpr int kNodeRows = 32;
+// The node-level products on wgmma: 64 rows per block and two warpgroups,
+// each owning 128 of the 256 output columns (m64n128k16); B (a weight, N x K,
+// K-major: nn.Linear's own layout, cached in bf16) copied into shared memory
+// with cp.async, A built from f32 rows.
+constexpr int kRowTile = 64;
+constexpr int kNodeThreads = 256;
 
-__host__ __device__ inline int node_smem_bytes(int H) {
-  return align128(kNodeRows * (2 * H + 8) * 2) + align128(kNodeRows * lds(H) * 4) +
-         align128(kNodeRows * ldw(H) * 2);
+__host__ __device__ constexpr int node_smem_bytes() {   // B, A, bn1 and bn2
+  return 1024 + kMaxH * kMaxH * 2 + kRowTile * kMaxH * 2 + 2 * kMaxH * 4;
 }
 
-// out (kNodeRows x Nc, f32, smem) = a (kNodeRows x K, bf16, smem) @ w (K x Nc,
-// bf16, row-major, device memory); warp w owns column fragments w, w + kWarps, ...
-__device__ __forceinline__ void node_mma(const bf16* a, int lda, const bf16* __restrict__ w, int K, int Nc,
-                                         float* out, int ldo) {
-  constexpr int kFrags = kNodeRows / 16;
-  const int warp = threadIdx.x / 32;
-  for (int cf = warp; cf < Nc / 16; cf += kWarps) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kFrags];
-#pragma unroll
-    for (int m = 0; m < kFrags; ++m) wmma::fill_fragment(acc[m], 0.0f);
-#pragma unroll 4   // several weight fragments in flight from L2
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, w + (size_t)k * Nc + cf * 16, Nc);
-#pragma unroll
-      for (int m = 0; m < kFrags; ++m) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, a + m * 16 * lda + k, lda);
-        wmma::mma_sync(acc[m], fa, fb, acc[m]);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < kFrags; ++m)
-      wmma::store_matrix_sync(out + m * 16 * ldo + cf * 16, acc[m], ldo, wmma::mem_row_major);
+// B (256 x K, SWIZZLE_128B) = rows 0 .. H - 1 of w (N x K row-major, row
+// stride ld, bf16), asynchronously; rows >= H are zeroed.
+__device__ __forceinline__ void load_b_async(bf16* bs, const bf16* __restrict__ w, int ld, int H, int K) {
+  const int chunks = K / 8;
+  for (int idx = threadIdx.x; idx < kMaxH * chunks; idx += blockDim.x) {
+    const int n = idx / chunks, c = idx % chunks;
+    bf16* dst = bs + sw128_offset(n, 8 * c, kMaxH);
+    if (n < H) cp_async16(dst, w + (size_t)n * ld + 8 * c);
+    else *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
   }
 }
 
-// agg = (agg + heads) / norm in place, then out = (h + node_mlp([h, agg])) * nmask.
-__global__ void __launch_bounds__(kThreads) gcl_node_kernel(GclArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int H = a.H, rows = a.B * a.N, r0 = blockIdx.x * kNodeRows;
-  const int lda1 = 2 * H + 8, lda2 = ldw(H), ldo = lds(H);
-  bf16* a1 = reinterpret_cast<bf16*>(smem);
-  float* o = reinterpret_cast<float*>(smem + align128(kNodeRows * lda1 * 2));
-  bf16* a2 = reinterpret_cast<bf16*>(smem + align128(kNodeRows * lda1 * 2) + align128(kNodeRows * ldo * 4));
-  for (int idx = threadIdx.x; idx < kNodeRows * H; idx += blockDim.x) {
-    const int r = idx / H, c = idx % H, node = r0 + r;
-    float hv = 0.0f, v = 0.0f;
-    if (node < rows) {
-      hv = a.h[(size_t)node * H + c];
-      const int s = a.rowstart[node], e = a.rowstart[node + 1];
-      if (s < e) {
-        float sum = a.agg[(size_t)node * H + c];
-        for (int t = s / kTileM + 1; t <= (e - 1) / kTileM; ++t) sum += a.heads[(size_t)t * H + c];
-        v = sum / a.norm;
+// d (64 x 128) = A (64 x 16 k_steps, SWIZZLE_128B with 64 rows) @ the 128
+// columns of B^T that this thread's warpgroup owns.
+__device__ __forceinline__ void wgmma_half(float (&d)[64], const bf16* as, const bf16* bs, int k_steps) {
+  const int n0 = 128 * (threadIdx.x / 128);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) fence_operand(d[i]);
+  wgmma_fence();
+  for (int s = 0; s < k_steps; ++s)
+    wgmma_m64n128k16(d, sw128_desc(as + sw128_offset(0, 16 * s, kRowTile)),
+                     sw128_desc(bs + sw128_offset(n0, 16 * s, kMaxH)));
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 64; ++i) fence_operand(d[i]);
+}
+
+__device__ __forceinline__ unsigned char* align_smem(unsigned char* raw) {
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
+  return raw + ((1024 - (base & 1023)) & 1023);
+}
+
+// A thread's accumulator rows (of the block's 64) and its columns: for
+// j = 0 .. 15, d[4j + {0, 1}] is row ra, columns col(j) + {0, 1}, and
+// d[4j + {2, 3}] the same columns of row rb.
+struct HalfFrag {
+  int ra, rb, c0;
+  __device__ HalfFrag() {
+    const int t = threadIdx.x % 128, lane = t % 32;
+    ra = (t / 32) * 16 + lane / 4;
+    rb = ra + 8;
+    c0 = 128 * (threadIdx.x / 128) + 2 * (lane % 4);
+  }
+  __device__ int col(int j) const { return c0 + 8 * j; }
+};
+
+// The three products of h that need no message: blockIdx.y 0 and 1 give
+// proj = [h W_src | h W_dst], 2 gives z1h = h Wn1[:H] (the h half of the node
+// MLP's first layer), for 64 rows per block. The weights are the cached
+// nn.Linear-layout copies: wsrct, wdstt, and nw1t's first H columns.
+__global__ void __launch_bounds__(kNodeThreads, 1)
+proj_sm90_kernel(const float* __restrict__ h, const bf16* __restrict__ wsrct, const bf16* __restrict__ wdstt,
+                 const bf16* __restrict__ nw1t, float* __restrict__ proj, float* __restrict__ z1h, int M,
+                 int H) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  bf16* bs = reinterpret_cast<bf16*>(smem);
+  bf16* as = reinterpret_cast<bf16*>(smem + kMaxH * kMaxH * 2);
+  const int r0 = blockIdx.x * kRowTile, which = blockIdx.y;
+  if (which == 2) load_b_async(bs, nw1t, 2 * H, H, H);
+  else load_b_async(bs, which ? wdstt : wsrct, H, H, H);
+  cp_async_commit();
+  constexpr int kProjBatch = 8;   // 8-column chunks per thread whose loads go together
+  for (int idx0 = 0; idx0 < kRowTile * H / 8; idx0 += kProjBatch * kNodeThreads) {
+    float4 x[kProjBatch][2];
+#pragma unroll
+    for (int k = 0; k < kProjBatch; ++k) {
+      const int idx = idx0 + k * kNodeThreads + threadIdx.x;
+      const int r = idx / (H / 8), c0 = 8 * (idx % (H / 8));
+      x[k][0] = x[k][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (idx < kRowTile * H / 8 && r0 + r < M) {
+        x[k][0] = *reinterpret_cast<const float4*>(h + (size_t)(r0 + r) * H + c0);
+        x[k][1] = *reinterpret_cast<const float4*>(h + (size_t)(r0 + r) * H + c0 + 4);
       }
-      a.agg[(size_t)node * H + c] = v;
     }
-    a1[r * lda1 + c] = __float2bfloat16(hv);
-    a1[r * lda1 + H + c] = __float2bfloat16(v);
+#pragma unroll
+    for (int k = 0; k < kProjBatch; ++k) {
+      const int idx = idx0 + k * kNodeThreads + threadIdx.x;
+      if (idx >= kRowTile * H / 8) break;
+      const int r = idx / (H / 8), c0 = 8 * (idx % (H / 8));
+      uint4 packed;
+      __nv_bfloat162* pk = reinterpret_cast<__nv_bfloat162*>(&packed);
+      pk[0] = __floats2bfloat162_rn(x[k][0].x, x[k][0].y);
+      pk[1] = __floats2bfloat162_rn(x[k][0].z, x[k][0].w);
+      pk[2] = __floats2bfloat162_rn(x[k][1].x, x[k][1].y);
+      pk[3] = __floats2bfloat162_rn(x[k][1].z, x[k][1].w);
+      *reinterpret_cast<uint4*>(as + sw128_offset(r, c0, kRowTile)) = packed;
+    }
   }
+  cp_async_wait_all();
+  fence_proxy_async();
   __syncthreads();
-  node_mma(a1, lda1, a.nw1, 2 * H, H, o, ldo);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kNodeRows * H; idx += blockDim.x) {
-    const int r = idx / H, c = idx % H;
-    const float z = o[r * ldo + c] + a.nb1[c];
-    a2[r * lda2 + c] = __float2bfloat16(z / (1.0f + expf(-z)));
+  float d[64];
+  wgmma_half(d, as, bs, H / 16);
+  const HalfFrag f;
+  float* dst = which == 2 ? z1h : proj + which * H;
+  const int ld = which == 2 ? H : 2 * H;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int c = f.col(j);
+    if (c < H) {
+      if (r0 + f.ra < M)
+        *reinterpret_cast<float2*>(dst + (size_t)(r0 + f.ra) * ld + c) = make_float2(d[4 * j], d[4 * j + 1]);
+      if (r0 + f.rb < M)
+        *reinterpret_cast<float2*>(dst + (size_t)(r0 + f.rb) * ld + c) = make_float2(d[4 * j + 2], d[4 * j + 3]);
+    }
   }
-  __syncthreads();
-  node_mma(a2, lda2, a.nw2, H, H, o, ldo);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kNodeRows * H; idx += blockDim.x) {
-    const int r = idx / H, c = idx % H, node = r0 + r;
-    if (node < rows)
-      a.out[(size_t)node * H + c] = (a.h[(size_t)node * H + c] + (o[r * ldo + c] + a.nb2[c])) * a.nmask[node];
+}
+
+// agg = (agg + heads of the tiles its row runs into) / norm in place, then
+// out = (h + silu(z1h + agg Wn1[H:] + bn1) Wn2 + bn2) * nmask, 64 rows per block.
+__global__ void __launch_bounds__(kNodeThreads, 1) gcl_node_kernel(GclArgs a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  bf16* bs = reinterpret_cast<bf16*>(smem);
+  bf16* as = reinterpret_cast<bf16*>(smem + kMaxH * kMaxH * 2);
+  float* nbs = reinterpret_cast<float*>(smem + kMaxH * kMaxH * 2 + kRowTile * kMaxH * 2);   // bn1, bn2
+  const int H = a.H, M = a.B * a.N, r0 = blockIdx.x * kRowTile;
+  const HalfFrag f;
+  const int node_a = r0 + f.ra, node_b = r0 + f.rb;
+  HD_PHASE_START(clk);
+  load_b_async(bs, a.nw1t + H, 2 * H, H, H);   // Wn1^T columns H .. 2H - 1: the agg half
+  cp_async_commit();
+  for (int c = threadIdx.x; c < kMaxH; c += blockDim.x) {
+    nbs[c] = c < H ? a.nb1[c] : 0.0f;
+    nbs[kMaxH + c] = c < H ? a.nb2[c] : 0.0f;
   }
+  // A = bf16(agg / norm) (64 x H); agg finished and written back.
+  // kNodeBatch float4 columns per thread at a time, all their loads first.
+  constexpr int kNodeBatch = 8;
+  for (int idx0 = 0; idx0 < kRowTile * H / 4; idx0 += kNodeBatch * kNodeThreads) {
+    float4 v[kNodeBatch];
+    int s[kNodeBatch], e[kNodeBatch];
+#pragma unroll
+    for (int k = 0; k < kNodeBatch; ++k) {
+      const int idx = idx0 + k * kNodeThreads + threadIdx.x;
+      const int node = r0 + idx / (H / 4), c0 = 4 * (idx % (H / 4));
+      v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      s[k] = e[k] = 0;
+      if (idx < kRowTile * H / 4 && node < M) {
+        v[k] = *reinterpret_cast<const float4*>(a.agg + (size_t)node * H + c0);
+        s[k] = a.rowstart[node];
+        e[k] = a.rowstart[node + 1];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kNodeBatch; ++k) {
+      const int idx = idx0 + k * kNodeThreads + threadIdx.x;
+      if (idx >= kRowTile * H / 4) break;
+      const int r = idx / (H / 4), c0 = 4 * (idx % (H / 4)), node = r0 + r;
+      if (s[k] < e[k]) {
+        float4 sum = v[k];
+        for (int t = s[k] / kTileM + 1; t <= (e[k] - 1) / kTileM; ++t) {
+          const float4 hd = *reinterpret_cast<const float4*>(a.heads + (size_t)t * H + c0);
+          sum.x += hd.x; sum.y += hd.y; sum.z += hd.z; sum.w += hd.w;
+        }
+        v[k] = make_float4(sum.x / a.norm, sum.y / a.norm, sum.z / a.norm, sum.w / a.norm);
+      } else {
+        v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      if (node < M) *reinterpret_cast<float4*>(a.agg + (size_t)node * H + c0) = v[k];
+      __nv_bfloat162* av = reinterpret_cast<__nv_bfloat162*>(as + sw128_offset(r, c0, kRowTile));
+      av[0] = __floats2bfloat162_rn(v[k].x, v[k].y);
+      av[1] = __floats2bfloat162_rn(v[k].z, v[k].w);
+    }
+  }
+  // this thread's z1h values, read while the weight arrives
+  float2 zh[16][2];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int c = f.col(j);
+    zh[j][0] = c < H && node_a < M ? *reinterpret_cast<const float2*>(a.z1h + (size_t)node_a * H + c)
+                                   : make_float2(0.f, 0.f);
+    zh[j][1] = c < H && node_b < M ? *reinterpret_cast<const float2*>(a.z1h + (size_t)node_b * H + c)
+                                   : make_float2(0.f, 0.f);
+  }
+  cp_async_wait_all();
+  fence_proxy_async();
+  __syncthreads();
+  HD_PHASE(5, clk);
+  float d[64];
+  wgmma_half(d, as, bs, H / 16);
+  __syncthreads();
+  load_b_async(bs, a.nw2t, H, H, H);
+  cp_async_commit();
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {   // silu(z1) as the second product's A, in A's place
+    const int c = f.col(j);
+    if (c < H) {
+      const float2 nb = *reinterpret_cast<const float2*>(nbs + c);
+      const float z0 = zh[j][0].x + d[4 * j] + nb.x, z1 = zh[j][0].y + d[4 * j + 1] + nb.y;
+      const float z2 = zh[j][1].x + d[4 * j + 2] + nb.x, z3 = zh[j][1].y + d[4 * j + 3] + nb.y;
+      *reinterpret_cast<__nv_bfloat162*>(as + sw128_offset(f.ra, c, kRowTile)) =
+          __floats2bfloat162_rn(z0 / (1.0f + expf(-z0)), z1 / (1.0f + expf(-z1)));
+      *reinterpret_cast<__nv_bfloat162*>(as + sw128_offset(f.rb, c, kRowTile)) =
+          __floats2bfloat162_rn(z2 / (1.0f + expf(-z2)), z3 / (1.0f + expf(-z3)));
+    }
+  }
+  cp_async_wait_all();
+  fence_proxy_async();
+  __syncthreads();
+  HD_PHASE(6, clk);
+  wgmma_half(d, as, bs, H / 16);
+  // out = (h + z2 + bn2) * nmask; the h loads go out ahead of the stores
+  const float m_a = node_a < M ? a.nmask[node_a] : 0.0f, m_b = node_b < M ? a.nmask[node_b] : 0.0f;
+  float2 hv[16][2];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int c = f.col(j);
+    hv[j][0] = c < H && node_a < M ? *reinterpret_cast<const float2*>(a.h + (size_t)node_a * H + c)
+                                   : make_float2(0.f, 0.f);
+    hv[j][1] = c < H && node_b < M ? *reinterpret_cast<const float2*>(a.h + (size_t)node_b * H + c)
+                                   : make_float2(0.f, 0.f);
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int c = f.col(j);
+    if (c >= H) continue;
+    const float2 nb = *reinterpret_cast<const float2*>(nbs + kMaxH + c);
+    if (node_a < M)
+      *reinterpret_cast<float2*>(a.out + (size_t)node_a * H + c) =
+          make_float2((hv[j][0].x + (d[4 * j] + nb.x)) * m_a, (hv[j][0].y + (d[4 * j + 1] + nb.y)) * m_a);
+    if (node_b < M)
+      *reinterpret_cast<float2*>(a.out + (size_t)node_b * H + c) =
+          make_float2((hv[j][1].x + (d[4 * j + 2] + nb.x)) * m_b, (hv[j][1].y + (d[4 * j + 3] + nb.y)) * m_b);
+  }
+  HD_PHASE(7, clk);
 }
 
 template <bool BF16, bool ATT>
@@ -422,23 +627,29 @@ cudaError_t launch_edges(const GclArgs& a, int max_blocks, cudaStream_t stream) 
 }  // namespace hd
 
 extern "C" int hd_fused_gcl(const float* h, const float* e, const float* emask,
-                            const float* nmask, const hd::bf16* wsd, const hd::bf16* we,
-                            const float* b1, const hd::bf16* w2, const float* b2,
-                            const hd::bf16* watt, const float* batt, const hd::bf16* nw1,
-                            const float* nb1, const hd::bf16* nw2, const float* nb2,
-                            float* proj, int* rowstart, int* totals, int* edges, float* heads,
-                            float* agg, float* out, int B, int N, int H, int E, float norm,
+                            const float* nmask, const hd::bf16* wsrct, const hd::bf16* wdstt,
+                            const hd::bf16* we, const float* b1, const hd::bf16* w2, const float* b2,
+                            const hd::bf16* watt, const float* batt, const hd::bf16* nw1t,
+                            const float* nb1, const hd::bf16* nw2t, const float* nb2,
+                            float* proj, float* z1h, int* rowstart, int* totals, int* edges,
+                            float* heads, float* agg, float* out, int B, int N, int H, int E, float norm,
                             int attention, int bf16_act, int max_blocks, void* stream) {
   if (B * N == 0) return 0;
   if (H % 16 != 0 || H > hd::kMaxH || E > hd::kMaxE || max_blocks < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = hd::launch_edge_list(emask, B * N, N, rowstart, totals, edges, st);
+  const int M = B * N, row_tiles = (M + hd::kRowTile - 1) / hd::kRowTile;
+  cudaError_t err = hd::launch_edge_list(emask, M, N, rowstart, totals, edges, st);
   if (err != cudaSuccess) return (int)err;
-  err = hd::launch_proj(h, wsd, proj, B * N, H, st);
+  const int node_smem = hd::node_smem_bytes();
+  err = cudaFuncSetAttribute(hd::proj_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, node_smem);
   if (err != cudaSuccess) return (int)err;
-  const hd::GclArgs a{h, e, emask, nmask, proj, we, b1, w2, b2, watt, batt, nw1, nb1, nw2, nb2,
-                      rowstart, edges, heads, agg, out, B, N, H, E, norm};
+  hd::proj_sm90_kernel<<<dim3(row_tiles, 3), hd::kNodeThreads, node_smem, st>>>(h, wsrct, wdstt, nw1t, proj,
+                                                                                   z1h, M, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const hd::GclArgs a{h, e, emask, nmask, proj, we, b1, w2, b2, watt, batt, nw1t, nb1, nw2t, nb2,
+                      rowstart, edges, z1h, heads, agg, out, B, N, H, E, norm};
   if (bf16_act)
     err = attention ? hd::launch_edges<true, true>(a, max_blocks, st)
                     : hd::launch_edges<true, false>(a, max_blocks, st);
@@ -446,10 +657,8 @@ extern "C" int hd_fused_gcl(const float* h, const float* e, const float* emask,
     err = attention ? hd::launch_edges<false, true>(a, max_blocks, st)
                     : hd::launch_edges<false, false>(a, max_blocks, st);
   if (err != cudaSuccess) return (int)err;
-  const int node_smem = hd::node_smem_bytes(H);
-  err = cudaFuncSetAttribute(hd::gcl_node_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             node_smem);
+  err = cudaFuncSetAttribute(hd::gcl_node_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, node_smem);
   if (err != cudaSuccess) return (int)err;
-  hd::gcl_node_kernel<<<(B * N + hd::kNodeRows - 1) / hd::kNodeRows, hd::kThreads, node_smem, st>>>(a);
+  hd::gcl_node_kernel<<<row_tiles, hd::kNodeThreads, node_smem, st>>>(a);
   return (int)cudaGetLastError();
 }

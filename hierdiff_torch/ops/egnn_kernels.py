@@ -234,7 +234,7 @@ def records_grad(layer, *tensors: Tensor) -> bool:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_GCL_ARGTYPES = [_P] * 22 + [_I, _I, _I, _I, _F, _I, _I, _I, _P]
+_GCL_ARGTYPES = [_P] * 24 + [_I, _I, _I, _I, _F, _I, _I, _I, _P]
 _COORD_ARGTYPES = [_P] * 14 + [_I, _I, _I, _I, _F, _F, _I, _I, _I, _P]
 _BWD_ARGTYPES = [_P] * 24 + [_I, _I, _I, _I, _F, _I, _I, _I, _P]
 _num_sms: Dict[int, int] = {}
@@ -411,6 +411,7 @@ def _launch_gcl(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor, node_mas
     w = _cached_weights(layer, _gcl_kernel_weights, device, rebuild=agg_out is not None)
     ws = gcl_workspace(b, n, hidden)
     proj = torch.empty((b * n, 2 * hidden), dtype=torch.float32, device=device)
+    z1h = torch.empty((b * n, hidden), dtype=torch.float32, device=device)
     rowstart, totals, edges = torch.empty(ws["rowstart"] + ws["totals"] + ws["edges"],
                                           dtype=torch.int32, device=device).split(
         [ws["rowstart"], ws["totals"], ws["edges"]])
@@ -419,10 +420,10 @@ def _launch_gcl(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor, node_mas
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _entry("fused_gcl", phase_clocks)(
         h.data_ptr(), edge_attr.data_ptr(), edge_mask.data_ptr(), node_mask.data_ptr(),
-        w["wsd"].data_ptr(), w["we"].data_ptr(), w["b1"].data_ptr(),
+        w["wsrct"].data_ptr(), w["wdstt"].data_ptr(), w["we"].data_ptr(), w["b1"].data_ptr(),
         w["w2"].data_ptr(), w["b2"].data_ptr(), w["watt"].data_ptr(),
-        w["batt"].data_ptr(), w["nw1"].data_ptr(), w["nb1"].data_ptr(),
-        w["nw2"].data_ptr(), w["nb2"].data_ptr(), proj.data_ptr(), rowstart.data_ptr(),
+        w["batt"].data_ptr(), w["nw1t"].data_ptr(), w["nb1"].data_ptr(),
+        w["nw2t"].data_ptr(), w["nb2"].data_ptr(), proj.data_ptr(), z1h.data_ptr(), rowstart.data_ptr(),
         totals.data_ptr(), edges.data_ptr(), heads.data_ptr(), agg.data_ptr(), out.data_ptr(),
         b, n, hidden, edge_attr.shape[-1], float(layer.normalization_factor),
         int(layer.attention), int(layer.compute_dtype is torch.bfloat16), _sm_count(device),

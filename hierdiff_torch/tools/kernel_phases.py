@@ -40,8 +40,12 @@ import torch
 B, N, H, E = 64, 32, 256, 2
 GCL_PHASES = ("W2 load and tile setup", "pre-activation build", "W2 product (wgmma)",
               "bias, silu, gate and mask (registers)", "row sums (staged halves)")
-# CUDA kernels of csrc/fused_gcl.cu besides proj_kernel
-GCL_KERNELS = ("gcl_edge_kernel", "gcl_node_kernel", "edge_count_kernel", "edge_fill_kernel")
+# counters 5-7 of the fused_gcl build: its node kernel (thread 0 of each block)
+GCL_NODE_PHASES = ("agg finish, A build, first weight load",
+                   "layer-1 product, second weight load, silu", "layer-2 product and output")
+# CUDA kernels of csrc/fused_gcl.cu
+GCL_KERNELS = ("edge_count_kernel", "edge_fill_kernel", "proj_sm90_kernel", "gcl_edge_kernel",
+               "gcl_node_kernel")
 COORD_PHASES = ("tile setup", "pre-activation build", "W2 product", "head and coord terms",
                 "coord sums", "output")
 BWD_PHASES = ("tile setup", "pre-activation build", "W2 product", "gate and silu backward",
@@ -148,7 +152,11 @@ def main() -> None:
         line = {"kernel": name, "phase_cycle_share": {
             p: counters[i] / total for i, p in enumerate(phases)},
             "cycles_per_call_summed_over_blocks": total / reps}
-        if name == "fused_gcl":   # edges computed against the mask's real edges
+        if name == "fused_gcl":   # node kernel; edges computed against the mask's real edges
+            node = [counters[5 + i] for i in range(len(GCL_NODE_PHASES))]
+            line["node_kernel_phase_cycle_share"] = {
+                p: c / max(sum(node), 1) for p, c in zip(GCL_NODE_PHASES, node)}
+            line["node_kernel_cycles_per_call_summed_over_blocks"] = sum(node) / reps
             edges = (ctypes.c_ulonglong * 2)()
             lib.hd_read_edge_counts.argtypes = [ctypes.c_void_p]
             lib.hd_read_edge_counts(edges)   # the warm-up and the calls above
@@ -257,11 +265,10 @@ def train_step_breakdown(device: torch.device, steps: int = 8) -> dict:
     group = lambda names: sum(v for k, v in per_kernel.items()   # noqa: E731
                               if any(f"hd::{n}" in k for n in names))
     busy_us = sum(per_kernel.values())
-    # proj_kernel runs once in each GCL forward and once in each backward, at
-    # the same shape (the coordinate update takes its plain route here); the
-    # work-list kernels of sm90.cuh run in the forward only
-    fwd_us = group(GCL_KERNELS) + group(("proj_kernel",)) / 2
-    bwd_us = group(BACKWARD_KERNELS) + group(("proj_kernel",)) / 2
+    # the coordinate update takes its plain route here; proj_kernel
+    # (edge_mlp.cuh) runs in the backward, the forward has its own
+    fwd_us = group(GCL_KERNELS)
+    bwd_us = group(BACKWARD_KERNELS) + group(("proj_kernel",))
     return {"batch": B, "steps": steps, "bucket_mix": [int(b["positions"].shape[1]) for b in batches[2:]],
             "wall_ms_per_step": wall_ms,
             "event_ms_per_step": dict(zip(("forward", "backward", "optimizer", "ema"),
