@@ -444,7 +444,6 @@ proj_sm90_kernel(const float* __restrict__ h, const bf16* __restrict__ wsrct, co
   const int r0 = blockIdx.x * kRowTile, which = blockIdx.y;
   if (which == 2) load_b_async(bs, nw1t, 2 * H, H, H);
   else load_b_async(bs, which ? wdstt : wsrct, H, H, H);
-  cp_async_commit();
   constexpr int kProjBatch = 8;   // 8-column chunks per thread whose loads go together
   for (int idx0 = 0; idx0 < kRowTile * H / 8; idx0 += kProjBatch * kNodeThreads) {
     float4 x[kProjBatch][2];
@@ -505,7 +504,6 @@ __global__ void __launch_bounds__(kNodeThreads, 1) gcl_node_kernel(GclArgs a) {
   const int node_a = r0 + f.ra, node_b = r0 + f.rb;
   HD_PHASE_START(clk);
   load_b_async(bs, a.nw1t + H, 2 * H, H, H);   // Wn1^T columns H .. 2H - 1: the agg half
-  cp_async_commit();
   for (int c = threadIdx.x; c < kMaxH; c += blockDim.x) {
     nbs[c] = c < H ? a.nb1[c] : 0.0f;
     nbs[kMaxH + c] = c < H ? a.nb2[c] : 0.0f;
@@ -567,7 +565,6 @@ __global__ void __launch_bounds__(kNodeThreads, 1) gcl_node_kernel(GclArgs a) {
   wgmma_half(d, as, bs, H / 16);
   __syncthreads();
   load_b_async(bs, a.nw2t, H, H, H);
-  cp_async_commit();
 #pragma unroll
   for (int j = 0; j < 16; ++j) {   // silu(z1) as the second product's A, in A's place
     const int c = f.col(j);

@@ -380,19 +380,26 @@ def _check_gcl_inputs(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor,
     _check_layer(h, edge_attr, layer.edge_mlp[2].weight.shape[0])
 
 
+GCL_INT_SCRATCH = ("rowstart", "totals", "edges")
+GCL_FLOAT_SCRATCH = ("proj", "z1h", "heads", "agg")
+
+
 def gcl_workspace(b: int, n: int, hidden: int) -> Dict[str, int]:
-    """Element counts of ``fused_gcl``'s scratch buffers for h (b, n, hidden):
-    the work list (int32: ``rowstart`` b*n + 1, ``totals`` one per list
-    block, ``edges`` room for every edge) and ``heads`` (float32, one row of
-    ``hidden`` per possible tile: the part of a source row continued from
-    the tile before). Sized for a full edge mask; what a call uses depends
-    on the mask, which stays on the device."""
+    """Element counts of ``fused_gcl``'s scratch buffers for h (b, n, hidden).
+    int32: the work list (``rowstart`` b*n + 1, ``totals`` one per list
+    block, ``edges`` room for every edge). float32: ``proj`` [h W_src |
+    h W_dst], ``z1h`` the h half of the node MLP's first layer, ``heads``
+    one row of ``hidden`` per possible tile (the part of a source row
+    continued from the tile before) and ``agg`` (unless the caller gives
+    one). Sized for a full edge mask; what a call uses depends on the mask,
+    which stays on the device."""
     rows = b * n
     if rows * n >= 2 ** 31:
         raise ValueError(f"fused_gcl indexes edges with int32; b*n*n = {rows * n} is too many")
     tiles = -(-rows * n // GCL_TILE_EDGES)
     return {"rowstart": rows + 1, "totals": -(-rows // GCL_LIST_ROWS), "edges": rows * n,
-            "heads": tiles * hidden}
+            "proj": rows * 2 * hidden, "z1h": rows * hidden, "heads": tiles * hidden,
+            "agg": rows * hidden}
 
 
 def _launch_gcl(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor, node_mask: Tensor,
@@ -410,21 +417,20 @@ def _launch_gcl(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor, node_mas
         _check("agg_out", agg_out, h.shape, device)
     w = _cached_weights(layer, _gcl_kernel_weights, device, rebuild=agg_out is not None)
     ws = gcl_workspace(b, n, hidden)
-    proj = torch.empty((b * n, 2 * hidden), dtype=torch.float32, device=device)
-    z1h = torch.empty((b * n, hidden), dtype=torch.float32, device=device)
-    rowstart, totals, edges = torch.empty(ws["rowstart"] + ws["totals"] + ws["edges"],
-                                          dtype=torch.int32, device=device).split(
-        [ws["rowstart"], ws["totals"], ws["edges"]])
-    heads = torch.empty(ws["heads"], dtype=torch.float32, device=device)
-    agg = torch.empty_like(h) if agg_out is None else agg_out
+    sizes = [ws[k] for k in GCL_INT_SCRATCH]
+    rowstart, totals, edges = torch.empty(sum(sizes), dtype=torch.int32, device=device).split(sizes)
+    sizes = [ws[k] for k in GCL_FLOAT_SCRATCH[:3 if agg_out is not None else 4]]
+    proj, z1h, heads, *agg = torch.empty(sum(sizes), dtype=torch.float32, device=device).split(sizes)
+    agg = agg_out if agg_out is not None else agg[0]
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _entry("fused_gcl", phase_clocks)(
         h.data_ptr(), edge_attr.data_ptr(), edge_mask.data_ptr(), node_mask.data_ptr(),
         w["wsrct"].data_ptr(), w["wdstt"].data_ptr(), w["we"].data_ptr(), w["b1"].data_ptr(),
         w["w2"].data_ptr(), w["b2"].data_ptr(), w["watt"].data_ptr(),
         w["batt"].data_ptr(), w["nw1t"].data_ptr(), w["nb1"].data_ptr(),
-        w["nw2t"].data_ptr(), w["nb2"].data_ptr(), proj.data_ptr(), z1h.data_ptr(), rowstart.data_ptr(),
-        totals.data_ptr(), edges.data_ptr(), heads.data_ptr(), agg.data_ptr(), out.data_ptr(),
+        w["nw2t"].data_ptr(), w["nb2"].data_ptr(), proj.data_ptr(), z1h.data_ptr(),
+        rowstart.data_ptr(), totals.data_ptr(), edges.data_ptr(), heads.data_ptr(),
+        agg.data_ptr(), out.data_ptr(),
         b, n, hidden, edge_attr.shape[-1], float(layer.normalization_factor),
         int(layer.attention), int(layer.compute_dtype is torch.bfloat16), _sm_count(device),
         stream)

@@ -182,14 +182,12 @@ def main() -> None:
 
     # 3. the sampler's main path
     from hierdiff_torch.config import CoarseModelConfig
-    from hierdiff_torch.data.assets import load_histogram
-    from hierdiff_torch.ops.distributions import DistributionNodes
     from hierdiff_torch.sampling.cli import build_coarse_from_cfg
     from hierdiff_torch.sampling.coarse import make_masks_for_counts, sample_coarse
 
     model = init_weights(build_coarse_from_cfg(CoarseModelConfig(), device=device),
                          torch.Generator().manual_seed(0))
-    counts = DistributionNodes(load_histogram("geom")).sample_np(np.random.default_rng(0), B)
+    counts = sampler_counts(B, 0)
     node_mask, edge_mask = (torch.from_numpy(a).to(device) for a in make_masks_for_counts(counts))
     gen = torch.Generator(device=device).manual_seed(0)
     steps = 10

@@ -262,11 +262,17 @@ def test_kernel_weight_layout_and_cache_invalidation():
 @pytest.mark.parametrize("n", [1, 32, 83])
 def test_gcl_workspace_sizes(n):
     """fused_gcl's scratch: the work list holds every edge of a full mask,
-    one list block per 32 source rows, one heads row per possible tile."""
+    one list block per 32 source rows, one heads row per possible tile, and
+    the node-level buffers one row (two for proj) per node."""
     ws = ek.gcl_workspace(64, n, 256)
     rows = 64 * n
     assert ws == {"rowstart": rows + 1, "totals": -(-rows // ek.GCL_LIST_ROWS),
-                  "edges": rows * n, "heads": -(-rows * n // ek.GCL_TILE_EDGES) * 256}
+                  "edges": rows * n, "proj": rows * 512, "z1h": rows * 256,
+                  "heads": -(-rows * n // ek.GCL_TILE_EDGES) * 256, "agg": rows * 256}
+    assert set(ws) == set(ek.GCL_INT_SCRATCH + ek.GCL_FLOAT_SCRATCH)
+    # float buffers are split from one allocation: each must start 16-byte
+    # aligned for the kernels' float4 loads
+    assert all(ws[k] % 4 == 0 for k in ek.GCL_FLOAT_SCRATCH)
     assert ws["totals"] * ek.GCL_LIST_ROWS >= rows > (ws["totals"] - 1) * ek.GCL_LIST_ROWS
     assert ws["heads"] // 256 * ek.GCL_TILE_EDGES >= rows * n
 
