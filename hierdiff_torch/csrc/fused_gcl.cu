@@ -41,10 +41,27 @@
 //       silu(z1) Wn2 as two wgmma products.
 // No float atomics: two runs are bitwise equal. agg is the caller's buffer;
 // for training it is the residual that fused_gcl_bwd.cu reads.
+#include <atomic>
+#include <cstdint>
+
 #include "edge_mlp.cuh"
 #include "sm90.cuh"
 
 namespace hd {
+
+// Raises a kernel's dynamic shared-memory limit once per device and process
+// (`done` holds one bit per device index), not on every call: the attribute
+// call is host time that every one of the sampler's calls would pay.
+inline cudaError_t smem_limit_once(const void* kernel, int bytes, std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;   // devices past 64: every call
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
 
 struct GclArgs {
   const float* h;
@@ -610,10 +627,10 @@ __global__ void __launch_bounds__(kNodeThreads, 1) gcl_node_kernel(GclArgs a) {
 }
 
 template <bool BF16, bool ATT>
-cudaError_t launch_edges(const GclArgs& a, int max_blocks, cudaStream_t stream) {
+cudaError_t launch_edges(const GclArgs& a, int max_blocks, std::atomic<uint64_t>& smem_set,
+                         cudaStream_t stream) {
   const int smem = edge_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(gcl_edge_kernel<BF16, ATT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = smem_limit_once((const void*)gcl_edge_kernel<BF16, ATT>, smem, smem_set);
   if (err != cudaSuccess) return err;
   const long long max_tiles = ((long long)a.B * a.N * a.N + kTileM - 1) / kTileM;
   const long long want = (max_tiles + kEdgeWGs - 1) / kEdgeWGs;
@@ -639,7 +656,12 @@ extern "C" int hd_fused_gcl(const float* h, const float* e, const float* emask,
   cudaError_t err = hd::launch_edge_list(emask, M, N, rowstart, totals, edges, st);
   if (err != cudaSuccess) return (int)err;
   const int node_smem = hd::node_smem_bytes();
-  err = cudaFuncSetAttribute(hd::proj_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, node_smem);
+  // the once-flags live here, in a function that is neither inline nor a
+  // template: their symbols stay local to this library, so the phase-clock
+  // build of this file, loaded into the same process, keeps its own (a
+  // static in a template would be one object for both libraries)
+  static std::atomic<uint64_t> proj_smem_set{0}, node_smem_set{0}, edge_smem_set[4];
+  err = hd::smem_limit_once((const void*)hd::proj_sm90_kernel, node_smem, proj_smem_set);
   if (err != cudaSuccess) return (int)err;
   hd::proj_sm90_kernel<<<dim3(row_tiles, 3), hd::kNodeThreads, node_smem, st>>>(h, wsrct, wdstt, nw1t, proj,
                                                                                    z1h, M, H);
@@ -647,14 +669,15 @@ extern "C" int hd_fused_gcl(const float* h, const float* e, const float* emask,
   if (err != cudaSuccess) return (int)err;
   const hd::GclArgs a{h, e, emask, nmask, proj, we, b1, w2, b2, watt, batt, nw1t, nb1, nw2t, nb2,
                       rowstart, edges, z1h, heads, agg, out, B, N, H, E, norm};
+  std::atomic<uint64_t>& edge_set = edge_smem_set[2 * (bf16_act != 0) + (attention != 0)];
   if (bf16_act)
-    err = attention ? hd::launch_edges<true, true>(a, max_blocks, st)
-                    : hd::launch_edges<true, false>(a, max_blocks, st);
+    err = attention ? hd::launch_edges<true, true>(a, max_blocks, edge_set, st)
+                    : hd::launch_edges<true, false>(a, max_blocks, edge_set, st);
   else
-    err = attention ? hd::launch_edges<false, true>(a, max_blocks, st)
-                    : hd::launch_edges<false, false>(a, max_blocks, st);
+    err = attention ? hd::launch_edges<false, true>(a, max_blocks, edge_set, st)
+                    : hd::launch_edges<false, false>(a, max_blocks, edge_set, st);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(hd::gcl_node_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, node_smem);
+  err = hd::smem_limit_once((const void*)hd::gcl_node_kernel, node_smem, node_smem_set);
   if (err != cudaSuccess) return (int)err;
   hd::gcl_node_kernel<<<row_tiles, hd::kNodeThreads, node_smem, st>>>(a);
   return (int)cudaGetLastError();

@@ -295,7 +295,6 @@ def _gcl_kernel_weights(layer) -> dict:
         w["batt"] = w["b2"].new_zeros(1)
     w["nw1"] = _bf16(layer.node_mlp[0].weight.t())
     w["nb1"] = _f32(layer.node_mlp[0].bias)
-    w["nw2"] = _bf16(layer.node_mlp[2].weight.t())
     w["nb2"] = _f32(layer.node_mlp[2].bias)
     # the backward's transposed operands: nn.Linear weights are (out, in)
     pair = layer.edge_mlp[0].weight
@@ -380,8 +379,8 @@ def _check_gcl_inputs(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor,
     _check_layer(h, edge_attr, layer.edge_mlp[2].weight.shape[0])
 
 
-GCL_INT_SCRATCH = ("rowstart", "totals", "edges")
 GCL_FLOAT_SCRATCH = ("proj", "z1h", "heads", "agg")
+GCL_INT_SCRATCH = ("rowstart", "totals", "edges")
 
 
 def gcl_workspace(b: int, n: int, hidden: int) -> Dict[str, int]:
@@ -417,20 +416,24 @@ def _launch_gcl(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor, node_mas
         _check("agg_out", agg_out, h.shape, device)
     w = _cached_weights(layer, _gcl_kernel_weights, device, rebuild=agg_out is not None)
     ws = gcl_workspace(b, n, hidden)
-    sizes = [ws[k] for k in GCL_INT_SCRATCH]
-    rowstart, totals, edges = torch.empty(sum(sizes), dtype=torch.int32, device=device).split(sizes)
-    sizes = [ws[k] for k in GCL_FLOAT_SCRATCH[:3 if agg_out is not None else 4]]
-    proj, z1h, heads, *agg = torch.empty(sum(sizes), dtype=torch.float32, device=device).split(sizes)
-    agg = agg_out if agg_out is not None else agg[0]
+    # one allocation of 4-byte elements and no views (each view costs host
+    # time on every call): the float buffers first, each a multiple of 4
+    # elements so each starts 16-byte aligned, then the int32 work list
+    names = [k for k in GCL_FLOAT_SCRATCH + GCL_INT_SCRATCH if k != "agg" or agg_out is None]
+    scratch = torch.empty(sum(ws[k] for k in names), dtype=torch.float32, device=device)
+    ptr, at = {}, scratch.data_ptr()
+    for k in names:
+        ptr[k], at = at, at + 4 * ws[k]
+    if agg_out is not None:
+        ptr["agg"] = agg_out.data_ptr()
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _entry("fused_gcl", phase_clocks)(
         h.data_ptr(), edge_attr.data_ptr(), edge_mask.data_ptr(), node_mask.data_ptr(),
         w["wsrct"].data_ptr(), w["wdstt"].data_ptr(), w["we"].data_ptr(), w["b1"].data_ptr(),
         w["w2"].data_ptr(), w["b2"].data_ptr(), w["watt"].data_ptr(),
         w["batt"].data_ptr(), w["nw1t"].data_ptr(), w["nb1"].data_ptr(),
-        w["nw2t"].data_ptr(), w["nb2"].data_ptr(), proj.data_ptr(), z1h.data_ptr(),
-        rowstart.data_ptr(), totals.data_ptr(), edges.data_ptr(), heads.data_ptr(),
-        agg.data_ptr(), out.data_ptr(),
+        w["nw2t"].data_ptr(), w["nb2"].data_ptr(), ptr["proj"], ptr["z1h"], ptr["rowstart"],
+        ptr["totals"], ptr["edges"], ptr["heads"], ptr["agg"], out.data_ptr(),
         b, n, hidden, edge_attr.shape[-1], float(layer.normalization_factor),
         int(layer.attention), int(layer.compute_dtype is torch.bfloat16), _sm_count(device),
         stream)

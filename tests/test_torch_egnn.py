@@ -270,8 +270,8 @@ def test_gcl_workspace_sizes(n):
                   "edges": rows * n, "proj": rows * 512, "z1h": rows * 256,
                   "heads": -(-rows * n // ek.GCL_TILE_EDGES) * 256, "agg": rows * 256}
     assert set(ws) == set(ek.GCL_INT_SCRATCH + ek.GCL_FLOAT_SCRATCH)
-    # float buffers are split from one allocation: each must start 16-byte
-    # aligned for the kernels' float4 loads
+    # the float buffers lead one allocation: each must start 16-byte aligned
+    # for the kernels' float4 loads
     assert all(ws[k] % 4 == 0 for k in ek.GCL_FLOAT_SCRATCH)
     assert ws["totals"] * ek.GCL_LIST_ROWS >= rows > (ws["totals"] - 1) * ek.GCL_LIST_ROWS
     assert ws["heads"] // 256 * ek.GCL_TILE_EDGES >= rows * n
@@ -464,6 +464,24 @@ def test_cuda_kernels_match_plain_versions():
     with torch.no_grad():
         out = ek.fused_coord_update(equ, *args).cpu()
         assert _rel(out, ek.coord_update_plain(equ, *args).cpu()) < PALLAS_REL
+
+
+@pytest.mark.gpu
+def test_cuda_phase_clock_build_runs_beside_the_normal_one():
+    """On the card: the -DHD_PHASE_CLOCKS library, loaded into the process
+    after the normal one, sets up and launches its own kernels (each library
+    keeps its own once-per-device setup), and both agree with the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    _, _, gcl, (hh, _, e, em, nm) = _gcl_pair(256, 2, True)
+    gcl.to(dev)
+    args = [t.to(dev) for t in _t(hh, e, em, nm)]
+    with torch.no_grad():
+        ref = ek.gcl_plain(gcl, *args) - args[0]
+        for clocks in (False, True):
+            out = ek.fused_gcl(gcl, *args, phase_clocks=clocks) - args[0]
+            assert _rel(out.cpu(), ref.cpu()) < PALLAS_REL
 
 
 @pytest.mark.gpu
