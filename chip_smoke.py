@@ -6,8 +6,9 @@
 Phases, one output line each, any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions, then the nvcc build of ``hierdiff_torch/csrc`` and its time,
-     and the number of HGMMA (wgmma) instructions in the built fused_gcl
-     library (``cuobjdump --dump-sass``), which must not be 0;
+     and the number of HGMMA (wgmma) instructions in the built fused_gcl and
+     fused_coord libraries (``cuobjdump --dump-sass``), neither of which may
+     be 0;
   2. each kernel against its plain PyTorch version at the kernel shape
      (B=64, N=32, H=256, E=2, ragged node counts), on what the layer adds
      to its input (out - h for fused_gcl, out - x for fused_coord_update):
@@ -16,20 +17,23 @@ Phases, one output line each, any failure exits non-zero:
      tests/test_pallas_interpret.py). fused_gcl runs once more with a node
      MLP that passes the aggregated messages through, so the edge path is
      not hidden behind the node MLP's h term, and fused_coord_update with a
-     coordinate head large enough to saturate tanh. fused_gcl, which
-     computes only the edges its edge mask holds, also runs (pass-through
-     node MLP, all four variants) at the sampler's shape (GEOM-histogram
-     counts, N = their maximum), on a batch with 83-node molecules (rows
-     longer than a 64-edge tile), on node masks that do not start at node 0
-     with ~20% of the real edges masked out and nonzero h in padded rows,
-     and on molecules of 0 and 1 nodes; two of its runs must be bitwise
-     equal. Planted faults (gate skipped, a W2 output channel zeroed, edge
-     mask ignored, the edge mask without its holes given to the kernel
-     only, tanh skipped), each run through the kernel, must fail that
-     check. Kernel, plain and bound times, and with ``--parent DIR`` (an
-     unpacked earlier tree of this repository) the time of that tree's
-     fused_gcl beside this one's, each run by its own wrapper in turns
-     (tools/gcl_ab.py), at the kernel and the sampler's shapes;
+     coordinate head large enough to saturate tanh, in all four variants
+     (attention or tanh on/off x f32/bf16 elementwise). Both kernels compute
+     only the edges their edge mask holds, so both also run (fused_gcl with
+     the pass-through node MLP), in all four variants, at the sampler's
+     shape (GEOM-histogram counts, N = their maximum), on a batch with
+     83-node molecules (rows longer than a 64-edge tile), on node masks that
+     do not start at node 0 with ~20% of the real edges masked out and
+     nonzero h in padded rows, and on molecules of 0 and 1 nodes; two runs
+     of each must be bitwise equal. Planted faults (fused_gcl: gate skipped,
+     a W2 output channel zeroed, edge mask ignored, the edge mask without
+     its holes given to the kernel only; fused_coord_update: tanh skipped, a
+     W2 output channel zeroed and the same two edge-mask faults), each run
+     through the kernel, must fail that check. Kernel, plain and bound
+     times at the kernel and the sampler's shapes, and with ``--parent DIR``
+     (an unpacked earlier tree of this repository) the time of that tree's
+     kernel beside this one's, each run by its own wrapper in turns
+     (tools/gcl_ab.py);
   2b. the backward kernel ``fused_gcl_bwd`` against autograd of the plain
      version (``gcl_plain_vjp``) at the same shapes with a random upstream
      gradient, attention on and off x f32 and bf16 elementwise, plus the
@@ -240,10 +244,11 @@ def card_against_cpu(cli, ek, CoarseModelConfig, init_weights, gen, device) -> d
 
 
 def holey_inputs(rng: np.random.Generator, device, b: int, n: int):
-    """fused_gcl inputs that prefix masks never give: node masks with random
+    """Layer inputs that prefix masks never give: node masks with random
     members (node 0 absent in every other molecule), an edge mask with ~20%
-    of the real edges zeroed, nonzero h in padded rows. Returns h, edge_attr,
-    the holey edge mask, node_mask and the edge mask without the holes."""
+    of the real edges zeroed, nonzero h in padded rows. Returns h, x,
+    edge_attr, coord_diff, the holey edge mask, node_mask and the edge mask
+    without the holes."""
     from hierdiff_torch.ops.egnn import coord2diff_dense
 
     nm = (rng.random((b, n, 1)) < 0.7).astype(np.float32)
@@ -252,10 +257,24 @@ def holey_inputs(rng: np.random.Generator, device, b: int, n: int):
     holey = full * (rng.random((b, n, n)) >= 0.2)
     dev = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)  # noqa: E731
     x = dev(rng.standard_normal((b, n, 3)) * 2 * nm)
-    radial, _ = coord2diff_dense(x, 0.0)
+    radial, cdiff = coord2diff_dense(x, 0.0)
     d0, _ = coord2diff_dense(x, 1.0)
-    return (dev(rng.standard_normal((b, n, H))), torch.cat([radial, d0], dim=-1).contiguous(),
-            dev(holey[..., None]), dev(nm), dev(full[..., None]))
+    return (dev(rng.standard_normal((b, n, H))), x, torch.cat([radial, d0], dim=-1).contiguous(),
+            cdiff.contiguous(), dev(holey[..., None]), dev(nm), dev(full[..., None]))
+
+
+def coord_work(counts: np.ndarray, b: int, n: int):
+    """fused_coord_update's least work for a batch: bf16 FLOPs (edge MLP,
+    head and the node projections), SFU operations and bytes over the real
+    edges and nodes (each input read once, out written)."""
+    c = counts.astype(np.int64)
+    n_edges, n_nodes = float((c * (c - 1)).sum()), float(c.sum())
+    w_bytes_pair = (2 * H * H + E * H + H * H) * 2 + 2 * H * 4
+    flops = n_edges * (2 * H * H + 2 * E * H + 2 * H) + n_nodes * 4 * H * H
+    sfu = n_edges * (4 * H + 1)
+    nbytes = (b * n * H * 4 + b * n * n * E * 4 + b * n * n * 3 * 4 + b * n * n * 4 + b * n * 4
+              + b * n * 3 * 4 * 2 + w_bytes_pair + H * 2)
+    return flops, sfu, nbytes
 
 
 def gcl_work(counts: np.ndarray, b: int, n: int):
@@ -309,12 +328,13 @@ def main() -> None:
                 print(f"  ptxas[{name}]: {line.strip()}")
     print(f"build: {sorted(logs)} compiled in {build_s:.2f} s")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "--dump-sass", str(_build.library_path("fused_gcl"))],
-                          check=True, capture_output=True, text=True).stdout
-    n_hgmma = sum("HGMMA" in line for line in sass.splitlines())
-    print(f"fused_gcl SASS: {n_hgmma} HGMMA instructions (cuobjdump --dump-sass)")
-    if n_hgmma == 0:
-        fail("the fused_gcl library has no HGMMA instruction: its W2 product is not on wgmma")
+    for lib in ("fused_gcl", "fused_coord"):
+        sass = subprocess.run([cuobjdump, "--dump-sass", str(_build.library_path(lib))],
+                              check=True, capture_output=True, text=True).stdout
+        n_hgmma = sum("HGMMA" in line for line in sass.splitlines())
+        print(f"{lib} SASS: {n_hgmma} HGMMA instructions (cuobjdump --dump-sass)")
+        if n_hgmma == 0:
+            fail(f"the {lib} library has no HGMMA instruction: its W2 product is not on wgmma")
 
     # ---- 2. kernels against their plain versions (forward: no autograd)
     torch.set_grad_enabled(False)
@@ -322,7 +342,6 @@ def main() -> None:
     h, x, e, cdiff, em, nm, counts = layer_inputs(rng, device, B, N, H)
     c = counts.astype(np.int64)
     n_edges, n_nodes = float((c * (c - 1)).sum()), float(c.sum())
-    w_bytes_pair = (2 * H * H + E * H + H * H) * 2 + 2 * H * 4
     results = {}
     gcl_extra = {}
 
@@ -388,7 +407,8 @@ def main() -> None:
     tiny_counts = np.array([0, 1, 0, 1, 5, 16, 1, 0])
     tiny_in = layer_inputs(np.random.default_rng(SEED), device, len(tiny_counts), 16, H,
                            counts=tiny_counts)
-    hh_h, e_h, em_h, nm_h, em_full = holey_inputs(np.random.default_rng(SEED + 2), device, B, N)
+    hh_h, x_h, e_h, cd_h, em_h, nm_h, em_full = holey_inputs(np.random.default_rng(SEED + 2),
+                                                             device, B, N)
     cases = {f"sampler shape B={B} N={s_n}": (sampler_in[0], sampler_in[2], sampler_in[4], sampler_in[5]),
              f"83-node rows B={len(big_counts)} N=83": (big_in[0], big_in[2], big_in[4], big_in[5]),
              f"holey masks B={B} N={N}": (hh_h, e_h, em_h, nm_h),
@@ -406,36 +426,42 @@ def main() -> None:
                       f"elementwise={cd or 'float32'}",
                       lambda: ek.fused_gcl(layer, h_, e_, em_, nm_),
                       lambda: ek.gcl_plain(layer, h_, e_, em_, nm_), h_ * nm_, timed=False)
+    def sampler_and_repeat(name, variant, kernel_fn, plain_fn, work, sampler_args, repeat_cases):
+        """The kernel's and its plain version's time at the sampler's shape
+        with its bound; two runs on each of ``repeat_cases`` bitwise equal."""
+        k_ms = time_ms(lambda: kernel_fn(*sampler_args))
+        p_ms = time_ms(lambda: plain_fn(*sampler_args), reps=5, warmup=1)
+        b_ms, by, _ = bound(*work, sm_clock_hz, n_sms)
+        print(f"kernel {name} [sampler shape B={B} N={s_n}, {variant}]: kernel_ms {k_ms:.4f} "
+              f"plain_ms {p_ms:.4f} bound_ms {b_ms:.5f} ({by})")
+        bitwise = {case: torch.equal(kernel_fn(*a_), kernel_fn(*a_)) for case, a_ in repeat_cases.items()}
+        print(f"{name} two runs bitwise equal: {bitwise}")
+        if not all(bitwise.values()):
+            fail(f"{name} is not deterministic: {bitwise}")
+        return {"sampler_shape": {"B": B, "N": s_n, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                                  "bound_by": by}, "bitwise_repeat": bitwise}
+
+    def parent_rows(kernel, flag):
+        """With --parent: the parent tree's kernel timed beside this one's."""
+        rows = {"kernel_shape": None, "sampler_shape": None}
+        if args.parent is not None:
+            from hierdiff_torch.tools import gcl_ab
+
+            for row in gcl_ab.compare(args.parent, kernel=kernel):
+                print(f"{kernel} against the parent tree's: {json.dumps(row)}")
+                if row[flag] and row["elementwise"] == "float32":
+                    rows["kernel_shape" if row["shape"].startswith("kernel") else "sampler_shape"] = row
+        return rows
+
     main_gcl = init_weights(DenseGCL(H, E, normalization_factor=10.0, attention=True).to(device),
                             gen())
-    h_s, e_s, em_s, nm_s = cases[f"sampler shape B={B} N={s_n}"]
-    sampler_ms = time_ms(lambda: ek.fused_gcl(main_gcl, h_s, e_s, em_s, nm_s))
-    sampler_plain_ms = time_ms(lambda: ek.gcl_plain(main_gcl, h_s, e_s, em_s, nm_s), reps=5, warmup=1)
-    sampler_bound = bound(*gcl_work(s_counts, B, s_n), sm_clock_hz, n_sms)
-    print(f"kernel fused_gcl [sampler shape B={B} N={s_n}, node_mlp=random attention=True "
-          f"elementwise=float32]: kernel_ms {sampler_ms:.4f} plain_ms {sampler_plain_ms:.4f} "
-          f"bound_ms {sampler_bound[0]:.5f} ({sampler_bound[1]})")
-    bitwise = {}
-    for case, (h_, e_, em_, nm_) in [("kernel shape", (h, e, em, nm)),
-                                     ("holey masks", cases[f"holey masks B={B} N={N}"])]:
-        first, again = ek.fused_gcl(main_gcl, h_, e_, em_, nm_), ek.fused_gcl(main_gcl, h_, e_, em_, nm_)
-        bitwise[case] = torch.equal(first, again)
-    print(f"fused_gcl two runs bitwise equal: {bitwise}")
-    if not all(bitwise.values()):
-        fail(f"fused_gcl is not deterministic: {bitwise}")
-    parent_ms = {"kernel_shape": None, "sampler_shape": None}
-    if args.parent is not None:
-        from hierdiff_torch.tools import gcl_ab
-
-        for row in gcl_ab.compare(args.parent):
-            print(f"fused_gcl against the parent tree's: {json.dumps(row)}")
-            if row["attention"] and row["elementwise"] == "float32":
-                key = "kernel_shape" if row["shape"].startswith("kernel") else "sampler_shape"
-                parent_ms[key] = row
     gcl_extra["fused_gcl"] = {
-        "sampler_shape": {"B": B, "N": s_n, "ms": sampler_ms, "plain_ms": sampler_plain_ms,
-                          "bound_ms": sampler_bound[0], "bound_by": sampler_bound[1]},
-        "parent": parent_ms, "bitwise_repeat": bitwise}
+        **sampler_and_repeat(
+            "fused_gcl", "node_mlp=random attention=True elementwise=float32",
+            lambda *a_: ek.fused_gcl(main_gcl, *a_), lambda *a_: ek.gcl_plain(main_gcl, *a_),
+            gcl_work(s_counts, B, s_n), cases[f"sampler shape B={B} N={s_n}"],
+            {"kernel shape": (h, e, em, nm), "holey masks": cases[f"holey masks B={B} N={N}"]}),
+        "parent": parent_rows("fused_gcl", "attention")}
 
     probe = pass_through(init_weights(DenseGCL(H, E, normalization_factor=10.0,
                                                attention=True).to(device), gen()))
@@ -453,23 +479,51 @@ def main() -> None:
           lambda: ek.fused_gcl(probe, hh_h, e_h, em_full, nm_h),
           lambda: ek.gcl_plain(probe, hh_h, e_h, em_h, nm_h), hh_h * nm_h)
 
-    equ = init_weights(DenseEquivariantUpdate(H, E, normalization_factor=10.0, tanh=True,
-                                              coords_range=30.0 / 6).to(device), gen())
-    with torch.no_grad():   # the head at 1e4 x its init scale, so tanh saturates
-        equ.coord_mlp[4].weight.mul_(1e4)
+    def coord_layer(tanh, cd):
+        """A coordinate update with its head at 1e4 x its init scale, so that
+        tanh saturates."""
+        layer = init_weights(DenseEquivariantUpdate(
+            H, E, normalization_factor=10.0, tanh=tanh, coords_range=30.0 / 6,
+            compute_dtype=cd).to(device), gen())
+        with torch.no_grad():
+            layer.coord_mlp[4].weight.mul_(1e4)
+        return layer
+
+    equ = coord_layer(True, None)
+    with torch.no_grad():
         scalar = ek.coord_scalar(equ, h, e)[..., 0][em[..., 0] > 0].abs()
     saturated = (scalar > 2.0).float().mean().item()
     print(f"fused_coord_update input: |head scalar| > 2 (tanh saturated) on {saturated:.3f} "
           f"of the valid edges, median |scalar| {scalar.median().item():.3f}")
     if not saturated > 0.25:
         fail("the coordinate head does not drive tanh into saturation")
-    check("fused_coord_update", "tanh coords_range=5 elementwise=float32",
-          lambda: ek.fused_coord_update(equ, h, e, cdiff, x, em, nm),
-          lambda: ek.coord_update_plain(equ, h, e, cdiff, x, em, nm), x)
-    coord_flops = n_edges * (2 * H * H + 2 * E * H + 2 * H) + n_nodes * 4 * H * H
-    coord_sfu = n_edges * (4 * H + 1)
-    coord_bytes = (h.numel() * 4 + e.numel() * 4 + cdiff.numel() * 4 + em.numel() * 4
-                   + nm.numel() * 4 + x.numel() * 4 * 2 + w_bytes_pair + H * 2)
+    # (h, e, coord_diff, x, edge_mask, node_mask) in the wrapper's order
+    coord_cases = {f"kernel shape B={B} N={N}": (h, e, cdiff, x, em, nm)}
+    coord_cases.update({case: (in_[0], in_[2], in_[3], in_[1], in_[4], in_[5]) for case, in_ in (
+        (f"sampler shape B={B} N={s_n}", sampler_in),
+        (f"83-node rows B={len(big_counts)} N=83", big_in),
+        (f"0- and 1-node molecules B={len(tiny_counts)} N=16", tiny_in))})
+    coord_cases[f"holey masks B={B} N={N}"] = (hh_h, e_h, cd_h, x_h, em_h, nm_h)
+    for case, c_args in coord_cases.items():
+        at_kernel_shape = case.startswith("kernel shape")
+        for tanh in (True, False):
+            for cd in (None, "bfloat16"):
+                layer = equ if tanh and cd is None else coord_layer(tanh, cd)
+                variant = f"tanh={tanh} coords_range=5 elementwise={cd or 'float32'}"
+                check("fused_coord_update", variant if at_kernel_shape else f"{case} {variant}",
+                      lambda: ek.fused_coord_update(layer, *c_args),
+                      lambda: ek.coord_update_plain(layer, *c_args), c_args[3],
+                      timed=at_kernel_shape)
+    coord_flops, coord_sfu, coord_bytes = coord_work(counts, B, N)
+    gcl_extra["fused_coord_update"] = {
+        **sampler_and_repeat(
+            "fused_coord_update", "tanh=True elementwise=float32",
+            lambda *a_: ek.fused_coord_update(equ, *a_),
+            lambda *a_: ek.coord_update_plain(equ, *a_), coord_work(s_counts, B, s_n),
+            coord_cases[f"sampler shape B={B} N={s_n}"],
+            {"kernel shape": coord_cases[f"kernel shape B={B} N={N}"],
+             "holey masks": coord_cases[f"holey masks B={B} N={N}"]}),
+        "parent": parent_rows("fused_coord_update", "tanh")}
 
     no_tanh, no_w2_row = copy.deepcopy(equ), copy.deepcopy(equ)
     no_tanh.tanh = False    # computes coords_range * scalar
@@ -481,6 +535,12 @@ def main() -> None:
           lambda: ek.fused_coord_update(no_tanh, h, e, cdiff, x, em, nm), plain_coord, x)
     plant("fused_coord_update", "W2 output channel 0 zeroed",
           lambda: ek.fused_coord_update(no_w2_row, h, e, cdiff, x, em, nm), plain_coord, x)
+    plant("fused_coord_update", "edge mask ignored",
+          lambda: ek.fused_coord_update(equ, h, e, cdiff, x, torch.ones_like(em), nm),
+          plain_coord, x)
+    plant("fused_coord_update", "edge mask without its holes fed to the kernel only",
+          lambda: ek.fused_coord_update(equ, hh_h, e_h, cd_h, x_h, em_full, nm_h),
+          lambda: ek.coord_update_plain(equ, hh_h, e_h, cd_h, x_h, em_h, nm_h), x_h)
 
     a_bf = torch.randn((B * N * N, H), device=device, dtype=torch.bfloat16)
     w_bf = torch.randn((H, H), device=device, dtype=torch.bfloat16)

@@ -44,24 +44,9 @@
 #include <atomic>
 #include <cstdint>
 
-#include "edge_mlp.cuh"
 #include "sm90.cuh"
 
 namespace hd {
-
-// Raises a kernel's dynamic shared-memory limit once per device and process
-// (`done` holds one bit per device index), not on every call: the attribute
-// call is host time that every one of the sampler's calls would pay.
-inline cudaError_t smem_limit_once(const void* kernel, int bytes, std::atomic<uint64_t>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;   // devices past 64: every call
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
 
 struct GclArgs {
   const float* h;
@@ -89,134 +74,7 @@ struct GclArgs {
   float norm;
 };
 
-// Phase clocks per warpgroup: thread 0 of each warpgroup adds its cycles.
-#ifdef HD_PHASE_CLOCKS
-#define HD_WG_PHASE(k, t)                                                            \
-  do {                                                                               \
-    if (threadIdx.x % 128 == 0) {                                                    \
-      const long long now_ = clock64();                                              \
-      atomicAdd(&hd_phase_cycles[k], static_cast<unsigned long long>(now_ - (t)));   \
-      (t) = now_;                                                                    \
-    }                                                                                \
-  } while (0)
-#else
-#define HD_WG_PHASE(k, t) do { } while (0)
-#endif
-
-// The edge kernel: kEdgeWGs warpgroups per block, one block per SM, each
-// warpgroup walking its own tiles with its own pre-activation buffer.
-constexpr int kEdgeWGs = 2;
-constexpr int kEdgeThreads = 128 * kEdgeWGs;
-constexpr int kW2Bytes = kMaxH * kMaxH * 2;          // W2, K-major, zero-padded to 256 x 256
-constexpr int kUBytes = kTileM * kMaxH * 2;          // one bf16 pre-activation tile
 constexpr int kStageCols = kUBytes / (kTileM * 4);   // f32 columns staged at once (128)
-constexpr int kMetaBytes = 1024;                     // per warpgroup: rows, cols, mask, flag
-
-struct TileMeta {
-  int row[kTileM];     // global source row b * N + i, -1 past the last real edge
-  int col[kTileM];     // neighbour j
-  float emask[kTileM]; // bf16-rounded edge mask
-  int cont;            // the tile's first run continues a row from the tile before
-};
-static_assert(sizeof(TileMeta) <= kMetaBytes, "tile metadata");
-
-__host__ __device__ constexpr int edge_smem_bytes() {
-  return 1024 + kW2Bytes + kEdgeWGs * (kUBytes + kMetaBytes) + 2 * kMaxH * 4;
-}
-
-// u (64 x 256 bf16, K-major SWIZZLE_128B) = silu(pre) for the tile's edges;
-// warp w of the warpgroup builds edges w, w + 4, ..., lane l columns 8l .. 8l + 7,
-// written as one 16-byte vector. Padding edges and columns >= H get 0.
-template <bool BF16>
-__device__ __forceinline__ void build_tile(const TileMeta& tm, int nv, const GclArgs& a, bf16* u) {
-  constexpr int kEdgesPerWarp = kTileM / 4, kB = 4;
-  const int warp = (threadIdx.x % 128) / 32, c0 = 8 * (threadIdx.x % 32);
-  const int H = a.H, N = a.N, E = a.E;
-  const bool col_ok = c0 < H;
-  float bias[8], wreg[kRegE][8];
-#pragma unroll
-  for (int cc = 0; cc < 8; ++cc) {
-    bias[cc] = col_ok ? act<BF16>(a.b1[c0 + cc]) : 0.0f;
-#pragma unroll
-    for (int r = 0; r < kRegE; ++r) wreg[r][cc] = col_ok && r < E ? __bfloat162float(a.we[r * H + c0 + cc]) : 0.0f;
-  }
-  for (int i0 = 0; i0 < kEdgesPerWarp; i0 += kB) {
-    float4 hs[kB][2], hdst[kB][2];
-    float ev[kB][kRegE];
-    int q[kB];
-#pragma unroll
-    for (int k = 0; k < kB; ++k) {   // all loads of the batch first
-      const int p = warp + 4 * (i0 + k);
-      const bool real = p < nv && col_ok;
-      const int row = real ? tm.row[p] : 0, col = real ? tm.col[p] : 0;
-      q[k] = row * N + col;
-      const float* s = a.proj + (size_t)row * 2 * H + c0;
-      const float* d = a.proj + ((size_t)(row / N) * N + col) * 2 * H + H + c0;
-      hs[k][0] = real ? *reinterpret_cast<const float4*>(s) : make_float4(0.f, 0.f, 0.f, 0.f);
-      hs[k][1] = real ? *reinterpret_cast<const float4*>(s + 4) : make_float4(0.f, 0.f, 0.f, 0.f);
-      hdst[k][0] = real ? *reinterpret_cast<const float4*>(d) : make_float4(0.f, 0.f, 0.f, 0.f);
-      hdst[k][1] = real ? *reinterpret_cast<const float4*>(d + 4) : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int r = 0; r < kRegE; ++r) ev[k][r] = real && r < E ? a.e[(size_t)q[k] * E + r] : 0.0f;
-    }
-#pragma unroll
-    for (int k = 0; k < kB; ++k) {
-      const int p = warp + 4 * (i0 + k);
-      const bool real = p < nv && col_ok;
-      const float hsv[8] = {hs[k][0].x, hs[k][0].y, hs[k][0].z, hs[k][0].w,
-                            hs[k][1].x, hs[k][1].y, hs[k][1].z, hs[k][1].w};
-      const float hdv[8] = {hdst[k][0].x, hdst[k][0].y, hdst[k][0].z, hdst[k][0].w,
-                            hdst[k][1].x, hdst[k][1].y, hdst[k][1].z, hdst[k][1].w};
-      float ep[8];
-#pragma unroll
-      for (int cc = 0; cc < 8; ++cc) {
-        ep[cc] = 0.0f;
-#pragma unroll
-        for (int r = 0; r < kRegE; ++r)
-          if (r < E) ep[cc] += round_bf16(ev[k][r]) * wreg[r][cc];
-      }
-      if (real && E > kRegE) {   // wide E (sinusoid embedding): the rest from L1
-        for (int r = kRegE; r < E; ++r) {
-          const float er = round_bf16(a.e[(size_t)q[k] * E + r]);
-          const uint4 wv = *reinterpret_cast<const uint4*>(a.we + r * H + c0);
-          const bf16* w8 = reinterpret_cast<const bf16*>(&wv);
-#pragma unroll
-          for (int cc = 0; cc < 8; ++cc) ep[cc] += er * __bfloat162float(w8[cc]);
-        }
-      }
-      uint4 packed;
-      __nv_bfloat162* pk = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-      for (int cc = 0; cc < 8; cc += 2) {
-        const float v0 = real ? silu_act<BF16>(pre_act<BF16>(hsv[cc], hdv[cc], ep[cc], bias[cc])) : 0.0f;
-        const float v1 =
-            real ? silu_act<BF16>(pre_act<BF16>(hsv[cc + 1], hdv[cc + 1], ep[cc + 1], bias[cc + 1])) : 0.0f;
-        pk[cc / 2] = __floats2bfloat162_rn(v0, v1);
-      }
-      *reinterpret_cast<uint4*>(u + sw128_offset(p, c0, kTileM)) = packed;
-    }
-  }
-}
-
-// A tile's metadata, read one tile ahead: thread t < kTileM holds edge t's
-// flat index (-1 past the last real edge) and bf16-rounded mask, thread 0
-// also whether the tile's first run continues a row from the tile before.
-struct MetaPrefetch {
-  int q;
-  float emask;
-  int cont;
-};
-
-__device__ __forceinline__ MetaPrefetch fetch_meta(const GclArgs& a, int tile, int n_edges, int tid) {
-  MetaPrefetch m{-1, 0.0f, 0};
-  const int q0 = tile * kTileM;
-  if (tid < kTileM && q0 + tid < n_edges) {
-    m.q = a.edges[q0 + tid];
-    m.emask = round_bf16(a.emask[m.q]);
-    if (tid == 0) m.cont = q0 > 0 && a.edges[q0 - 1] / a.N == m.q / a.N;
-  }
-  return m;
-}
 
 // The row sums of the gated messages: write one run's sum to agg[row] or,
 // for the run that continues a row from the tile before, to heads[tile].
@@ -244,28 +102,7 @@ __global__ void __launch_bounds__(kEdgeThreads, 1) gcl_edge_kernel(GclArgs a) {
   float* watts = b2s + kMaxH;
 
   HD_PHASE_START(clk);
-  // W2 (K x H, row-major) into shared memory as the B operand: N x K, K-major.
-  // A thread reads 8 columns of rows k and k + 1 (two 16-byte loads) and
-  // writes 8 (k, k + 1) pairs; a warp's 32 consecutive k pairs fill whole
-  // 128-byte rows, so the 4-byte stores meet no bank conflict.
-#pragma unroll 4
-  for (int idx = threadIdx.x; idx < (kMaxH / 2) * (kMaxH / 8); idx += blockDim.x) {
-    const int k = 2 * (idx % (kMaxH / 2)), n0 = 8 * (idx / (kMaxH / 2));
-    uint4 r0 = make_uint4(0, 0, 0, 0), r1 = r0;
-    if (k < H && n0 < H) {
-      r0 = *reinterpret_cast<const uint4*>(a.w2 + (size_t)k * H + n0);
-      r1 = *reinterpret_cast<const uint4*>(a.w2 + (size_t)(k + 1) * H + n0);
-    }
-    const bf16* v0 = reinterpret_cast<const bf16*>(&r0);
-    const bf16* v1 = reinterpret_cast<const bf16*>(&r1);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      __nv_bfloat162 pair;
-      pair.x = v0[i];
-      pair.y = v1[i];
-      *reinterpret_cast<__nv_bfloat162*>(w2s + sw128_offset(n0 + i, k, kMaxH)) = pair;
-    }
-  }
+  load_w2_sw128(a.w2, w2s, H);
   for (int c = threadIdx.x; c < kMaxH; c += blockDim.x) {
     b2s[c] = c < H ? act<BF16>(a.b2[c]) : 0.0f;
     watts[c] = ATT && c < H ? __bfloat162float(a.watt[c]) : 0.0f;
@@ -383,128 +220,6 @@ __global__ void __launch_bounds__(kEdgeThreads, 1) gcl_edge_kernel(GclArgs a) {
     }
     wg_barrier(bar);
     HD_WG_PHASE(4, clk);
-  }
-}
-
-// The node-level products on wgmma: 64 rows per block and two warpgroups,
-// each owning 128 of the 256 output columns (m64n128k16); B (a weight, N x K,
-// K-major: nn.Linear's own layout, cached in bf16) copied into shared memory
-// with cp.async, A built from f32 rows.
-constexpr int kRowTile = 64;
-constexpr int kNodeThreads = 256;
-
-__host__ __device__ constexpr int node_smem_bytes() {   // B, A, bn1 and bn2
-  return 1024 + kMaxH * kMaxH * 2 + kRowTile * kMaxH * 2 + 2 * kMaxH * 4;
-}
-
-// B (256 x K, SWIZZLE_128B) = rows 0 .. H - 1 of w (N x K row-major, row
-// stride ld, bf16), asynchronously; rows >= H are zeroed.
-__device__ __forceinline__ void load_b_async(bf16* bs, const bf16* __restrict__ w, int ld, int H, int K) {
-  const int chunks = K / 8;
-  for (int idx = threadIdx.x; idx < kMaxH * chunks; idx += blockDim.x) {
-    const int n = idx / chunks, c = idx % chunks;
-    bf16* dst = bs + sw128_offset(n, 8 * c, kMaxH);
-    if (n < H) cp_async16(dst, w + (size_t)n * ld + 8 * c);
-    else *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-  }
-}
-
-// d (64 x 128) = A (64 x 16 k_steps, SWIZZLE_128B with 64 rows) @ the 128
-// columns of B^T that this thread's warpgroup owns.
-__device__ __forceinline__ void wgmma_half(float (&d)[64], const bf16* as, const bf16* bs, int k_steps) {
-  const int n0 = 128 * (threadIdx.x / 128);
-#pragma unroll
-  for (int i = 0; i < 64; ++i) d[i] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 64; ++i) fence_operand(d[i]);
-  wgmma_fence();
-  for (int s = 0; s < k_steps; ++s)
-    wgmma_m64n128k16(d, sw128_desc(as + sw128_offset(0, 16 * s, kRowTile)),
-                     sw128_desc(bs + sw128_offset(n0, 16 * s, kMaxH)));
-  wgmma_commit();
-  wgmma_wait<0>();
-#pragma unroll
-  for (int i = 0; i < 64; ++i) fence_operand(d[i]);
-}
-
-__device__ __forceinline__ unsigned char* align_smem(unsigned char* raw) {
-  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
-  return raw + ((1024 - (base & 1023)) & 1023);
-}
-
-// A thread's accumulator rows (of the block's 64) and its columns: for
-// j = 0 .. 15, d[4j + {0, 1}] is row ra, columns col(j) + {0, 1}, and
-// d[4j + {2, 3}] the same columns of row rb.
-struct HalfFrag {
-  int ra, rb, c0;
-  __device__ HalfFrag() {
-    const int t = threadIdx.x % 128, lane = t % 32;
-    ra = (t / 32) * 16 + lane / 4;
-    rb = ra + 8;
-    c0 = 128 * (threadIdx.x / 128) + 2 * (lane % 4);
-  }
-  __device__ int col(int j) const { return c0 + 8 * j; }
-};
-
-// The three products of h that need no message: blockIdx.y 0 and 1 give
-// proj = [h W_src | h W_dst], 2 gives z1h = h Wn1[:H] (the h half of the node
-// MLP's first layer), for 64 rows per block. The weights are the cached
-// nn.Linear-layout copies: wsrct, wdstt, and nw1t's first H columns.
-__global__ void __launch_bounds__(kNodeThreads, 1)
-proj_sm90_kernel(const float* __restrict__ h, const bf16* __restrict__ wsrct, const bf16* __restrict__ wdstt,
-                 const bf16* __restrict__ nw1t, float* __restrict__ proj, float* __restrict__ z1h, int M,
-                 int H) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  unsigned char* smem = align_smem(smem_raw);
-  bf16* bs = reinterpret_cast<bf16*>(smem);
-  bf16* as = reinterpret_cast<bf16*>(smem + kMaxH * kMaxH * 2);
-  const int r0 = blockIdx.x * kRowTile, which = blockIdx.y;
-  if (which == 2) load_b_async(bs, nw1t, 2 * H, H, H);
-  else load_b_async(bs, which ? wdstt : wsrct, H, H, H);
-  constexpr int kProjBatch = 8;   // 8-column chunks per thread whose loads go together
-  for (int idx0 = 0; idx0 < kRowTile * H / 8; idx0 += kProjBatch * kNodeThreads) {
-    float4 x[kProjBatch][2];
-#pragma unroll
-    for (int k = 0; k < kProjBatch; ++k) {
-      const int idx = idx0 + k * kNodeThreads + threadIdx.x;
-      const int r = idx / (H / 8), c0 = 8 * (idx % (H / 8));
-      x[k][0] = x[k][1] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (idx < kRowTile * H / 8 && r0 + r < M) {
-        x[k][0] = *reinterpret_cast<const float4*>(h + (size_t)(r0 + r) * H + c0);
-        x[k][1] = *reinterpret_cast<const float4*>(h + (size_t)(r0 + r) * H + c0 + 4);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kProjBatch; ++k) {
-      const int idx = idx0 + k * kNodeThreads + threadIdx.x;
-      if (idx >= kRowTile * H / 8) break;
-      const int r = idx / (H / 8), c0 = 8 * (idx % (H / 8));
-      uint4 packed;
-      __nv_bfloat162* pk = reinterpret_cast<__nv_bfloat162*>(&packed);
-      pk[0] = __floats2bfloat162_rn(x[k][0].x, x[k][0].y);
-      pk[1] = __floats2bfloat162_rn(x[k][0].z, x[k][0].w);
-      pk[2] = __floats2bfloat162_rn(x[k][1].x, x[k][1].y);
-      pk[3] = __floats2bfloat162_rn(x[k][1].z, x[k][1].w);
-      *reinterpret_cast<uint4*>(as + sw128_offset(r, c0, kRowTile)) = packed;
-    }
-  }
-  cp_async_wait_all();
-  fence_proxy_async();
-  __syncthreads();
-  float d[64];
-  wgmma_half(d, as, bs, H / 16);
-  const HalfFrag f;
-  float* dst = which == 2 ? z1h : proj + which * H;
-  const int ld = which == 2 ? H : 2 * H;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int c = f.col(j);
-    if (c < H) {
-      if (r0 + f.ra < M)
-        *reinterpret_cast<float2*>(dst + (size_t)(r0 + f.ra) * ld + c) = make_float2(d[4 * j], d[4 * j + 1]);
-      if (r0 + f.rb < M)
-        *reinterpret_cast<float2*>(dst + (size_t)(r0 + f.rb) * ld + c) = make_float2(d[4 * j + 2], d[4 * j + 3]);
-    }
   }
 }
 

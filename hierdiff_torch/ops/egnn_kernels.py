@@ -44,8 +44,9 @@ launch_counts: Dict[str, int] = {"fused_gcl": 0, "fused_coord_update": 0, "fused
 # limits of the CUDA kernels (csrc/edge_mlp.cuh kMaxH, kMaxE)
 MAX_HIDDEN = 256
 MAX_EDGE_FEATURES = 32
-# fused_gcl's real-edge work list: edges per tile (csrc/edge_mlp.cuh kTileM)
-# and source rows per block of the list kernels (csrc/sm90.cuh kListRows)
+# the real-edge work list of fused_gcl and fused_coord_update: edges per tile
+# (csrc/edge_mlp.cuh kTileM) and source rows per block of the list kernels
+# (csrc/sm90.cuh kListRows)
 GCL_TILE_EDGES = 64
 GCL_LIST_ROWS = 32
 
@@ -235,7 +236,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _GCL_ARGTYPES = [_P] * 24 + [_I, _I, _I, _I, _F, _I, _I, _I, _P]
-_COORD_ARGTYPES = [_P] * 14 + [_I, _I, _I, _I, _F, _F, _I, _I, _I, _P]
+_COORD_ARGTYPES = [_P] * 20 + [_I, _I, _I, _I, _F, _F, _I, _I, _I, _P]
 _BWD_ARGTYPES = [_P] * 24 + [_I, _I, _I, _I, _F, _I, _I, _I, _P]
 _num_sms: Dict[int, int] = {}
 
@@ -276,15 +277,21 @@ def _f32(t: Tensor) -> Tensor:
 
 
 def _pair_kernel_weights(linear: torch.nn.Linear, mid: torch.nn.Linear) -> dict:
-    w_src, w_dst, w_e = _pair_weights(linear)
-    return {"wsd": _bf16(torch.cat([w_src, w_dst], dim=1)), "we": _bf16(w_e),
-            "b1": _f32(linear.bias), "w2": _bf16(mid.weight.t()),
-            "b2": _f32(mid.bias)}
+    """The edge MLP's operands but W2: W_e (E, H), the biases, and the
+    nn.Linear-layout (out, in) halves W_src^T, W_dst^T of the pair linear
+    that the wgmma projection reads (csrc/sm90.cuh proj_sm90_kernel)."""
+    hidden = mid.weight.shape[0]
+    return {"we": _bf16(_pair_weights(linear)[2]), "b1": _f32(linear.bias),
+            "b2": _f32(mid.bias), "wsrct": _bf16(linear.weight[:, :hidden]),
+            "wdstt": _bf16(linear.weight[:, hidden:2 * hidden])}
 
 
 def _gcl_kernel_weights(layer) -> dict:
     w = _pair_kernel_weights(layer.edge_mlp[0], layer.edge_mlp[2])
+    w["w2"] = _bf16(layer.edge_mlp[2].weight.t())   # (in, out)
     hidden = w["w2"].shape[0]
+    w_src, w_dst, _ = _pair_weights(layer.edge_mlp[0])
+    w["wsd"] = _bf16(torch.cat([w_src, w_dst], dim=1))   # the backward's projection
     if layer.attention:
         w["watt"] = _bf16(layer.att_mlp[0].weight.reshape(hidden))
         w["watt32"] = _f32(layer.att_mlp[0].weight.reshape(hidden))   # backward's dm0 term
@@ -296,10 +303,7 @@ def _gcl_kernel_weights(layer) -> dict:
     w["nw1"] = _bf16(layer.node_mlp[0].weight.t())
     w["nb1"] = _f32(layer.node_mlp[0].bias)
     w["nb2"] = _f32(layer.node_mlp[2].bias)
-    # the backward's transposed operands: nn.Linear weights are (out, in)
-    pair = layer.edge_mlp[0].weight
-    w["wsrct"] = _bf16(pair[:, :hidden])
-    w["wdstt"] = _bf16(pair[:, hidden:2 * hidden])
+    # nn.Linear layout (out, in): the node kernel's and the backward's operands
     w["nw1t"] = _bf16(layer.node_mlp[0].weight)
     w["nw2t"] = _bf16(layer.node_mlp[2].weight)
     return w
@@ -307,6 +311,7 @@ def _gcl_kernel_weights(layer) -> dict:
 
 def _coord_kernel_weights(layer) -> dict:
     w = _pair_kernel_weights(layer.coord_mlp[0], layer.coord_mlp[2])
+    w["w2t"] = _bf16(layer.coord_mlp[2].weight)   # nn.Linear layout: wgmma's K-major B
     w["whead"] = _bf16(layer.coord_mlp[4].weight.reshape(-1))
     return w
 
@@ -381,24 +386,58 @@ def _check_gcl_inputs(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor,
 
 GCL_FLOAT_SCRATCH = ("proj", "z1h", "heads", "agg")
 GCL_INT_SCRATCH = ("rowstart", "totals", "edges")
+COORD_FLOAT_SCRATCH = ("proj", "heads", "agg")
+COORD_INT_SCRATCH = GCL_INT_SCRATCH
+
+
+def _edge_list_sizes(kernel: str, b: int, n: int) -> Dict[str, int]:
+    """The real-edge work list (csrc/sm90.cuh): ``rowstart`` b*n + 1,
+    ``totals`` one per list block, ``edges`` room for every edge, and the
+    number of 64-edge tiles a full mask gives. The kernels index edges with
+    int32."""
+    rows = b * n
+    if rows * n >= 2 ** 31:
+        raise ValueError(f"{kernel} indexes edges with int32; b*n*n = {rows * n} is too many")
+    return {"rowstart": rows + 1, "totals": -(-rows // GCL_LIST_ROWS), "edges": rows * n,
+            "tiles": -(-rows * n // GCL_TILE_EDGES)}
 
 
 def gcl_workspace(b: int, n: int, hidden: int) -> Dict[str, int]:
     """Element counts of ``fused_gcl``'s scratch buffers for h (b, n, hidden).
-    int32: the work list (``rowstart`` b*n + 1, ``totals`` one per list
-    block, ``edges`` room for every edge). float32: ``proj`` [h W_src |
+    int32: the work list (``_edge_list_sizes``). float32: ``proj`` [h W_src |
     h W_dst], ``z1h`` the h half of the node MLP's first layer, ``heads``
     one row of ``hidden`` per possible tile (the part of a source row
     continued from the tile before) and ``agg`` (unless the caller gives
     one). Sized for a full edge mask; what a call uses depends on the mask,
     which stays on the device."""
+    ws = _edge_list_sizes("fused_gcl", b, n)
     rows = b * n
-    if rows * n >= 2 ** 31:
-        raise ValueError(f"fused_gcl indexes edges with int32; b*n*n = {rows * n} is too many")
-    tiles = -(-rows * n // GCL_TILE_EDGES)
-    return {"rowstart": rows + 1, "totals": -(-rows // GCL_LIST_ROWS), "edges": rows * n,
-            "proj": rows * 2 * hidden, "z1h": rows * hidden, "heads": tiles * hidden,
-            "agg": rows * hidden}
+    return {**{k: ws[k] for k in GCL_INT_SCRATCH}, "proj": rows * 2 * hidden,
+            "z1h": rows * hidden, "heads": ws["tiles"] * hidden, "agg": rows * hidden}
+
+
+def coord_workspace(b: int, n: int, hidden: int) -> Dict[str, int]:
+    """Element counts of ``fused_coord_update``'s scratch buffers for h (b,
+    n, hidden): the work list as ``gcl_workspace``'s, ``proj`` [h W_src |
+    h W_dst] (float4 reads: first in the allocation), and three floats per
+    possible tile (``heads``, the part of a source row continued from the
+    tile before) and per node (``agg``, the part that starts in a tile)."""
+    ws = _edge_list_sizes("fused_coord_update", b, n)
+    rows = b * n
+    return {**{k: ws[k] for k in COORD_INT_SCRATCH}, "proj": rows * 2 * hidden,
+            "heads": ws["tiles"] * 3, "agg": rows * 3}
+
+
+def _scratch(ws: Dict[str, int], names, device: torch.device):
+    """One allocation of 4-byte elements for the buffers ``names`` (in that
+    order) and each one's address, with no views: each view costs host time
+    on every call. Returns the tensor, which must outlive the launch, and
+    the addresses."""
+    scratch = torch.empty(sum(ws[k] for k in names), dtype=torch.float32, device=device)
+    ptr, at = {}, scratch.data_ptr()
+    for k in names:
+        ptr[k], at = at, at + 4 * ws[k]
+    return scratch, ptr
 
 
 def _launch_gcl(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor, node_mask: Tensor,
@@ -415,15 +454,10 @@ def _launch_gcl(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor, node_mas
     if agg_out is not None:
         _check("agg_out", agg_out, h.shape, device)
     w = _cached_weights(layer, _gcl_kernel_weights, device, rebuild=agg_out is not None)
-    ws = gcl_workspace(b, n, hidden)
-    # one allocation of 4-byte elements and no views (each view costs host
-    # time on every call): the float buffers first, each a multiple of 4
-    # elements so each starts 16-byte aligned, then the int32 work list
+    # the float buffers first, each a multiple of 4 elements so each starts
+    # 16-byte aligned for float4 reads, then the int32 work list
     names = [k for k in GCL_FLOAT_SCRATCH + GCL_INT_SCRATCH if k != "agg" or agg_out is None]
-    scratch = torch.empty(sum(ws[k] for k in names), dtype=torch.float32, device=device)
-    ptr, at = {}, scratch.data_ptr()
-    for k in names:
-        ptr[k], at = at, at + 4 * ws[k]
+    scratch, ptr = _scratch(gcl_workspace(b, n, hidden), names, device)
     if agg_out is not None:
         ptr["agg"] = agg_out.data_ptr()
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -590,14 +624,15 @@ def fused_coord_update(layer, h: Tensor, edge_attr: Tensor, coord_diff: Tensor,
     if b * n == 0:
         return out
     w = _cached_weights(layer, _coord_kernel_weights, device)
-    proj = torch.empty((b * n, 2 * hidden), dtype=torch.float32, device=device)
+    scratch, ptr = _scratch(coord_workspace(b, n, hidden),
+                            COORD_FLOAT_SCRATCH + COORD_INT_SCRATCH, device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _entry("fused_coord_update", phase_clocks)(
         h.data_ptr(), edge_attr.data_ptr(), coord_diff.data_ptr(), edge_mask.data_ptr(),
-        node_mask.data_ptr(), x.data_ptr(), w["wsd"].data_ptr(), w["we"].data_ptr(),
-        w["b1"].data_ptr(), w["w2"].data_ptr(), w["b2"].data_ptr(),
-        w["whead"].data_ptr(), proj.data_ptr(), out.data_ptr(),
-        b, n, hidden, e_nf, float(layer.normalization_factor), float(layer.coords_range),
+        node_mask.data_ptr(), x.data_ptr(), w["wsrct"].data_ptr(), w["wdstt"].data_ptr(),
+        w["we"].data_ptr(), w["b1"].data_ptr(), w["w2t"].data_ptr(), w["b2"].data_ptr(),
+        w["whead"].data_ptr(), ptr["proj"], ptr["rowstart"], ptr["totals"], ptr["edges"],
+        ptr["heads"], ptr["agg"], out.data_ptr(), b, n, hidden, e_nf, float(layer.normalization_factor), float(layer.coords_range),
         int(layer.tanh), int(layer.compute_dtype is torch.bfloat16), _sm_count(device),
         stream)
     if err != 0:

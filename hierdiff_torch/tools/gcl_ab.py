@@ -1,22 +1,25 @@
-"""``fused_gcl`` of an earlier tree of this repository against this tree's, on one
-card, in turns.
+"""A forward kernel of an earlier tree of this repository against this tree's,
+on one card, in turns.
 
-    python -m hierdiff_torch.tools.gcl_ab --parent DIR [--reps 20]
+    python -m hierdiff_torch.tools.gcl_ab --parent DIR [--kernel fused_gcl] [--reps 20]
 
-DIR is an unpacked earlier tree (``git archive <commit> | tar -x -C DIR``). The
-inputs and weights are made once, here, and saved to a temporary file. Each
-tree then runs this file with ``--time`` in a process of its own, with that
-tree first on the path: it builds its own kernels and calls its own public
-wrapper (``ops.egnn_kernels.fused_gcl``), so every tree keeps its own C entry
-point and weight layout. The trees take turns: change, parent, parent, change.
+``--kernel`` is ``fused_gcl`` (the default) or ``fused_coord_update``. DIR is
+an unpacked earlier tree (``git archive <commit> | tar -x -C DIR``). The inputs
+and weights are made once, here, and saved to a temporary file. Each tree then
+runs this file with ``--time`` in a process of its own, with that tree first
+on the path: it builds its own kernels and calls its own public wrapper
+(``ops.egnn_kernels.fused_gcl`` or ``.fused_coord_update``, whose signatures
+every tree shares), so every tree keeps its own C entry point and weight
+layout. The trees take turns: change, parent, parent, change.
 
 Shapes: the kernel shape (B=64, N=32, H=256, E=2, counts uniform in [8, 32])
 and the sampler's shape (B=64, GEOM-histogram counts with seed 0, N = their
-maximum), each in all four variants (attention on/off x f32/bf16
-elementwise). Per tree and case: device ms per call (CUDA events over
-``--reps`` calls), host us per call (the wall time to enqueue ``--reps`` calls
-with no synchronisation between them: the wrapper's Python, its allocations
-and its launches) and the error of out - h against the tree's own plain
+maximum), each in all four variants (attention on/off for ``fused_gcl``, tanh
+on/off for ``fused_coord_update``, x f32/bf16 elementwise). Per tree and case:
+device ms per call (CUDA events over ``--reps`` calls), host us per call (the
+wall time to enqueue ``--reps`` calls with no synchronisation between them:
+the wrapper's Python, its allocations and its launches) and the error of what
+the layer adds to its input (out - h, out - x) against the tree's own plain
 version. Prints one JSON line per shape and variant. Needs a CUDA GPU.
 """
 
@@ -36,11 +39,24 @@ import torch
 
 HERE = Path(__file__).resolve().parents[2]
 HIDDEN, EDGE_FEATURES, NORM = 256, 2, 10.0
+COORDS_RANGE = 5.0
+KERNELS = ("fused_gcl", "fused_coord_update")
+# the variant's flag: the gate of fused_gcl, tanh of fused_coord_update
+FLAG = {"fused_gcl": "attention", "fused_coord_update": "tanh"}
 
 
-def make_cases(device: torch.device) -> list:
+def _layer(kernel: str, flag: bool, compute_dtype):
+    from hierdiff_torch.ops.egnn import DenseEquivariantUpdate, DenseGCL
+
+    if kernel == "fused_gcl":
+        return DenseGCL(HIDDEN, EDGE_FEATURES, normalization_factor=NORM, attention=flag,
+                        compute_dtype=compute_dtype)
+    return DenseEquivariantUpdate(HIDDEN, EDGE_FEATURES, normalization_factor=NORM, tanh=flag,
+                                  coords_range=COORDS_RANGE, compute_dtype=compute_dtype)
+
+
+def make_cases(device: torch.device, kernel: str = "fused_gcl") -> list:
     """Inputs and weights of every shape and variant, on the CPU."""
-    from hierdiff_torch.ops.egnn import DenseGCL
     from hierdiff_torch.tools.kernel_phases import layer_inputs, sampler_counts
     from hierdiff_torch.utils.weights import init_weights
 
@@ -49,34 +65,42 @@ def make_cases(device: torch.device) -> list:
               f"sampler B=64 N={int(counts.max())}": layer_inputs(
                   np.random.default_rng(0), device, n=int(counts.max()), counts=counts)}
     cases = []
-    for shape, (h, _, e, _, em, nm, _) in shapes.items():
-        for attention in (True, False):
+    for shape, (h, x, e, cdiff, em, nm, _) in shapes.items():
+        for flag in (True, False):
             for cd in (None, "bfloat16"):
-                layer = init_weights(DenseGCL(HIDDEN, EDGE_FEATURES, normalization_factor=NORM,
-                                              attention=attention, compute_dtype=cd),
-                                     torch.Generator().manual_seed(0))
-                cases.append({"shape": shape, "attention": attention, "compute_dtype": cd,
-                              "state": layer.state_dict(),
-                              **{k: v.cpu() for k, v in (("h", h), ("e", e), ("em", em), ("nm", nm))}})
+                layer = init_weights(_layer(kernel, flag, cd), torch.Generator().manual_seed(0))
+                cases.append({"kernel": kernel, "shape": shape, FLAG[kernel]: flag,
+                              "compute_dtype": cd, "state": layer.state_dict(),
+                              **{k: v.cpu() for k, v in (("h", h), ("x", x), ("e", e),
+                                                         ("cdiff", cdiff), ("em", em), ("nm", nm))}})
     return cases
 
 
+def _calls(ek, kernel: str, layer, c: dict):
+    """The kernel's call, its plain version's and the input that both add to."""
+    h, x, e, cdiff, em, nm = (c[k] for k in ("h", "x", "e", "cdiff", "em", "nm"))
+    if kernel == "fused_gcl":
+        return (lambda: ek.fused_gcl(layer, h, e, em, nm),
+                lambda: ek.gcl_plain(layer, h, e, em, nm), h)
+    return (lambda: ek.fused_coord_update(layer, h, e, cdiff, x, em, nm),
+            lambda: ek.coord_update_plain(layer, h, e, cdiff, x, em, nm), x)
+
+
 def time_cases(path: Path, reps: int) -> list:
-    """Run by each tree: its own fused_gcl on the saved cases."""
+    """Run by each tree: its own kernel wrapper on the saved cases."""
     from hierdiff_torch.ops import egnn_kernels as ek
-    from hierdiff_torch.ops.egnn import DenseGCL
 
     torch.set_grad_enabled(False)
     device = torch.device("cuda")
     out = []
     for c in torch.load(path):
-        layer = DenseGCL(HIDDEN, EDGE_FEATURES, normalization_factor=NORM,
-                         attention=c["attention"], compute_dtype=c["compute_dtype"]).to(device)
+        kernel = c["kernel"]
+        layer = _layer(kernel, c[FLAG[kernel]], c["compute_dtype"]).to(device)
         layer.load_state_dict(c["state"])
-        h, e, em, nm = (c[k].to(device) for k in ("h", "e", "em", "nm"))
-        call = lambda: ek.fused_gcl(layer, h, e, em, nm)  # noqa: E731
-        ref = ek.gcl_plain(layer, h, e, em, nm) - h
-        rel = ((call() - h) - ref).abs().max().item() / (ref.abs().max().item() + 1e-9)
+        call, plain, base = _calls(ek, kernel, layer, {
+            k: c[k].to(device) for k in ("h", "x", "e", "cdiff", "em", "nm")})
+        ref = plain() - base
+        rel = ((call() - base) - ref).abs().max().item() / (ref.abs().max().item() + 1e-9)
         for _ in range(3):
             call()
         torch.cuda.synchronize()
@@ -101,20 +125,20 @@ def _run_tree(tree: Path, path: Path, reps: int) -> list:
     return json.loads(run.stdout.strip().splitlines()[-1])
 
 
-def compare(parent: Path, reps: int = 20) -> list:
+def compare(parent: Path, reps: int = 20, kernel: str = "fused_gcl") -> list:
     """One dict per shape and variant: each tree's ms and host us per call
     (the mean of its two turns), the turns and each tree's error."""
     trees = {"change": HERE, "parent": Path(parent).resolve()}
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "cases.pt"
-        cases = make_cases(torch.device("cpu"))
+        cases = make_cases(torch.device("cpu"), kernel)
         torch.save(cases, path)
         turns = {"change": [], "parent": []}
         for name in ("change", "parent", "parent", "change"):
             turns[name].append(_run_tree(trees[name], path, reps))
     rows = []
     for i, c in enumerate(cases):
-        row = {"shape": c["shape"], "attention": c["attention"],
+        row = {"kernel": kernel, "shape": c["shape"], FLAG[kernel]: c[FLAG[kernel]],
                "elementwise": c["compute_dtype"] or "float32"}
         for name, runs in turns.items():
             row[f"{name}_ms"] = sum(r[i]["ms"] for r in runs) / len(runs)
@@ -128,6 +152,7 @@ def compare(parent: Path, reps: int = 20) -> list:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, help="unpacked earlier tree")
+    ap.add_argument("--kernel", choices=KERNELS, default="fused_gcl")
     ap.add_argument("--time", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
@@ -141,7 +166,7 @@ def main(argv=None) -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True).stdout.splitlines()[0]
     print(card)
-    for row in compare(args.parent, args.reps):
+    for row in compare(args.parent, args.reps, args.kernel):
         print(json.dumps(row))
 
 

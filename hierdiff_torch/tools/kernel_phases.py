@@ -5,15 +5,20 @@ coarse training step.
 
 Needs a CUDA GPU. Four measurements, JSON lines:
   1. per-phase SM cycles inside ``fused_gcl`` (its edge kernel),
-     ``fused_coord_update`` and ``fused_gcl_bwd`` (its edge kernel) at the
-     GEOM layer shapes (B=64, N=32, H=256, E=2, ragged node counts),
-     launched with ``phase_clocks=True``: their ``-DHD_PHASE_CLOCKS`` build
-     (separate libraries), whose thread 0 of every block (of every
-     warpgroup in fused_gcl's edge kernel, whose two warpgroups run apart)
-     reads ``clock64`` after each barrier. For ``fused_gcl`` the same build
-     counts the edge slots its edge kernel computes per call and the real
-     edges among them, printed beside nnz(edge_mask);
-  2. torch.profiler's device time per CUDA kernel for the same calls;
+     ``fused_coord_update`` (its edge kernel) and ``fused_gcl_bwd`` (its
+     edge kernel) at the GEOM layer shapes (B=64, N=32, H=256, E=2, ragged
+     node counts), launched with ``phase_clocks=True``: their
+     ``-DHD_PHASE_CLOCKS`` build (separate libraries), whose thread 0 of
+     every block (of every warpgroup in the forward edge kernels, whose two
+     warpgroups run apart) reads ``clock64`` after each barrier. For the two
+     forward kernels the same build counts the edge slots their edge kernel
+     computes per call and the real edges among them, printed beside
+     nnz(edge_mask);
+  2. torch.profiler's device time per CUDA kernel for the same calls, and
+     for the two forward kernels also at the sampler's shape (B=64,
+     GEOM-histogram counts with seed 0, N = their maximum), where a call's
+     host time can exceed its device time, so that CUDA events around
+     back-to-back calls measure the host;
   3. the sampler's main path (GEOM config, random weights, batch 64, a few
      reverse steps) under torch.profiler: device time by kernel and the
      device's busy share of the wall time;
@@ -46,8 +51,10 @@ GCL_NODE_PHASES = ("agg finish, A build, first weight load",
 # CUDA kernels of csrc/fused_gcl.cu
 GCL_KERNELS = ("edge_count_kernel", "edge_fill_kernel", "proj_sm90_kernel", "gcl_edge_kernel",
                "gcl_node_kernel")
-COORD_PHASES = ("tile setup", "pre-activation build", "W2 product", "head and coord terms",
-                "coord sums", "output")
+COORD_PHASES = ("W2 load and tile setup", "pre-activation build", "W2 product (wgmma)",
+                "bias, silu, head, tanh and coordinate terms (registers)",
+                "row sums (fixed order)", "grid barrier (waiting for the last block)",
+                "output (x + agg / norm) * nmask")
 BWD_PHASES = ("tile setup", "pre-activation build", "W2 product", "gate and silu backward",
               "du product and dW2 partial", "dpre, sums and dW_e", "de")
 # CUDA kernels of csrc/fused_gcl_bwd.cu besides proj_kernel
@@ -152,11 +159,12 @@ def main() -> None:
         line = {"kernel": name, "phase_cycle_share": {
             p: counters[i] / total for i, p in enumerate(phases)},
             "cycles_per_call_summed_over_blocks": total / reps}
-        if name == "fused_gcl":   # node kernel; edges computed against the mask's real edges
+        if name == "fused_gcl":   # node kernel
             node = [counters[5 + i] for i in range(len(GCL_NODE_PHASES))]
             line["node_kernel_phase_cycle_share"] = {
                 p: c / max(sum(node), 1) for p, c in zip(GCL_NODE_PHASES, node)}
             line["node_kernel_cycles_per_call_summed_over_blocks"] = sum(node) / reps
+        if name != "fused_gcl_bwd":   # edges computed against the mask's real edges
             edges = (ctypes.c_ulonglong * 2)()
             lib.hd_read_edge_counts.argtypes = [ctypes.c_void_p]
             lib.hd_read_edge_counts(edges)   # the warm-up and the calls above
@@ -171,14 +179,24 @@ def main() -> None:
         print(json.dumps(line))
 
     # 2. device time per CUDA kernel, uninstrumented build
-    for name, (fn, _, _) in calls.items():
+    s_counts = sampler_counts(B, 0)
+    s_h, s_x, s_e, s_cdiff, s_em, s_nm, _ = layer_inputs(np.random.default_rng(0), device,
+                                                         n=int(s_counts.max()), counts=s_counts)
+    shaped = [("kernel", name, fn) for name, (fn, _, _) in calls.items()] + [
+        (f"sampler N={int(s_counts.max())}", "fused_gcl",
+         partial(ek.fused_gcl, gcl, s_h, s_e, s_em, s_nm)),
+        (f"sampler N={int(s_counts.max())}", "fused_coord_update",
+         partial(ek.fused_coord_update, equ, s_h, s_e, s_cdiff, s_x, s_em, s_nm))]
+    for shape, name, fn in shaped:
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        print(json.dumps({"wrapper": name, "device_us_per_call": _device_us(prof, reps)}))
+        per_kernel = _device_us(prof, reps)
+        print(json.dumps({"wrapper": name, "shape": shape, "device_us_per_call": per_kernel,
+                          "device_us_per_call_total": sum(per_kernel.values())}))
 
     # 3. the sampler's main path
     from hierdiff_torch.config import CoarseModelConfig
@@ -264,7 +282,7 @@ def train_step_breakdown(device: torch.device, steps: int = 8) -> dict:
                               if any(f"hd::{n}" in k for n in names))
     busy_us = sum(per_kernel.values())
     # the coordinate update takes its plain route here; proj_kernel
-    # (edge_mlp.cuh) runs in the backward, the forward has its own
+    # (edge_mlp.cuh) runs in the backward, the forward has proj_sm90_kernel
     fwd_us = group(GCL_KERNELS)
     bwd_us = group(BACKWARD_KERNELS) + group(("proj_kernel",))
     return {"batch": B, "steps": steps, "bucket_mix": [int(b["positions"].shape[1]) for b in batches[2:]],

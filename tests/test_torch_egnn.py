@@ -72,6 +72,15 @@ def _holey(hh, nm, seed=0):
     return rng.standard_normal(hh.shape).astype(np.float32), em, nm
 
 
+def _holey_coords(hh, nm, seed=0):
+    """``_holey``'s masks, with positions inside the new node mask and their
+    coordinate differences: h, x, coord_diff, edge_mask, node_mask."""
+    hh, em, nm = _holey(hh, nm, seed)
+    rng = np.random.default_rng(seed + 200)
+    x = rng.standard_normal((*nm.shape[:2], 3)).astype(np.float32) * 2 * nm
+    return hh, x, np.asarray(je.coord2diff_dense(x, 0.0)[1]), em, nm
+
+
 def _port_state(mapper, params, prefix="m"):
     out = {}
     mapper(out, prefix, params)
@@ -121,10 +130,13 @@ def test_gcl_matches_xla(attention, e_nf, masks):
     assert _rel(out, ref) < F32_REL
 
 
+@pytest.mark.parametrize("masks", ["prefix", "holey"])
 @pytest.mark.parametrize("tanh", [True, False])
 @pytest.mark.parametrize("e_nf", [2, 24])
-def test_equivariant_update_matches_xla(tanh, e_nf):
+def test_equivariant_update_matches_xla(tanh, e_nf, masks):
     jl, params, port, (hh, x, cdiff, e, em, nm) = _equiv_pair(32, e_nf, tanh)
+    if masks == "holey":
+        hh, x, cdiff, em, nm = _holey_coords(hh, nm)
     with jax.default_matmul_precision("highest"):
         ref = jl.apply(params, hh, x, cdiff, e, nm, em)
     with torch.no_grad():
@@ -193,11 +205,15 @@ def test_egnn_matches_xla(attention, sin_embedding):
     assert _rel(out_h, ref_h) < F32_REL and _rel(out_x, ref_x) < F32_REL
 
 
+@pytest.mark.parametrize("masks", ["prefix", "holey"])
 @pytest.mark.parametrize("cd", [None, "bfloat16"])
-def test_layers_match_pallas_interpret(interpret_pallas, cd):
+def test_layers_match_pallas_interpret(interpret_pallas, cd, masks):
     """The port's layers against the JAX fused kernels (fused_gcl,
-    fused_coord_update) run through the Pallas interpreter."""
+    fused_coord_update) run through the Pallas interpreter, on prefix masks
+    and on holey ones (``_holey``)."""
     jl, params, port, (hh, x, e, em, nm) = _gcl_pair(32, 2, True, cd=cd)
+    if masks == "holey":
+        hh, em, nm = _holey(hh, nm)
     jk = je.DenseGCL(hidden_nf=32, normalization_factor=10.0, attention=True,
                      use_pallas=True, compute_dtype=cd)
     with torch.no_grad():
@@ -205,6 +221,8 @@ def test_layers_match_pallas_interpret(interpret_pallas, cd):
     assert _rel(out, jk.apply(params, hh, e, nm, em)) < PALLAS_REL
 
     jl, params, port, (hh, x, cdiff, e, em, nm) = _equiv_pair(32, 2, True, cd=cd)
+    if masks == "holey":
+        hh, x, cdiff, em, nm = _holey_coords(hh, nm)
     jk = je.DenseEquivariantUpdate(hidden_nf=32, normalization_factor=10.0, tanh=True,
                                    coords_range=5.0, use_pallas=True, compute_dtype=cd)
     with torch.no_grad():
@@ -280,6 +298,44 @@ def test_gcl_workspace_sizes(n):
 def test_gcl_workspace_rejects_int32_overflow():
     with pytest.raises(ValueError, match="int32"):
         ek.gcl_workspace(4096, 1024, 256)
+
+
+@pytest.mark.parametrize("n", [1, 32, 83])
+def test_coord_workspace_sizes(n):
+    """fused_coord_update's scratch: fused_gcl's work list, the projections
+    (first in the allocation, for float4 reads), and three floats per
+    possible tile and per node for the row sums."""
+    ws = ek.coord_workspace(64, n, 256)
+    rows = 64 * n
+    tiles = -(-rows * n // ek.GCL_TILE_EDGES)
+    assert ws == {"rowstart": rows + 1, "totals": -(-rows // ek.GCL_LIST_ROWS),
+                  "edges": rows * n, "proj": rows * 512, "heads": tiles * 3, "agg": rows * 3}
+    assert set(ws) == set(ek.COORD_INT_SCRATCH + ek.COORD_FLOAT_SCRATCH)
+    assert ek.COORD_FLOAT_SCRATCH[0] == "proj" and ws["proj"] % 4 == 0
+    assert {k: ws[k] for k in ek.GCL_INT_SCRATCH} == {
+        k: v for k, v in ek.gcl_workspace(64, n, 256).items() if k in ek.GCL_INT_SCRATCH}
+
+
+def test_coord_workspace_rejects_int32_overflow():
+    with pytest.raises(ValueError, match="fused_coord_update indexes edges with int32"):
+        ek.coord_workspace(4096, 1024, 256)
+
+
+def test_coord_kernel_weight_layout():
+    """The coordinate kernel's cached operands: the pair linear's W_src and
+    W_dst halves and W2 in nn.Linear layout (wgmma's K-major B), W_e, the
+    biases and the head, in bf16 (biases f32)."""
+    _, _, port, _ = _equiv_pair(32, 2, True)
+    w = ek._cached_weights(port, ek._coord_kernel_weights, torch.device("cpu"))
+    pair = port.coord_mlp[0].weight.detach()
+    assert sorted(w) == ["b1", "b2", "w2t", "wdstt", "we", "whead", "wsrct"]
+    assert torch.equal(w["wsrct"], pair[:, :32].bfloat16())
+    assert torch.equal(w["wdstt"], pair[:, 32:64].bfloat16())
+    assert torch.equal(w["we"], pair[:, 64:].t().bfloat16())
+    assert torch.equal(w["w2t"], port.coord_mlp[2].weight.detach().bfloat16())
+    assert torch.equal(w["whead"], port.coord_mlp[4].weight.detach().reshape(-1).bfloat16())
+    assert torch.equal(w["b1"], port.coord_mlp[0].bias.detach())
+    assert all(v.is_contiguous() for v in w.values())
 
 
 def test_phase_clock_build_is_a_separate_library():
@@ -458,12 +514,24 @@ def test_cuda_kernels_match_plain_versions():
         with torch.no_grad():
             out, ref = ek.fused_gcl(gcl, *args) - base, ek.gcl_plain(gcl, *args) - base
         assert _rel(out.cpu(), ref.cpu()) < PALLAS_REL
-    _, _, equ, (hh, x, cdiff, e, em, nm) = _equiv_pair(256, 2, True)
-    args = [t.to(dev) for t in _t(hh, e, cdiff, x, em, nm)]
-    equ.to(dev)
-    with torch.no_grad():
-        out = ek.fused_coord_update(equ, *args).cpu()
-        assert _rel(out, ek.coord_update_plain(equ, *args).cpu()) < PALLAS_REL
+    # the coordinate update, scored on out - x: prefix masks, holey masks,
+    # 83-node rows with 0/1-node molecules; tanh on/off x f32/bf16
+    _, _, _, (hh, x, cdiff, e, em, nm) = _equiv_pair(256, 2, True)
+    x83 = rng.standard_normal((4, 83, 3)).astype(np.float32) * 2 * nm83
+    cdiff83 = np.asarray(je.coord2diff_dense(x83, 0.0)[1])
+    hh_h, x_h, cdiff_h, em_h, nm_h = _holey_coords(hh, nm)
+    inputs = [(hh, e, cdiff, x, em, nm), (hh_h, e, cdiff_h, x_h, em_h, nm_h),
+              (h83, e83, cdiff83, x83, em83, nm83)]
+    for tanh in (True, False):
+        for cd in (None, "bfloat16"):
+            _, _, equ, _ = _equiv_pair(256, 2, tanh, cd=cd)
+            equ.to(dev)
+            for arrays in inputs:
+                args = [t.to(dev) for t in _t(*arrays)]
+                with torch.no_grad():
+                    out = ek.fused_coord_update(equ, *args) - args[3]
+                    ref = ek.coord_update_plain(equ, *args) - args[3]
+                assert _rel(out.cpu(), ref.cpu()) < PALLAS_REL, (tanh, cd, arrays[0].shape)
 
 
 @pytest.mark.gpu
@@ -481,6 +549,14 @@ def test_cuda_phase_clock_build_runs_beside_the_normal_one():
         ref = ek.gcl_plain(gcl, *args) - args[0]
         for clocks in (False, True):
             out = ek.fused_gcl(gcl, *args, phase_clocks=clocks) - args[0]
+            assert _rel(out.cpu(), ref.cpu()) < PALLAS_REL
+    _, _, equ, (hh, x, cdiff, e, em, nm) = _equiv_pair(256, 2, True)
+    equ.to(dev)
+    args = [t.to(dev) for t in _t(hh, e, cdiff, x, em, nm)]
+    with torch.no_grad():
+        ref = ek.coord_update_plain(equ, *args) - args[3]
+        for clocks in (False, True):
+            out = ek.fused_coord_update(equ, *args, phase_clocks=clocks) - args[3]
             assert _rel(out.cpu(), ref.cpu()) < PALLAS_REL
 
 
