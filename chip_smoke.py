@@ -107,16 +107,10 @@ def nvidia_smi(query: str) -> str:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    """Device ms per call (see hierdiff_torch/tools/gcl_ab.py device_ms)."""
+    from hierdiff_torch.tools.gcl_ab import device_ms
+
+    return device_ms(fn, reps, warmup)[0]
 
 
 def rel_err(out: torch.Tensor, ref: torch.Tensor):

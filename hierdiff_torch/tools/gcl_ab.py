@@ -16,9 +16,9 @@ Shapes: the kernel shape (B=64, N=32, H=256, E=2, counts uniform in [8, 32])
 and the sampler's shape (B=64, GEOM-histogram counts with seed 0, N = their
 maximum), each in all four variants (attention on/off for ``fused_gcl``, tanh
 on/off for ``fused_coord_update``, x f32/bf16 elementwise). Per tree and case:
-device ms per call (CUDA events over ``--reps`` calls), host us per call (the
-wall time to enqueue ``--reps`` calls with no synchronisation between them:
-the wrapper's Python, its allocations and its launches) and the error of what
+device ms per call (CUDA events over ``--reps`` calls queued behind a
+sleeping kernel, ``device_ms``), host us per call (the wall time to enqueue
+them: the wrapper's Python, its allocations and its launches) and the error of what
 the layer adds to its input (out - h, out - x) against the tree's own plain
 version. Prints one JSON line per shape and variant. Needs a CUDA GPU.
 """
@@ -101,19 +101,40 @@ def time_cases(path: Path, reps: int) -> list:
             k: c[k].to(device) for k in ("h", "x", "e", "cdiff", "em", "nm")})
         ref = plain() - base
         rel = ((call() - base) - ref).abs().max().item() / (ref.abs().max().item() + 1e-9)
-        for _ in range(3):
-            call()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            call()
-        host_us = (time.perf_counter() - t0) / reps * 1e6
-        end.record()
-        torch.cuda.synchronize()
-        out.append({"ms": start.elapsed_time(end) / reps, "host_us": host_us, "rel_err": rel})
+        ms, host_s = device_ms(call, reps)
+        out.append({"ms": ms, "host_us": host_s / reps * 1e6, "rel_err": rel})
     return out
+
+
+# cycles of the sleeping kernel that holds the device while the timed calls
+# are queued: 10^8 cycles is 50 ms at 1.98 GHz, far above the enqueue time of
+# 20 calls, so the calls then run back to back with no host gaps between them
+SLEEP_CYCLES = 10 ** 8
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3):
+    """(device ms per call, host seconds to enqueue the ``reps`` calls): CUDA
+    events around ``reps`` calls queued behind a sleeping kernel. Without
+    the sleep, a call whose host time exceeds its device time would be
+    timed by its host. Raises if the enqueue outlasted the sleep."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    sleep_start = torch.cuda.Event(enable_timing=True)
+    sleep_start.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    if host_s * 1e3 > sleep_start.elapsed_time(start):
+        raise RuntimeError(f"enqueueing {reps} calls took {host_s * 1e3:.1f} ms, longer than the "
+                           f"{sleep_start.elapsed_time(start):.1f} ms sleep: raise SLEEP_CYCLES")
+    return start.elapsed_time(end) / reps, host_s
 
 
 def _run_tree(tree: Path, path: Path, reps: int) -> list:
