@@ -30,10 +30,11 @@ Phases, one output line each, any failure exits non-zero:
      its holes given to the kernel only; fused_coord_update: tanh skipped, a
      W2 output channel zeroed and the same two edge-mask faults), each run
      through the kernel, must fail that check. Kernel, plain and bound
-     times at the kernel and the sampler's shapes, and with ``--parent DIR``
-     (an unpacked earlier tree of this repository) the time of that tree's
+     times at the kernel and the sampler's shapes (device times: the timed
+     calls queued behind a sleeping kernel), and with ``--parent DIR`` (an
+     unpacked earlier tree of this repository) the time of that tree's
      kernel beside this one's, each run by its own wrapper in turns
-     (tools/gcl_ab.py);
+     (tools/gcl_ab.py), for the backward kernel too;
   2b. the backward kernel ``fused_gcl_bwd`` against autograd of the plain
      version (``gcl_plain_vjp``) at the same shapes with a random upstream
      gradient, attention on and off x f32 and bf16 elementwise, plus the
@@ -623,6 +624,7 @@ def main() -> None:
     bwd_bytes = (h.numel() * 4 * 4 + e.numel() * 4 * 2 + em.numel() * 4 + nm.numel() * 4
                  + (10 * H * H + E * H) * 2 + 6 * H * 4 + (6 * H * H + E * H + 5 * H + 1) * 4)
     bwd_bound = bound(bwd_flops, bwd_sfu, bwd_bytes, sm_clock_hz, n_sms)
+    gcl_extra["fused_gcl_bwd"] = {"parent": parent_rows("fused_gcl_bwd", "attention")}
     print(f"kernel fused_gcl_bwd: kernel_ms {bwd_runs[0]['ms']:.4f} plain_ms "
           f"{bwd_runs[0]['plain_ms']:.4f} bound_ms {bwd_bound[0]:.5f} ({bwd_bound[1]}: "
           + ", ".join(f"{k} {v:.5f}" for k, v in bwd_bound[2].items()) + ")")

@@ -1,7 +1,9 @@
-// Shared pieces of the fused EGNN edge kernels (fused_gcl.cu, fused_coord.cu,
-// fused_gcl_bwd.cu).
+// Shared pieces of the fused EGNN edge kernels: the elementwise numerics
+// (act, silu, sigmoid, pre_act, round_bf16) and limits of all of them, and
+// the WMMA work decomposition of fused_gcl_bwd.cu (the forward kernels'
+// Hopper pieces are in sm90.cuh).
 //
-// Both kernels run the same edge pipeline as hierdiff_tpu/ops/egnn_pallas.py
+// The kernels run the same edge pipeline as hierdiff_tpu/ops/egnn_pallas.py
 // `_edge_mlp` (:95): pre_ij = h_i W_src + h_j W_dst + e_ij W_e + b1 -> silu
 // -> (.) W2 + b2 -> silu, with bf16 matmul operands and f32 accumulation. The
 // elementwise type is a template flag: f32, or bf16 with every elementwise
@@ -68,13 +70,11 @@ extern "C" int hd_read_phase_cycles(unsigned long long* out) {
 #define HD_PHASE(k, t) do { } while (0)
 #endif
 
-// Shared-memory regions, in bytes: W2 with a padded row stride, then the
-// tile stage (f32 W2 output), which also holds the bf16 pre-activation tile
-// before the product and the node-MLP operands after the last tile.
+// Shared-memory row strides and the W2 region, in elements and bytes: W2
+// with a padded row stride, and the f32 tile stage (the W2 product).
 __host__ __device__ inline int ldw(int H) { return H + 8; }
 __host__ __device__ inline int lds(int H) { return H + 4; }
 __host__ __device__ inline int w2_bytes(int H) { return align128(H * ldw(H) * 2); }
-__host__ __device__ inline int stage_bytes(int H) { return align128(kTileM * lds(H) * 4); }
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -334,11 +334,6 @@ __device__ __forceinline__ void tile_mma_t(const bf16* a, const bf16* w2s, float
   __syncthreads();
 }
 
-// stage (kTileM x H, f32) = u (kTileM x H, bf16) @ w2s, the forward's product.
-__device__ __forceinline__ void tile_mma(const bf16* u, const bf16* w2s, float* stage, int H) {
-  tile_mma_t<kTileM, false>(u, w2s, stage, H);
-}
-
 // Per-lane copies of a per-column vector: lane l holds columns l, l + 32, ...
 // (0 past H), loaded once per kernel for the warp-per-edge epilogues.
 template <bool BF16>
@@ -355,19 +350,6 @@ __device__ __forceinline__ void lane_cols_bf16(const bf16* __restrict__ v, int H
 #pragma unroll
   for (int s = 0; s < kColsPerLane; ++s)
     out[s] = lane + 32 * s < H ? __bfloat162float(v[lane + 32 * s]) : 0.0f;
-}
-
-// m = silu(act(W2 out) + act(b2)) for the columns lane, lane + 32, ... of a
-// staged row; b2 holds this lane's act-rounded columns; columns >= H give 0.
-template <bool BF16>
-__device__ __forceinline__ void edge_message(const float* row, const float (&b2)[kColsPerLane],
-                                             int H, float (&m)[kColsPerLane]) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int s = 0; s < kColsPerLane; ++s) {
-    const int c = lane + 32 * s;
-    m[s] = c < H ? silu_act<BF16>(act<BF16>(act<BF16>(row[c]) + b2[s])) : 0.0f;
-  }
 }
 
 // sum over the warp of sum_s bf16(m[s]) * w[s], in f32 (w: this lane's

@@ -19,15 +19,17 @@
 // Design: five launches on the caller's stream.
 //  1-2. the real-edge work list (sm90.cuh): only edges with emask != 0 are
 //       computed, in (row, neighbour) order, packed into tiles of kTileM;
-//  3.   proj_sm90_kernel: the products of h that need no message, [h W_src |
-//       h W_dst] and z1h = h Wn1[:H], for every node, 64 rows per block, on
-//       wgmma with the weight copied into shared memory by cp.async;
+//  3.   proj_sm90_kernel (sm90.cuh): the products of h that need no
+//       message, [h W_src | h W_dst] and z1h = h Wn1[:H], for every node,
+//       64 rows per block, on wgmma with the weight copied into shared
+//       memory by cp.async;
 //  4.   gcl_edge_kernel: one persistent block per SM holds W2 in shared
 //       memory (256 x 256 bf16, K-major, 128-byte swizzle: the layout wgmma
 //       reads) and runs two warpgroups that walk their own tiles apart, so
 //       one's SFU-heavy pre-activation build and epilogue overlap the
 //       other's W2 product. Per 64-edge tile a warpgroup builds the bf16
-//       silu(pre) tile in its own swizzled buffer (16-byte stores), runs
+//       silu(pre) tile in its own swizzled buffer (16-byte stores; the
+//       build, the tile metadata and the W2 copy are in sm90.cuh), runs
 //       the 64 x 256 x 256 product as wgmma m64n256k16 (f32 accumulators in
 //       registers), applies b2, silu, the gate (a row's dot over the 4 lanes
 //       of a quad) and the edge mask on the accumulators, and sums the f32

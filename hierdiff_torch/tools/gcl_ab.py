@@ -1,16 +1,17 @@
-"""A forward kernel of an earlier tree of this repository against this tree's,
-on one card, in turns.
+"""A kernel of an earlier tree of this repository against this tree's, on one
+card, in turns.
 
     python -m hierdiff_torch.tools.gcl_ab --parent DIR [--kernel fused_gcl] [--reps 20]
 
-``--kernel`` is ``fused_gcl`` (the default) or ``fused_coord_update``. DIR is
-an unpacked earlier tree (``git archive <commit> | tar -x -C DIR``). The inputs
-and weights are made once, here, and saved to a temporary file. Each tree then
-runs this file with ``--time`` in a process of its own, with that tree first
-on the path: it builds its own kernels and calls its own public wrapper
-(``ops.egnn_kernels.fused_gcl`` or ``.fused_coord_update``, whose signatures
-every tree shares), so every tree keeps its own C entry point and weight
-layout. The trees take turns: change, parent, parent, change.
+``--kernel`` is ``fused_gcl`` (the default), ``fused_coord_update`` or
+``fused_gcl_bwd``. DIR is an unpacked earlier tree (``git archive <commit> |
+tar -x -C DIR``). The inputs and weights are made once, here, and saved to a
+temporary file. Each tree then runs this file with ``--time`` in a process of
+its own, with that tree first on the path: it builds its own kernels and calls
+its own public wrapper (``ops.egnn_kernels.fused_gcl``, ``.fused_coord_update``
+or ``.fused_gcl_bwd`` after its own forward's residual, whose signatures every
+tree shares), so every tree keeps its own C entry point and weight layout. The
+trees take turns: change, parent, parent, change.
 
 Shapes: the kernel shape (B=64, N=32, H=256, E=2, counts uniform in [8, 32])
 and the sampler's shape (B=64, GEOM-histogram counts with seed 0, N = their
@@ -18,9 +19,11 @@ maximum), each in all four variants (attention on/off for ``fused_gcl``, tanh
 on/off for ``fused_coord_update``, x f32/bf16 elementwise). Per tree and case:
 device ms per call (CUDA events over ``--reps`` calls queued behind a
 sleeping kernel, ``device_ms``), host us per call (the wall time to enqueue
-them: the wrapper's Python, its allocations and its launches) and the error of what
-the layer adds to its input (out - h, out - x) against the tree's own plain
-version. Prints one JSON line per shape and variant. Needs a CUDA GPU.
+them: the wrapper's Python, its allocations and its launches) and the error
+against the tree's own plain version: of what the layer adds to its input
+(out - h, out - x), or the worst over the gradients of the backward (against
+a seeded upstream gradient). Prints one JSON line per shape and variant.
+Needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -40,15 +43,15 @@ import torch
 HERE = Path(__file__).resolve().parents[2]
 HIDDEN, EDGE_FEATURES, NORM = 256, 2, 10.0
 COORDS_RANGE = 5.0
-KERNELS = ("fused_gcl", "fused_coord_update")
-# the variant's flag: the gate of fused_gcl, tanh of fused_coord_update
-FLAG = {"fused_gcl": "attention", "fused_coord_update": "tanh"}
+KERNELS = ("fused_gcl", "fused_coord_update", "fused_gcl_bwd")
+# the variant's flag: the gate of the GCL, tanh of the coordinate update
+FLAG = {"fused_gcl": "attention", "fused_coord_update": "tanh", "fused_gcl_bwd": "attention"}
 
 
 def _layer(kernel: str, flag: bool, compute_dtype):
     from hierdiff_torch.ops.egnn import DenseEquivariantUpdate, DenseGCL
 
-    if kernel == "fused_gcl":
+    if kernel != "fused_coord_update":
         return DenseGCL(HIDDEN, EDGE_FEATURES, normalization_factor=NORM, attention=flag,
                         compute_dtype=compute_dtype)
     return DenseEquivariantUpdate(HIDDEN, EDGE_FEATURES, normalization_factor=NORM, tanh=flag,
@@ -65,6 +68,8 @@ def make_cases(device: torch.device, kernel: str = "fused_gcl") -> list:
               f"sampler B=64 N={int(counts.max())}": layer_inputs(
                   np.random.default_rng(0), device, n=int(counts.max()), counts=counts)}
     cases = []
+    g = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (64, int(counts.max()), HIDDEN)).astype(np.float32))
     for shape, (h, x, e, cdiff, em, nm, _) in shapes.items():
         for flag in (True, False):
             for cd in (None, "bfloat16"):
@@ -72,18 +77,35 @@ def make_cases(device: torch.device, kernel: str = "fused_gcl") -> list:
                 cases.append({"kernel": kernel, "shape": shape, FLAG[kernel]: flag,
                               "compute_dtype": cd, "state": layer.state_dict(),
                               **{k: v.cpu() for k, v in (("h", h), ("x", x), ("e", e),
-                                                         ("cdiff", cdiff), ("em", em), ("nm", nm))}})
+                                                         ("cdiff", cdiff), ("em", em), ("nm", nm))},
+                              "g": g[:, :h.shape[1]].contiguous()})
     return cases
 
 
 def _calls(ek, kernel: str, layer, c: dict):
-    """The kernel's call, its plain version's and the input that both add to."""
-    h, x, e, cdiff, em, nm = (c[k] for k in ("h", "x", "e", "cdiff", "em", "nm"))
+    """The kernel's call, its plain version's and the input that both add to
+    (None for the backward, whose outputs are gradients)."""
+    h, x, e, cdiff, em, nm, g = (c[k] for k in ("h", "x", "e", "cdiff", "em", "nm", "g"))
     if kernel == "fused_gcl":
         return (lambda: ek.fused_gcl(layer, h, e, em, nm),
                 lambda: ek.gcl_plain(layer, h, e, em, nm), h)
+    if kernel == "fused_gcl_bwd":
+        agg = torch.empty_like(h)   # the forward's residual, as FusedGCLFunction saves it
+        ek._launch_gcl(layer, h, e, em, nm, h.device, agg_out=agg)
+        return (lambda: ek.fused_gcl_bwd(layer, h, e, em, nm, g, agg),
+                lambda: ek.gcl_plain_vjp(layer, h, e, em, nm, g), None)
     return (lambda: ek.fused_coord_update(layer, h, e, cdiff, x, em, nm),
             lambda: ek.coord_update_plain(layer, h, e, cdiff, x, em, nm), x)
+
+
+def _rel_err(out, ref, base) -> float:
+    """Max error over the largest plain value: of what the layer adds to
+    ``base``, or (``base`` None) the worst over the gradients."""
+    if base is None:
+        return max(((a - r).abs().max() / (r.abs().max() + 1e-9)).item()
+                   for a, r in zip(out, ref) if a is not None and r is not None)
+    out, ref = out - base, ref - base
+    return ((out - ref).abs().max() / (ref.abs().max() + 1e-9)).item()
 
 
 def time_cases(path: Path, reps: int) -> list:
@@ -98,9 +120,8 @@ def time_cases(path: Path, reps: int) -> list:
         layer = _layer(kernel, c[FLAG[kernel]], c["compute_dtype"]).to(device)
         layer.load_state_dict(c["state"])
         call, plain, base = _calls(ek, kernel, layer, {
-            k: c[k].to(device) for k in ("h", "x", "e", "cdiff", "em", "nm")})
-        ref = plain() - base
-        rel = ((call() - base) - ref).abs().max().item() / (ref.abs().max().item() + 1e-9)
+            k: c[k].to(device) for k in ("h", "x", "e", "cdiff", "em", "nm", "g")})
+        rel = _rel_err(call(), plain(), base)
         ms, host_s = device_ms(call, reps)
         out.append({"ms": ms, "host_us": host_s / reps * 1e6, "rel_err": rel})
     return out
