@@ -95,6 +95,8 @@ SEED = 0
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 SFU_PER_CLOCK_PER_SM = 16     # exp2 / reciprocal results (CUDA guide, cc 9.0)
+# bf16 W_src, W_dst, W_e and W2 with f32 b1 and b2: the edge MLP's weights
+PAIR_WEIGHT_BYTES = (2 * H * H + E * H + H * H) * 2 + 2 * H * 4
 
 
 def fail(msg: str) -> None:
@@ -264,11 +266,10 @@ def coord_work(counts: np.ndarray, b: int, n: int):
     edges and nodes (each input read once, out written)."""
     c = counts.astype(np.int64)
     n_edges, n_nodes = float((c * (c - 1)).sum()), float(c.sum())
-    w_bytes_pair = (2 * H * H + E * H + H * H) * 2 + 2 * H * 4
     flops = n_edges * (2 * H * H + 2 * E * H + 2 * H) + n_nodes * 4 * H * H
     sfu = n_edges * (4 * H + 1)
     nbytes = (b * n * H * 4 + b * n * n * E * 4 + b * n * n * 3 * 4 + b * n * n * 4 + b * n * 4
-              + b * n * 3 * 4 * 2 + w_bytes_pair + H * 2)
+              + b * n * 3 * 4 * 2 + PAIR_WEIGHT_BYTES + H * 2)
     return flops, sfu, nbytes
 
 
@@ -277,11 +278,10 @@ def gcl_work(counts: np.ndarray, b: int, n: int):
     bytes over the real edges and nodes (each input read once, out written)."""
     c = counts.astype(np.int64)
     n_edges, n_nodes = float((c * (c - 1)).sum()), float(c.sum())
-    w_bytes_pair = (2 * H * H + E * H + H * H) * 2 + 2 * H * 4
     flops = n_edges * (2 * H * H + 2 * E * H + 2 * H) + n_nodes * 10 * H * H
     sfu = n_edges * (4 * H + 2) + n_nodes * 2 * H
     nbytes = (b * n * H * 4 * 2 + b * n * n * E * 4 + b * n * n * 4 + b * n * 4
-              + w_bytes_pair + (H + 3 * H * H) * 2 + 3 * H * 4)
+              + PAIR_WEIGHT_BYTES + (H + 3 * H * H) * 2 + 3 * H * 4)
     return flops, sfu, nbytes
 
 
