@@ -5,10 +5,11 @@
 
 Phases, one output line each, any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
-     versions, then the nvcc build of ``hierdiff_torch/csrc`` and its time,
-     and the number of HGMMA (wgmma) instructions in the built fused_gcl and
-     fused_coord libraries (``cuobjdump --dump-sass``), neither of which may
-     be 0;
+     versions, then the nvcc build of ``hierdiff_torch/csrc`` (and, beside
+     it, the phase-clock build of fused_gcl_bwd, which counts the edges its
+     edge kernel computes) and its time, and the number of HGMMA (wgmma)
+     instructions in each built library (``cuobjdump --dump-sass``), which
+     may not be 0 for fused_gcl and fused_coord;
   2. each kernel against its plain PyTorch version at the kernel shape
      (B=64, N=32, H=256, E=2, ragged node counts), on what the layer adds
      to its input (out - h for fused_gcl, out - x for fused_coord_update):
@@ -36,14 +37,20 @@ Phases, one output line each, any failure exits non-zero:
      kernel beside this one's, each run by its own wrapper in turns
      (tools/gcl_ab.py), for the backward kernel too;
   2b. the backward kernel ``fused_gcl_bwd`` against autograd of the plain
-     version (``gcl_plain_vjp``) at the same shapes with a random upstream
-     gradient, attention on and off x f32 and bf16 elementwise, plus the
+     version (``gcl_plain_vjp``) with a random upstream gradient, at the
+     kernel shape and on every case of phase 2 (the sampler's shape, 83-node
+     rows with 0- and 1-node molecules, holey masks, molecules of 0 and 1
+     nodes), attention on and off x f32 and bf16 elementwise, plus the
      pass-through node MLP: every gradient (dh, de, each weight and bias)
      scored as max error over the plain gradient's largest value, bar 2e-2
      (f32) / 4e-2 (bf16), the bars gcl_vjp meets against XLA
-     (tests/test_pallas_interpret.py:151); two runs bitwise equal; four
-     planted faults (edge mask ignored, gate skipped, W2 transposed, node
-     mask ignored on g) must each push a gradient over its bar;
+     (tests/test_pallas_interpret.py:151); two runs of each bitwise equal;
+     five planted faults (edge mask ignored, gate skipped, W2 transposed,
+     node mask ignored on g, the edge mask without its holes given to the
+     kernel only) must each push a gradient over its bar; the edge slots
+     its edge kernel computes (phase-clock build) must equal nnz(edge_mask)
+     rounded up to the last tile, at the kernel and the sampler's shapes;
+     kernel, plain and bound times at both shapes;
   3. E(3) equivariance of the full-width DenseEGNN forward on the card;
   4. the sampling path: the ``coarse`` CLI at the GEOM configuration (H=256,
      6 blocks, random weights from --init-seed 0), 2 batches of 64 with
@@ -73,8 +80,10 @@ Phases, one output line each, any failure exits non-zero:
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import copy
 import csv
+import ctypes
 import json
 import math
 import shutil
@@ -97,6 +106,8 @@ PEAK_BYTES = 3.35e12
 SFU_PER_CLOCK_PER_SM = 16     # exp2 / reciprocal results (CUDA guide, cc 9.0)
 # bf16 W_src, W_dst, W_e and W2 with f32 b1 and b2: the edge MLP's weights
 PAIR_WEIGHT_BYTES = (2 * H * H + E * H + H * H) * 2 + 2 * H * 4
+# libraries whose W2 products run on wgmma (HGMMA in their SASS)
+WGMMA_LIBS = ("fused_gcl", "fused_coord")
 
 
 def fail(msg: str) -> None:
@@ -285,6 +296,44 @@ def gcl_work(counts: np.ndarray, b: int, n: int):
     return flops, sfu, nbytes
 
 
+def bwd_work(counts: np.ndarray, b: int, n: int):
+    """fused_gcl_bwd's least work for a batch: bf16 FLOPs, SFU operations and
+    bytes over the real edges and nodes (each input read once, each output
+    written once)."""
+    c = counts.astype(np.int64)
+    n_edges, n_nodes = float((c * (c - 1)).sum()), float(c.sum())
+    # per real edge: the rematerialised u W2, du = dv W2^T and dW2 += u^T dv
+    # (6 H^2), the pair/edge terms (e W_e, de, dW_e: 6 E H) and the gate
+    # (forward dot, datt, dw_att: 6 H); per node the node-MLP backward with
+    # its rematerialised forward and the node-level products (proj 4, z1 4,
+    # do1 2, dcat 4, dWn1 4, dWn2 2, dh 4, dW_src/dst 4: 28 H^2)
+    flops = n_edges * (6 * H * H + 6 * E * H + 6 * H) + n_nodes * 28 * H * H
+    sfu = n_edges * (4 * H + 2) + n_nodes * 2 * H   # sigmoid(pre), sigmoid(v), gate; sigmoid(z1)
+    # g, h, agg in and dh out; e in and de out; the masks; the weights in bf16
+    # and their gradients in f32
+    nbytes = (b * n * H * 4 * 4 + b * n * n * E * 4 * 2 + b * n * n * 4 + b * n * 4
+              + (10 * H * H + E * H) * 2 + 6 * H * 4 + (6 * H * H + E * H + 5 * H + 1) * 4)
+    return flops, sfu, nbytes
+
+
+def edge_slots(call) -> tuple:
+    """(edge slots, real edges) that fused_gcl_bwd's edge kernel computes in
+    one call of its phase-clock build: ``call(phase_clocks=True)``."""
+    from hierdiff_torch.ops import _build
+
+    lib = _build.load_library("fused_gcl_bwd", phase_clocks=True)
+    lib.hd_read_edge_counts.argtypes = [ctypes.c_void_p]
+    lib.hd_read_edge_counts.restype = ctypes.c_int
+    counts = (ctypes.c_ulonglong * 2)()
+    torch.cuda.synchronize()
+    lib.hd_read_edge_counts(counts)   # zeroes them
+    call(phase_clocks=True)
+    torch.cuda.synchronize()
+    if lib.hd_read_edge_counts(counts) != 0:
+        fail("reading fused_gcl_bwd's edge counts failed")
+    return int(counts[0]), int(counts[1])
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--parent", type=Path, default=None,
@@ -315,7 +364,10 @@ def main() -> None:
     print(f"device: {torch.cuda.get_device_name(0)} | torch {torch.__version__} | "
           f"cuda {torch.version.cuda} | {n_sms} SMs, max SM clock {sm_clock_hz / 1e6:.0f} MHz")
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:   # nvcc processes all start together
+        clocked = pool.submit(_build.build_all, ("fused_gcl_bwd",), True)
+        logs = _build.build_all()
+        clocked.result()
     build_s = time.perf_counter() - t0
     for name, log in logs.items():
         for line in log.splitlines():
@@ -323,12 +375,13 @@ def main() -> None:
                 print(f"  ptxas[{name}]: {line.strip()}")
     print(f"build: {sorted(logs)} compiled in {build_s:.2f} s")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for lib in ("fused_gcl", "fused_coord"):
+    hgmma = {}
+    for lib in _build.SOURCES:
         sass = subprocess.run([cuobjdump, "--dump-sass", str(_build.library_path(lib))],
                               check=True, capture_output=True, text=True).stdout
-        n_hgmma = sum("HGMMA" in line for line in sass.splitlines())
-        print(f"{lib} SASS: {n_hgmma} HGMMA instructions (cuobjdump --dump-sass)")
-        if n_hgmma == 0:
+        hgmma[lib] = sum("HGMMA" in line for line in sass.splitlines())
+        print(f"{lib} SASS: {hgmma[lib]} HGMMA instructions (cuobjdump --dump-sass)")
+        if hgmma[lib] == 0 and lib in WGMMA_LIBS:
             fail(f"the {lib} library has no HGMMA instruction: its W2 product is not on wgmma")
 
     # ---- 2. kernels against their plain versions (forward: no autograd)
@@ -547,12 +600,10 @@ def main() -> None:
         fail(f"kernel disagrees with its plain version: {failed}")
 
     # ---- 2b. the backward kernel against autograd of the plain version
-    g = torch.from_numpy(rng.standard_normal((B, N, H)).astype(np.float32)).to(device)
-
-    def forward_agg(layer):
+    def forward_agg(layer, h_, e_, em_, nm_):
         """The forward's residual, as FusedGCLFunction saves it."""
-        agg = torch.empty_like(h)
-        ek._launch_gcl(layer, h, e, em, nm, h.device, agg_out=agg)
+        agg = torch.empty_like(h_)
+        ek._launch_gcl(layer, h_, e_, em_, nm_, h_.device, agg_out=agg)
         return agg
 
     def grad_errors(got, ref):
@@ -560,52 +611,71 @@ def main() -> None:
         return {f: rel_err(a, r) for f, a, r in zip(ek.GclGrads._fields, got, ref)
                 if a is not None and r is not None}
 
+    def upstream(h_):
+        return torch.from_numpy(np.random.default_rng(SEED + 5).standard_normal(
+            tuple(h_.shape)).astype(np.float32)).to(device)
+
+    bwd_cases = {f"kernel shape B={B} N={N}": (h, e, em, nm), **cases}
+    g = upstream(h)
     bwd_runs = []
-    for attention, cd, node_mlp in [(True, None, "random"), (True, "bfloat16", "random"),
-                                    (False, None, "random"), (False, "bfloat16", "random"),
-                                    (True, None, "pass-through")]:
-        layer = init_weights(DenseGCL(H, E, normalization_factor=10.0, attention=attention,
-                                      compute_dtype=cd).to(device), gen())
-        if node_mlp == "pass-through":
-            pass_through(layer)
-        agg = forward_agg(layer)
-        kernel_fn = lambda: ek.fused_gcl_bwd(layer, h, e, em, nm, g, agg)  # noqa: E731
-        plain_fn = lambda: ek.gcl_plain_vjp(layer, h, e, em, nm, g)  # noqa: E731
-        got, again, ref = kernel_fn(), kernel_fn(), plain_fn()
-        torch.cuda.synchronize()
-        errs = grad_errors(got, ref)
-        worst = max(errs, key=lambda f: errs[f][1])
-        bitwise = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
-        finite = all(bool(torch.isfinite(a).all()) for a in got if a is not None)
-        bar = GRAD_TOL[cd]
-        ok = finite and bitwise and errs[worst][1] < bar
-        k_ms, p_ms = time_ms(kernel_fn), time_ms(plain_fn, reps=5, warmup=1)
-        variant = f"node_mlp={node_mlp} attention={attention} elementwise={cd or 'float32'}"
-        print(f"kernel fused_gcl_bwd [{variant}]: worst {worst} rel_err {errs[worst][1]:.3e} "
-              f"(bar {bar}); " + " ".join(f"{f}={r:.1e}" for f, (_, r) in errs.items())
-              + f"; bitwise_repeat={bitwise} kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
-              f"{'ok' if ok else 'FAIL'}")
-        bwd_runs.append({"variant": variant, "max_abs_err": max(a for a, _ in errs.values()),
-                         "rel_err": errs[worst][1], "worst": worst,
-                         "rel_err_by_grad": {f: r for f, (_, r) in errs.items()},
-                         "bitwise_repeat": bitwise, "ms": k_ms, "plain_ms": p_ms, "ok": ok})
+    for case, (h_, e_, em_, nm_) in bwd_cases.items():
+        at_kernel_shape = case.startswith("kernel shape")
+        g_ = g if at_kernel_shape else upstream(h_)
+        for attention, cd, node_mlp in [(True, None, "random"), (True, "bfloat16", "random"),
+                                        (False, None, "random"), (False, "bfloat16", "random"),
+                                        (True, None, "pass-through")]:
+            layer = init_weights(DenseGCL(H, E, normalization_factor=10.0, attention=attention,
+                                          compute_dtype=cd).to(device), gen())
+            if node_mlp == "pass-through":
+                pass_through(layer)
+            agg = forward_agg(layer, h_, e_, em_, nm_)
+            kernel_fn = lambda: ek.fused_gcl_bwd(layer, h_, e_, em_, nm_, g_, agg)  # noqa: E731
+            plain_fn = lambda: ek.gcl_plain_vjp(layer, h_, e_, em_, nm_, g_)  # noqa: E731
+            got, again, ref = kernel_fn(), kernel_fn(), plain_fn()
+            torch.cuda.synchronize()
+            errs = grad_errors(got, ref)
+            worst = max(errs, key=lambda f: errs[f][1])
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+            finite = all(bool(torch.isfinite(a).all()) for a in got if a is not None)
+            bar = GRAD_TOL[cd]
+            ok = finite and bitwise and errs[worst][1] < bar
+            k_ms = p_ms = None
+            times = ""
+            if at_kernel_shape:
+                k_ms, p_ms = time_ms(kernel_fn), time_ms(plain_fn, reps=5, warmup=1)
+                times = f" kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f}"
+            variant = f"node_mlp={node_mlp} attention={attention} elementwise={cd or 'float32'}"
+            variant = variant if at_kernel_shape else f"{case} {variant}"
+            print(f"kernel fused_gcl_bwd [{variant}]: worst {worst} rel_err {errs[worst][1]:.3e} "
+                  f"(bar {bar}); " + " ".join(f"{f}={r:.1e}" for f, (_, r) in errs.items())
+                  + f"; bitwise_repeat={bitwise}{times} {'ok' if ok else 'FAIL'}")
+            bwd_runs.append({"variant": variant, "max_abs_err": max(a for a, _ in errs.values()),
+                             "rel_err": errs[worst][1], "worst": worst,
+                             "rel_err_by_grad": {f: r for f, (_, r) in errs.items()},
+                             "bitwise_repeat": bitwise, "ms": k_ms, "plain_ms": p_ms, "ok": ok})
     results["fused_gcl_bwd"] = bwd_runs
     failed = [r["variant"] for r in bwd_runs if not r["ok"]]
     if failed:
         fail(f"fused_gcl_bwd disagrees with its plain version or is not deterministic: {failed}")
 
     probe = init_weights(DenseGCL(H, E, normalization_factor=10.0, attention=True).to(device), gen())
-    agg, ref = forward_agg(probe), ek.gcl_plain_vjp(probe, h, e, em, nm, g)
+    agg, ref = forward_agg(probe, h, e, em, nm), ek.gcl_plain_vjp(probe, h, e, em, nm, g)
     no_gate, w2_t = copy.deepcopy(probe), copy.deepcopy(probe)
     no_gate.attention = False
     w2_t.edge_mlp[2].weight.copy_(w2_t.edge_mlp[2].weight.t().clone())
-    for fault, fn in [
-            ("edge mask ignored", lambda: ek.fused_gcl_bwd(probe, h, e, torch.ones_like(em), nm, g, agg)),
-            ("gate skipped", lambda: ek.fused_gcl_bwd(no_gate, h, e, em, nm, g, agg)),
-            ("W2 transposed", lambda: ek.fused_gcl_bwd(w2_t, h, e, em, nm, g, agg)),
+    g_h = upstream(hh_h)
+    agg_h = forward_agg(probe, hh_h, e_h, em_h, nm_h)
+    for fault, fn, ref_ in [
+            ("edge mask ignored",
+             lambda: ek.fused_gcl_bwd(probe, h, e, torch.ones_like(em), nm, g, agg), ref),
+            ("gate skipped", lambda: ek.fused_gcl_bwd(no_gate, h, e, em, nm, g, agg), ref),
+            ("W2 transposed", lambda: ek.fused_gcl_bwd(w2_t, h, e, em, nm, g, agg), ref),
             ("node mask ignored on g",
-             lambda: ek.fused_gcl_bwd(probe, h, e, em, torch.ones_like(nm), g, agg))]:
-        errs = grad_errors(fn(), ref)
+             lambda: ek.fused_gcl_bwd(probe, h, e, em, torch.ones_like(nm), g, agg), ref),
+            ("edge mask without its holes fed to the kernel only",
+             lambda: ek.fused_gcl_bwd(probe, hh_h, e_h, em_full, nm_h, g_h, agg_h),
+             ek.gcl_plain_vjp(probe, hh_h, e_h, em_h, nm_h, g_h))]:
+        errs = grad_errors(fn(), ref_)
         worst = max(errs, key=lambda f: errs[f][1])
         seen = not errs[worst][1] < GRAD_TOL[None]
         print(f"planted fault fused_gcl_bwd [{fault}]: caught by {worst} rel_err "
@@ -614,17 +684,36 @@ def main() -> None:
             {"fault": fault, "rel_err": errs[worst][1], "caught_by": worst})
         if not seen:
             fail(f"the fused_gcl_bwd check cannot see the planted fault: {fault}")
-    # least work per valid edge: the rematerialised u W2, du = dv W2^T and
-    # dW2 += u^T dv (6 H^2), the pair/edge terms (e W_e, de, dW_e: 6 E H) and
-    # the gate (forward dot, datt, dw_att: 6 H); per node the node-MLP
-    # backward with its rematerialised forward and the node-level products
-    # (proj 4, z1 4, do1 2, dcat 4, dWn1 4, dWn2 2, dh 4, dW_src/dst 4: 28 H^2)
-    bwd_flops = n_edges * (6 * H * H + 6 * E * H + 6 * H) + n_nodes * 28 * H * H
-    bwd_sfu = n_edges * (4 * H + 2) + n_nodes * 2 * H   # sigmoid(pre), sigmoid(v), gate; sigmoid(z1)
-    bwd_bytes = (h.numel() * 4 * 4 + e.numel() * 4 * 2 + em.numel() * 4 + nm.numel() * 4
-                 + (10 * H * H + E * H) * 2 + 6 * H * 4 + (6 * H * H + E * H + 5 * H + 1) * 4)
-    bwd_bound = bound(bwd_flops, bwd_sfu, bwd_bytes, sm_clock_hz, n_sms)
-    gcl_extra["fused_gcl_bwd"] = {"parent": parent_rows("fused_gcl_bwd", "attention")}
+
+    # edge slots computed against nnz(edge_mask), device times at the sampler's shape
+    s_args = cases[f"sampler shape B={B} N={s_n}"]
+    s_g, s_agg = upstream(s_args[0]), forward_agg(probe, *s_args)
+    slots = {}
+    for case, (h_, e_, em_, nm_, g_, agg_) in {
+            f"kernel shape B={B} N={N}": (h, e, em, nm, g, agg),
+            f"sampler shape B={B} N={s_n}": (*s_args, s_g, s_agg)}.items():
+        computed, real = edge_slots(lambda **kw: ek.fused_gcl_bwd(probe, h_, e_, em_, nm_, g_, agg_, **kw))
+        nnz = int((em_ != 0).sum().item())
+        want = -(-nnz // ek.BWD_TILE_EDGES) * ek.BWD_TILE_EDGES
+        slots[case] = {"edge_slots": computed, "real_edges": real, "nnz_edge_mask": nnz,
+                       "dense_edges": em_.numel()}
+        print(f"fused_gcl_bwd edge kernel, {case}: {computed} edge slots for {real} real edges; "
+              f"nnz(edge_mask) {nnz} of {em_.numel()} dense (want {want} slots)")
+        if computed != want or real != nnz:
+            fail(f"fused_gcl_bwd's edge kernel computes {computed} slots ({real} real) for "
+                 f"nnz(edge_mask) = {nnz}: want {want}")
+    s_ms = time_ms(lambda: ek.fused_gcl_bwd(probe, *s_args, s_g, s_agg))
+    s_plain_ms = time_ms(lambda: ek.gcl_plain_vjp(probe, *s_args, s_g), reps=5, warmup=1)
+    s_bound = bound(*bwd_work(s_counts, B, s_n), sm_clock_hz, n_sms)
+    print(f"kernel fused_gcl_bwd [sampler shape B={B} N={s_n}, node_mlp=random attention=True "
+          f"elementwise=float32]: kernel_ms {s_ms:.4f} plain_ms {s_plain_ms:.4f} bound_ms "
+          f"{s_bound[0]:.5f} ({s_bound[1]})")
+    bwd_bound = bound(*bwd_work(counts, B, N), sm_clock_hz, n_sms)
+    gcl_extra["fused_gcl_bwd"] = {
+        "sampler_shape": {"B": B, "N": s_n, "ms": s_ms, "plain_ms": s_plain_ms,
+                          "bound_ms": s_bound[0], "bound_by": s_bound[1]},
+        "edge_slots": slots, "hgmma_instructions": hgmma["fused_gcl_bwd"],
+        "parent": parent_rows("fused_gcl_bwd", "attention")}
     print(f"kernel fused_gcl_bwd: kernel_ms {bwd_runs[0]['ms']:.4f} plain_ms "
           f"{bwd_runs[0]['plain_ms']:.4f} bound_ms {bwd_bound[0]:.5f} ({bwd_bound[1]}: "
           + ", ".join(f"{k} {v:.5f}" for k, v in bwd_bound[2].items()) + ")")

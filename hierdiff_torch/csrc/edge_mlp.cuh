@@ -1,7 +1,7 @@
 // Shared pieces of the fused EGNN edge kernels: the elementwise numerics
 // (act, silu, sigmoid, pre_act, round_bf16) and limits of all of them, and
-// the WMMA work decomposition of fused_gcl_bwd.cu (the forward kernels'
-// Hopper pieces are in sm90.cuh).
+// the WMMA tile pieces of fused_gcl_bwd.cu's edge kernel (the forward
+// kernels' Hopper pieces are in sm90.cuh).
 //
 // The kernels run the same edge pipeline as hierdiff_tpu/ops/egnn_pallas.py
 // `_edge_mlp` (:95): pre_ij = h_i W_src + h_j W_dst + e_ij W_e + b1 -> silu
@@ -11,15 +11,10 @@
 // round (its compute_dtype='bfloat16' mode); arithmetic itself is done in
 // f32 registers.
 //
-// Work decomposition: a work item is (batch b, up to kRows source rows; a
-// molecule's N rows are split into ceil(N / kRows) equal row blocks, so that
-// N = 33 gives 11 + 11 + 11 rows, not 16 + 16 + 1). Its
-// rows x N edges are walked in tiles of kTileM edges. For each tile the
-// pre-activation is built in shared memory as bf16, multiplied by W2 (kept
-// resident in shared memory for the whole kernel) on the tensor cores with
-// WMMA bf16 -> f32, and the f32 result is staged in shared memory for the
-// kernel-specific epilogue. Blocks are persistent: at most one per SM, each
-// walking items blockIdx.x, blockIdx.x + gridDim.x, ...
+// fused_gcl_bwd.cu walks tiles of real edges; per tile the pre-activation
+// is built in shared memory as bf16, multiplied by W2 (kept resident in
+// shared memory for the whole kernel) on the tensor cores with WMMA bf16 ->
+// f32, and the f32 result is staged in shared memory for the epilogue.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,7 +30,6 @@ namespace wmma = nvcuda::wmma;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileM = 64;                          // edges per tensor-core tile
-constexpr int kRows = 16;                           // source rows per work item
 constexpr int kMaxH = 256;                          // hidden width limit
 constexpr int kMaxE = 32;                           // edge feature limit
 constexpr int kColsPerLane = kMaxH / 32;            // epilogue columns per lane
@@ -193,35 +187,6 @@ __device__ __forceinline__ void load_w2(const bf16* __restrict__ w2, bf16* w2s, 
   }
 }
 
-// Per-tile edge metadata in shared memory: tile edge t is flat edge q0 + t of
-// the work item, i.e. source row i0 + row[t] and neighbour col[t]; row[t] is
-// -1 past the item's last edge. emask holds the bf16-rounded edge mask.
-struct Tile {
-  int b, i0, N, n_valid;   // edges t < n_valid are real
-  float* emask;
-  int* row;
-  int* col;
-  __device__ size_t edge(int t) const {   // flat (b, i, j) index
-    return ((size_t)b * N + i0 + row[t]) * N + col[t];
-  }
-};
-
-// Fill the tile's metadata for flat edges q0 .. q0 + TM - 1 of an item
-// with n_edges edges. The caller synchronises before reading it.
-template <int TM = kTileM>
-__device__ __forceinline__ void load_tile(Tile& tl, int q0, int n_edges,
-                                          const float* __restrict__ emask) {
-  tl.n_valid = min(TM, n_edges - q0);
-  for (int t = threadIdx.x; t < TM; t += blockDim.x) {
-    const int q = q0 + t;
-    const bool real = q < n_edges;
-    tl.row[t] = real ? q / tl.N : -1;
-    tl.col[t] = real ? q % tl.N : 0;
-    tl.emask[t] = real ? round_bf16(emask[((size_t)tl.b * tl.N + tl.i0 + q / tl.N) * tl.N + q % tl.N])
-                       : 0.0f;
-  }
-}
-
 // pre = ((hs_i + hd_j) + e_ij W_e) + b1, each step rounded to the act dtype
 // (bias already rounded).
 template <bool BF16>
@@ -229,59 +194,11 @@ __device__ __forceinline__ float pre_act(float hs, float hdst, float ep, float b
   return act<BF16>(act<BF16>(act<BF16>(act<BF16>(hs) + act<BF16>(hdst)) + act<BF16>(ep)) + bias);
 }
 
-// u[t][c] = bf16(silu(pre)) for the TM edges of a tile; proj holds
-// [h W_src | h W_dst] per node. Padding edges get 0.
-// Thread c keeps its column of b1 and the first kRegE rows of W_e in
-// registers. Edges go in batches of kBatch: all of a batch's loads are
-// issued before any of its arithmetic, so the batch waits for one memory
-// round trip instead of one per edge.
+// The pre-activation builds keep the first kRegE rows of W_e in registers
+// and take edges in batches of kBatch, all of a batch's loads issued before
+// any of its arithmetic, so a batch waits for one memory round trip.
 constexpr int kRegE = 4;
 constexpr int kBatch = 8;
-
-template <bool BF16, int TM = kTileM>
-__device__ __forceinline__ void build_pre_tile(const Tile& tl, const float* __restrict__ proj,
-                               const float* __restrict__ e, const bf16* __restrict__ we,
-                               const float* __restrict__ b1, bf16* u, int H, int E) {
-  const int ldu = ldw(H);
-  const float* node = proj + (size_t)tl.b * tl.N * 2 * H;
-  for (int c = threadIdx.x; c < H; c += blockDim.x) {
-    float wreg[kRegE];
-#pragma unroll
-    for (int k = 0; k < kRegE; ++k) wreg[k] = k < E ? __bfloat162float(we[k * H + c]) : 0.0f;
-    const float bias = act<BF16>(b1[c]);
-    for (int t0 = 0; t0 < TM; t0 += kBatch) {
-      float hs[kBatch], hdst[kBatch], ev[kBatch][kRegE];
-      const float* eij[kBatch];
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        const int t = t0 + k;
-        const bool real = t < tl.n_valid;
-        const int i = tl.i0 + (real ? tl.row[t] : 0), j = real ? tl.col[t] : 0;
-        hs[k] = real ? node[(size_t)i * 2 * H + c] : 0.0f;
-        hdst[k] = real ? node[(size_t)j * 2 * H + H + c] : 0.0f;
-        eij[k] = e + (((size_t)tl.b * tl.N + i) * tl.N + j) * E;
-#pragma unroll
-        for (int r = 0; r < kRegE; ++r) ev[k][r] = real && r < E ? eij[k][r] : 0.0f;
-      }
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        const int t = t0 + k;
-        float val = 0.0f;
-        if (t < tl.n_valid) {
-          float ep = 0.0f;
-#pragma unroll
-          for (int r = 0; r < kRegE; ++r)
-            if (r < E) ep += round_bf16(ev[k][r]) * wreg[r];
-#pragma unroll 1   // wide E (sinusoid embedding) only: keep the code small
-          for (int r = kRegE; r < E; ++r)
-            ep += round_bf16(eij[k][r]) * __bfloat162float(we[r * H + c]);
-          val = silu_act<BF16>(pre_act<BF16>(hs[k], hdst[k], ep, bias));
-        }
-        u[t * ldu + c] = __float2bfloat16(val);
-      }
-    }
-  }
-}
 
 // stage (TM x H, f32) = a (TM x H, bf16, row stride ldw) @ W, where W is
 // w2s (H x H, bf16, row stride ldw) or, with TRANS_B, its transpose (w2s

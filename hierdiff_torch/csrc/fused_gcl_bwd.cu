@@ -10,10 +10,9 @@
 // f32 accumulation in every product (the wgrad contractions included), the
 // edge pipeline's elementwise results rounded to the act dtype (f32, or bf16
 // for compute_dtype='bfloat16'), row and column sums in f32, and the node-MLP
-// backward in f32 elementwise. The (B,N,N,H) edge tensors are rematerialised
-// per tile and never reach device memory.
+// backward in f32 elementwise.
 //
-// What bounds it: per valid edge the least work is three H x H products on
+// What bounds it: per real edge the least work is three H x H products on
 // the tensor cores (the rematerialised u W2, du = dv W2^T and dW2 += u^T dv,
 // 6 H^2 bf16 FLOPs) and two sigmoids per edge-channel on the SFU; per node
 // the node-MLP backward. At the GEOM layer shape of chip_smoke.py (B=64,
@@ -21,36 +20,44 @@
 // peak) and ~30 M exp+reciprocal (~7 us), against ~13 MB of device memory
 // (~4 us): bound by operations.
 //
-// Design (a first, simple version: correctness before speed). Several
-// launches on the caller's stream behind one C entry point:
+// Design. The edge kernel computes per-edge values over the real edges only
+// and holds no sum across edges; every sum across edges is a fixed-order
+// reduction outside it, over the edges' list positions. Launches on the
+// caller's stream behind one C entry point:
 //   1. proj_kernel: [h W_src | h W_dst] for every node (as the forward).
 //   2. The node-MLP backward, row-parallel: z1 = [h, agg] Wn1 + bn1 is
 //      rematerialised from the saved agg, then do1 = g2 Wn2^T, dz1, dcat =
 //      dz1 Wn1^T, giving dh's direct part and dagg. Products run in this
 //      file's own tiled WMMA GEMM (bf16 operands, f32 accumulation).
-//   3. gcl_bwd_kernel, persistent blocks over the forward's work items (a
-//      molecule x up to kRows source rows; an item holds whole rows, so agg
-//      and hence dagg are complete before any edge of the item is touched).
-//      Per tile of kBwdTileM = 32 edges: rebuild u = silu(pre) and v = u W2
-//      + b2 (W2 resident in shared memory, as in the forward), back through
-//      the gate and silu to dv, du = dv W2^T (the same resident W2 read as a
-//      column-major operand), dpre; row sums of dpre (dhs), column sums per
-//      row block (dh_dst partials), de = dpre W_e^T warp per edge, and the
-//      weight gradients. The tile is 32 edges because u, dv and the f32 stage
-//      must sit beside W2 in 227 KB of shared memory (219 KB used).
-//   4. Weight gradients: dW2 (256x256 f32 = 256 KB, more than a block's
-//      shared memory) is a per-block f32 partial in device memory (L2),
-//      updated per tile with WMMA; dW_e, db1, db2, dw_att and db_att are
-//      per-block partials too. Fixed-order reductions over blocks and over row
-//      blocks follow; no float atomics anywhere, so two runs on the same
-//      inputs give bitwise equal gradients.
-//   5. dh += dhs W_src^T + dh_dst W_dst^T, and the node-level wgrads (W_src,
+//   3. The real-edge work list (sm90.cuh: rowstart, edges; no host sync) and
+//      posmap, the list position of every real edge by its flat index (-1
+//      for the others).
+//   4. gcl_bwd_edge_kernel, persistent blocks over kBwdTileM-edge tiles of
+//      the list. Per tile: rebuild u = silu(pre) (written out, bf16) and v =
+//      u W2 + b2 (W2 resident in shared memory), back through the gate and
+//      silu to dv (written out, bf16), du = dv W2^T (the same resident W2 read
+//      as a column-major operand), dpre (written out, f32), de = dpre W_e^T,
+//      and the tile's own sums in a fixed order: of e^T dpre and dpre (dW_e
+//      and db1), of dv, m0 * dza and dza (db2, dw_att and db_att), f32 where
+//      the Pallas kernel sums f32 values. Each edge's outputs go to its list
+//      position p, each tile's sums to its tile slot; the workspace holds
+//      B*N*N positions, so the host needs no count.
+//   5. Reductions, each in a fixed order over list positions (or tiles):
+//      dW2 = U^T dV as a split-K GEMM whose split bounds are fixed by B*N*N
+//      (splits past the real edges sum nothing), partials summed in split
+//      order; dW_e, db1, db2, dw_att, db_att over the tiles in order (in
+//      fixed chunks of tiles, the chunks in order); dhs[b,i] = the sum of
+//      dpre over row i's list segment, in list order; dh_dst[b,j] = the sum
+//      over i = 0 .. N-1 of dpre at posmap[b,i,j]. No float atomics
+//      anywhere: two runs on the same inputs give bitwise equal gradients.
+//   6. dh += dhs W_src^T + dh_dst W_dst^T, and the node-level wgrads (W_src,
 //      W_dst, Wn1, Wn2: K = B*N) as split-K GEMMs with a fixed-order sum.
-#include "edge_mlp.cuh"
+#include "sm90.cuh"
 
 namespace hd {
 
-constexpr int kBwdTileM = 32;        // edges per backward tile
+constexpr int kBwdTileM = 32;        // edges per list tile of the edge kernel
+constexpr int kBwdSplits = 32;       // splits of the dW2 GEMM over list positions
 constexpr int kGemmTile = 64;        // output tile of the generic GEMM
 constexpr int kGemmK = 32;
 constexpr int kGemmThreads = 128;
@@ -59,22 +66,24 @@ constexpr int kColChunk = 64;        // rows per partial column sum
 
 // ---------------------------------------------------------------------------
 // Generic GEMM: C[z] (+)= op(A)[:, K_z] @ B[K_z, :], bf16 operands, f32
-// accumulation. op(A)[m][k] = TA ? A[k * lda + m] : A[m * lda + k] (A f32);
-// B[k][n] = Bm[k * ldb + n] (f32 or bf16). Split z covers K rows
-// [z * k_chunk, (z + 1) * k_chunk) and writes C + z * split_stride.
+// accumulation. op(A)[m][k] = TA ? A[k * lda + m] : A[m * lda + k] (A f32 or
+// bf16); B[k][n] = Bm[k * ldb + n] (f32 or bf16). Split z covers K rows
+// [z * k_chunk, (z + 1) * k_chunk) and writes C + z * split_stride. With
+// k_dev, K is read from the device (*k_dev): splits past it write zeros.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ bf16 to_bf16(float v) { return __float2bfloat16(v); }
 __device__ __forceinline__ bf16 to_bf16(bf16 v) { return v; }
 
-template <bool TA, typename TB>
+template <bool TA, typename TAe, typename TB>
 __global__ void __launch_bounds__(kGemmThreads)
-gemm_kernel(const float* __restrict__ A, const TB* __restrict__ Bm, float* __restrict__ C,
+gemm_kernel(const TAe* __restrict__ A, const TB* __restrict__ Bm, float* __restrict__ C,
             int M, int Nc, int K, int lda, int ldb, int ldc, int k_chunk, size_t split_stride,
-            int accumulate) {
+            int accumulate, const int* __restrict__ k_dev) {
   __shared__ __align__(128) bf16 as[kGemmTile][kGemmK + 8];
   __shared__ __align__(128) bf16 bs[kGemmK][kGemmTile + 8];
   __shared__ __align__(128) float cs[kGemmTile][kGemmTile + 4];
+  if (k_dev != nullptr) K = *k_dev;
   const int row0 = blockIdx.x * kGemmTile, col0 = blockIdx.y * kGemmTile;
   const int kb = blockIdx.z * k_chunk, ke = min(K, kb + k_chunk);
   C += blockIdx.z * split_stride;
@@ -92,9 +101,9 @@ gemm_kernel(const float* __restrict__ A, const TB* __restrict__ Bm, float* __res
       if (TA) { k = idx / kGemmTile; r = idx % kGemmTile; }   // neighbours read neighbours
       else { r = idx / kGemmK; k = idx % kGemmK; }
       const int gr = row0 + r, gk = k0 + k;
-      float v = 0.0f;
-      if (gr < M && gk < ke) v = TA ? A[(size_t)gk * lda + gr] : A[(size_t)gr * lda + gk];
-      as[r][k] = __float2bfloat16(v);
+      bf16 v = __float2bfloat16(0.0f);
+      if (gr < M && gk < ke) v = to_bf16(TA ? A[(size_t)gk * lda + gr] : A[(size_t)gr * lda + gk]);
+      as[r][k] = v;
     }
     for (int idx = threadIdx.x; idx < kGemmK * kGemmTile; idx += kGemmThreads) {
       const int k = idx / kGemmTile, c = idx % kGemmTile;
@@ -133,13 +142,13 @@ gemm_kernel(const float* __restrict__ A, const TB* __restrict__ Bm, float* __res
   }
 }
 
-template <bool TA, typename TB>
-cudaError_t gemm(const float* A, const TB* Bm, float* C, int M, int Nc, int K, int lda, int ldb,
-                 int ldc, int splits, bool accumulate, cudaStream_t st) {
+template <bool TA, typename TAe, typename TB>
+cudaError_t gemm(const TAe* A, const TB* Bm, float* C, int M, int Nc, int K, int lda, int ldb,
+                 int ldc, int splits, bool accumulate, cudaStream_t st, const int* k_dev = nullptr) {
   const int k_chunk = (K + splits - 1) / splits;
   const dim3 grid((M + kGemmTile - 1) / kGemmTile, (Nc + kGemmTile - 1) / kGemmTile, splits);
-  gemm_kernel<TA, TB><<<grid, kGemmThreads, 0, st>>>(A, Bm, C, M, Nc, K, lda, ldb, ldc, k_chunk,
-                                                     (size_t)M * ldc, accumulate ? 1 : 0);
+  gemm_kernel<TA, TAe, TB><<<grid, kGemmThreads, 0, st>>>(A, Bm, C, M, Nc, K, lda, ldb, ldc, k_chunk,
+                                                          (size_t)M * ldc, accumulate ? 1 : 0, k_dev);
   return cudaGetLastError();
 }
 
@@ -201,11 +210,14 @@ __global__ void node_split_kernel(const float* __restrict__ g2, const float* __r
   }
 }
 
-// parts[chunk][c] = sum of x[r][c] over the chunk's rows, in row order
+// parts[chunk][c] = sum of x[r][c] over the chunk's rows, in row order. With
+// count, rows = ceil(*count / per_row) (a device-held count: rows past it are
+// not summed, so they need not be written).
 __global__ void colsum_kernel(const float* __restrict__ x, int rows, int cols,
-                              float* __restrict__ parts) {
+                              float* __restrict__ parts, const int* __restrict__ count, int per_row) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= cols) return;
+  if (count != nullptr) rows = (*count + per_row - 1) / per_row;
   const int r0 = blockIdx.y * kColChunk, r1 = min(rows, r0 + kColChunk);
   float s = 0.0f;
   for (int r = r0; r < r1; ++r) s += x[(size_t)r * cols + c];
@@ -228,31 +240,36 @@ cudaError_t reduce(const float* parts, int count, size_t stride, size_t size, fl
   return cudaGetLastError();
 }
 
-// out[c] = sum_r x[r][c], via fixed row chunks and a fixed-order sum
+inline int col_chunks(int rows) { return (rows + kColChunk - 1) / kColChunk; }
+
+// out[c] = sum_r x[r][c], via fixed row chunks and a fixed-order sum; with
+// count, only the first ceil(*count / per_row) of the rows (at most rows).
 cudaError_t column_sum(const float* x, int rows, int cols, float* parts, float* out,
-                       cudaStream_t st) {
-  const int chunks = (rows + kColChunk - 1) / kColChunk;
-  colsum_kernel<<<dim3((cols + kEwThreads - 1) / kEwThreads, chunks), kEwThreads, 0, st>>>(
-      x, rows, cols, parts);
+                       cudaStream_t st, const int* count = nullptr, int per_row = 1) {
+  colsum_kernel<<<dim3((cols + kEwThreads - 1) / kEwThreads, col_chunks(rows)), kEwThreads, 0, st>>>(
+      x, rows, cols, parts, count, per_row);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return reduce(parts, chunks, cols, cols, out, st);
+  return reduce(parts, col_chunks(rows), cols, cols, out, st);
 }
 
 // ---------------------------------------------------------------------------
 // The edge backward
 // ---------------------------------------------------------------------------
 
-// Per-block partial layout (floats): dW2 (H x H, in x out), dW_e (E x H),
-// db1, db2, dw_att (H each), db_att (1), padded to 8 floats so every block's
-// dW2 starts 32-byte aligned for WMMA.
-__host__ __device__ inline int part_floats(int H, int E) {
-  return (H * H + E * H + 3 * H + 1 + 7) / 8 * 8;
-}
+// Floats per tile of the edge kernel's own sums, in the gradient buffer's
+// order: dW_e (E x H), db1, db2, dw_att (H each), db_att.
+__host__ __device__ inline int tile_part_floats(int H, int E) { return (E + 3) * H + 1; }
+
+struct BwdMeta {
+  int row[kBwdTileM];     // source row b * N + i of each edge of the tile, -1 past the last
+  int col[kBwdTileM];     // neighbour j
+  float emask[kBwdTileM]; // bf16-rounded edge mask
+};
 
 __host__ __device__ inline int bwd_smem_bytes(int H) {
-  return w2_bytes(H) + 2 * align128(kBwdTileM * ldw(H) * 2) +
-         align128(kBwdTileM * lds(H) * 4) + align128(kRows * H * 4) + 3 * kBwdTileM * 4;
+  return w2_bytes(H) + 2 * align128(kBwdTileM * ldw(H) * 2) + align128(kBwdTileM * lds(H) * 4) +
+         align128((int)sizeof(BwdMeta));
 }
 
 struct GclBwdArgs {
@@ -267,59 +284,81 @@ struct GclBwdArgs {
   const float* watt32;
   const float* batt;
   const float* dagg;
-  float* dhs;        // (B,N,H): sum_j dpre_ij
-  float* dst_part;   // (row_blocks, B, N, H): sum over a row block's i of dpre_ij
-  float* de;         // (B,N,N,E)
-  float* blk;        // (gridDim.x, part_floats) per-block weight-gradient partials
+  const int* rowstart;   // work list (sm90.cuh)
+  const int* edges;
+  bf16* u;               // (positions, H): silu(pre), dW2's left operand
+  bf16* dv;              // (positions, H): the gradient at v, dW2's right operand
+  float* dpre;           // (positions, H): the gradient at pre
+  float* de;             // (B,N,N,E): zero but at real edges
+  float* tile_part;      // (tiles, tile_part_floats): the tile's sums
   int B, N, H, E;
 };
 
-// dW2 (block partial, H x H f32 in device memory) += u^T dv over one tile:
-// warp per 16 x 16 output fragment, u read as a column-major operand.
-__device__ __forceinline__ void dw2_update(const bf16* us, const bf16* dvs, float* dw2, int H) {
-  const int warp = threadIdx.x / 32;
-  const int nf = H / 16;
-  for (int f = warp; f < nf * nf; f += kWarps) {
-    const int mf = f / nf, cf = f % nf;
-    float* out = dw2 + (size_t)mf * 16 * H + cf * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, out, H, wmma::mem_row_major);
+// u (TM x H, row stride ldw) = bf16(silu(pre)) for the tile's edges, also
+// written to a.u at their list positions; padding edges get 0. Thread c keeps
+// its column of b1 and the first kRegE rows of W_e in registers; edges go in
+// batches of kBatch whose loads are issued before any of their arithmetic.
+template <bool BF16>
+__device__ __forceinline__ void build_list_tile(const GclBwdArgs& a, const BwdMeta& m, int nv,
+                                                int p0, bf16* us) {
+  const int H = a.H, N = a.N, E = a.E, ldu = ldw(H);
+  for (int c = threadIdx.x; c < H; c += blockDim.x) {
+    float wreg[kRegE];
 #pragma unroll
-    for (int k = 0; k < kBwdTileM; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, us + k * ldw(H) + mf * 16, ldw(H));
-      wmma::load_matrix_sync(fb, dvs + k * ldw(H) + cf * 16, ldw(H));
-      wmma::mma_sync(acc, fa, fb, acc);
+    for (int k = 0; k < kRegE; ++k) wreg[k] = k < E ? __bfloat162float(a.we[k * H + c]) : 0.0f;
+    const float bias = act<BF16>(a.b1[c]);
+    for (int t0 = 0; t0 < kBwdTileM; t0 += kBatch) {
+      float hs[kBatch], hdst[kBatch], ev[kBatch][kRegE];
+      size_t q[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int t = t0 + k;
+        const bool real = t < nv;
+        const int r = real ? m.row[t] : 0, j = real ? m.col[t] : 0;
+        q[k] = (size_t)r * N + j;
+        hs[k] = real ? a.proj[(size_t)r * 2 * H + c] : 0.0f;
+        hdst[k] = real ? a.proj[((size_t)(r / N) * N + j) * 2 * H + H + c] : 0.0f;
+#pragma unroll
+        for (int rr = 0; rr < kRegE; ++rr) ev[k][rr] = real && rr < E ? a.e[q[k] * E + rr] : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int t = t0 + k;
+        float val = 0.0f;
+        if (t < nv) {
+          float ep = 0.0f;
+#pragma unroll
+          for (int rr = 0; rr < kRegE; ++rr)
+            if (rr < E) ep += round_bf16(ev[k][rr]) * wreg[rr];
+#pragma unroll 1   // wide E (sinusoid embedding) only: keep the code small
+          for (int rr = kRegE; rr < E; ++rr) ep += round_bf16(a.e[q[k] * E + rr]) * __bfloat162float(a.we[rr * H + c]);
+          val = silu_act<BF16>(pre_act<BF16>(hs[k], hdst[k], ep, bias));
+          a.u[(size_t)(p0 + t) * H + c] = __float2bfloat16(val);
+        }
+        us[t * ldu + c] = __float2bfloat16(val);
+      }
     }
-    wmma::store_matrix_sync(out, acc, H, wmma::mem_row_major);
   }
 }
 
 template <bool BF16, bool ATT>
-__global__ void __launch_bounds__(kThreads, 1) gcl_bwd_kernel(GclBwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
+__global__ void __launch_bounds__(kThreads, 1) gcl_bwd_edge_kernel(GclBwdArgs a) {
   const int H = a.H, N = a.N, E = a.E;
+  const int n_edges = a.rowstart[a.B * N];
+  const int n_tiles = (n_edges + kBwdTileM - 1) / kBwdTileM;
+  if (blockIdx.x >= n_tiles) return;
+  extern __shared__ __align__(128) unsigned char smem[];
   const int ldu = ldw(H);
   bf16* w2s = reinterpret_cast<bf16*>(smem);
   unsigned char* p = smem + w2_bytes(H);
-  bf16* us = reinterpret_cast<bf16*>(p);     // u, then dpre
+  bf16* us = reinterpret_cast<bf16*>(p);     // u, then bf16 dpre
   p += align128(kBwdTileM * ldu * 2);
   bf16* dvs = reinterpret_cast<bf16*>(p);    // dv
   p += align128(kBwdTileM * ldu * 2);
-  float* stage = reinterpret_cast<float*>(p);   // u W2, then dv W2^T
+  float* stage = reinterpret_cast<float*>(p);   // u W2, then dv W2^T, then the warps' tile sums
   p += align128(kBwdTileM * lds(H) * 4);
-  float* dhs_s = reinterpret_cast<float*>(p);   // the item's rows of dhs
-  p += align128(kRows * H * 4);
-  float* meta = reinterpret_cast<float*>(p);
-  Tile tl{0, 0, N, 0, meta, reinterpret_cast<int*>(meta + kBwdTileM),
-          reinterpret_cast<int*>(meta + 2 * kBwdTileM)};
+  BwdMeta& m = *reinterpret_cast<BwdMeta*>(p);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* part = a.blk + (size_t)blockIdx.x * part_floats(H, E);
-  float* part_we = part + H * H;
-  float* part_b1 = part_we + E * H;
-  float* part_b2 = part_b1 + H;
-  float* part_att = part_b2 + H;
 
   HD_PHASE_START(clk);
   load_w2(a.w2, w2s, H);
@@ -328,190 +367,226 @@ __global__ void __launch_bounds__(kThreads, 1) gcl_bwd_kernel(GclBwdArgs a) {
   lane_cols_bf16(a.watt, H, watt);       // bf16 gate weights (forward product)
   lane_cols<BF16>(a.watt32, H, watt_act);   // f32 gate weights in the act dtype (dm0 term)
   const float batt = ATT ? act<BF16>(a.batt[0]) : 0.0f;
-  // warp sums over the edges it handles (lane columns): db2, dw_att, db_att
-  float acc_b2[kColsPerLane] = {}, acc_att[kColsPerLane] = {};
-  float acc_batt = 0.0f;
-  // column c = threadIdx.x (the epilogue of dpre): db1, W_e and b1 in registers
+  // column c = threadIdx.x of the dpre epilogue: W_e and b1 in registers
   const int c = threadIdx.x;
   const bool col = c < H;
-  float acc_b1 = 0.0f, wreg[kRegE];
+  float wreg[kRegE];
 #pragma unroll
   for (int k = 0; k < kRegE; ++k) wreg[k] = col && k < E ? __bfloat162float(a.we[k * H + c]) : 0.0f;
   const float bias1 = col ? act<BF16>(a.b1[c]) : 0.0f;
-  for (int idx = threadIdx.x; idx < kRows * H; idx += blockDim.x) dhs_s[idx] = 0.0f;
 
-  const int row_blocks = (N + kRows - 1) / kRows;
-  const int item_rows = (N + row_blocks - 1) / row_blocks;
-  const int n_items = a.B * row_blocks;
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const int b = item / row_blocks, rb = item % row_blocks, i0 = rb * item_rows;
-    const int rows = min(item_rows, N - i0);
-    const float* node = a.proj + (size_t)b * N * 2 * H;
-    float* dst = a.dst_part + ((size_t)rb * a.B + b) * N * H;
-    tl.b = b;
-    tl.i0 = i0;
-    for (int q0 = 0; q0 < rows * N; q0 += kBwdTileM) {
-      load_tile<kBwdTileM>(tl, q0, rows * N, a.emask);
-      __syncthreads();
-      HD_PHASE(0, clk);
-      build_pre_tile<BF16, kBwdTileM>(tl, a.proj, a.e, a.we, a.b1, us, H, E);
-      __syncthreads();
-      HD_PHASE(1, clk);
-      tile_mma_t<kBwdTileM, false>(us, w2s, stage, H);
-      HD_PHASE(2, clk);
-
-      // back through silu, the gate and the mask to dv: warp per edge
-      for (int t = warp; t < kBwdTileM; t += kWarps) {
-        bf16* dvrow = dvs + t * ldu;
-        if (t >= tl.n_valid) {
-#pragma unroll
-          for (int s = 0; s < kColsPerLane; ++s)
-            if (lane + 32 * s < H) dvrow[lane + 32 * s] = __float2bfloat16(0.0f);
-          continue;
-        }
-        const float* row = stage + t * lds(H);
-        const float* dg = a.dagg + ((size_t)b * N + i0 + tl.row[t]) * H;
-        float v[kColsPerLane], m0[kColsPerLane], dm1[kColsPerLane];
-#pragma unroll
-        for (int s = 0; s < kColsPerLane; ++s) {
-          const int cc = lane + 32 * s;
-          v[s] = cc < H ? act<BF16>(act<BF16>(row[cc]) + b2[s]) : 0.0f;
-          m0[s] = cc < H ? silu_act<BF16>(v[s]) : 0.0f;
-          dm1[s] = cc < H ? act<BF16>(act<BF16>(dg[cc]) * tl.emask[t]) : 0.0f;
-        }
-        float att = 1.0f, dza = 0.0f;
-        if (ATT) {
-          att = sigmoid_act<BF16>(act<BF16>(act<BF16>(warp_dot_bf16(m0, watt)) + batt));
-          float dot = 0.0f;
-#pragma unroll
-          for (int s = 0; s < kColsPerLane; ++s) dot += act<BF16>(dm1[s] * m0[s]);
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-          const float datt = act<BF16>(dot);
-          dza = act<BF16>(act<BF16>(datt * att) * act<BF16>(1.0f - att));
-          acc_batt += dza;
-        }
-#pragma unroll
-        for (int s = 0; s < kColsPerLane; ++s) {
-          const int cc = lane + 32 * s;
-          if (cc < H) {
-            const float dm0 = ATT ? act<BF16>(act<BF16>(dm1[s] * att) + act<BF16>(dza * watt_act[s]))
-                                  : dm1[s];
-            const float dv = act<BF16>(dm0 * dsilu_act<BF16>(v[s]));
-            acc_b2[s] += dv;
-            if (ATT) acc_att[s] += round_bf16(m0[s]) * round_bf16(dza);
-            dvrow[cc] = __float2bfloat16(dv);
-          }
-        }
-      }
-      __syncthreads();
-      HD_PHASE(3, clk);
-      tile_mma_t<kBwdTileM, true>(dvs, w2s, stage, H);   // du = dv W2^T
-      dw2_update(us, dvs, part, H);                     // dW2 += u^T dv
-      __syncthreads();
-      HD_PHASE(4, clk);
-
-      // dpre = du * silu'(pre), pre rebuilt: column per thread
-      if (col) {
-        int cur = tl.row[0];
-        float run = 0.0f;
-        for (int t = 0; t < tl.n_valid; ++t) {
-          const int i = i0 + tl.row[t], j = tl.col[t];
-          const float* eij = a.e + (((size_t)b * N + i) * N + j) * E;
-          float ep = 0.0f;
-#pragma unroll
-          for (int r = 0; r < kRegE; ++r)
-            if (r < E) ep += round_bf16(eij[r]) * wreg[r];
-#pragma unroll 1
-          for (int r = kRegE; r < E; ++r) ep += round_bf16(eij[r]) * __bfloat162float(a.we[r * H + c]);
-          const float pre = pre_act<BF16>(node[(size_t)i * 2 * H + c],
-                                          node[(size_t)j * 2 * H + H + c], ep, bias1);
-          const float dpre = act<BF16>(act<BF16>(stage[t * lds(H) + c]) * dsilu_act<BF16>(pre));
-          us[t * ldu + c] = __float2bfloat16(dpre);
-          if (tl.row[t] != cur) {
-            dhs_s[cur * H + c] += run;
-            run = 0.0f;
-            cur = tl.row[t];
-          }
-          run += dpre;
-          dst[(size_t)j * H + c] += dpre;
-          acc_b1 += dpre;
-        }
-        if (tl.n_valid > 0) dhs_s[cur * H + c] += run;
-        for (int k = 0; k < E; ++k) {   // dW_e += e^T dpre over the tile
-          float sum = 0.0f;
-          for (int t = 0; t < tl.n_valid; ++t)
-            sum += round_bf16(a.e[tl.edge(t) * E + k]) * __bfloat162float(us[t * ldu + c]);
-          part_we[k * H + c] += sum;
-        }
-      }
-      __syncthreads();
-      HD_PHASE(5, clk);
-
-      // de = dpre W_e^T: warp per edge
-      for (int t = warp; t < tl.n_valid; t += kWarps) {
-        const bf16* drow = us + t * ldu;
-        const size_t ed = tl.edge(t);
-        for (int k = 0; k < E; ++k) {
-          float d = 0.0f;
-#pragma unroll
-          for (int s = 0; s < kColsPerLane; ++s) {
-            const int cc = lane + 32 * s;
-            if (cc < H) d += __bfloat162float(drow[cc]) * __bfloat162float(a.we[k * H + cc]);
-          }
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
-          if (lane == 0) a.de[ed * E + k] = d;
-        }
-      }
-      __syncthreads();
-      HD_PHASE(6, clk);
-    }
-    for (int idx = threadIdx.x; idx < rows * H; idx += blockDim.x) {
-      const int r = idx / H, cc = idx % H;
-      a.dhs[((size_t)b * N + i0 + r) * H + cc] = dhs_s[idx];
-      dhs_s[idx] = 0.0f;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int p0 = tile * kBwdTileM, nv = min(kBwdTileM, n_edges - p0);
+    if (threadIdx.x < kBwdTileM) {
+      const int t = threadIdx.x;
+      const int q = t < nv ? a.edges[p0 + t] : -1;
+      m.row[t] = q >= 0 ? q / N : -1;
+      m.col[t] = q >= 0 ? q % N : 0;
+      m.emask[t] = q >= 0 ? round_bf16(a.emask[q]) : 0.0f;
+      if (t == 0) HD_COUNT_EDGES(kBwdTileM, nv);
     }
     __syncthreads();
-  }
+    HD_PHASE(0, clk);
+    build_list_tile<BF16>(a, m, nv, p0, us);
+    __syncthreads();
+    HD_PHASE(1, clk);
+    tile_mma_t<kBwdTileM, false>(us, w2s, stage, H);
+    HD_PHASE(2, clk);
 
-  // this block's bias and gate partials; warps summed in a fixed order
-  if (col) part_b1[c] = acc_b1;
-  float* red = stage;
+    // back through silu, the gate and the mask to dv: warp per edge; the
+    // warp's sums over its edges of dv, m0 dza and dza (f32)
+    float acc_b2[kColsPerLane] = {}, acc_att[kColsPerLane] = {};
+    float acc_batt = 0.0f;
+    for (int t = warp; t < kBwdTileM; t += kWarps) {
+      bf16* dvrow = dvs + t * ldu;
+      if (t >= nv) {
 #pragma unroll
-  for (int s = 0; s < kColsPerLane; ++s)
-    if (lane + 32 * s < H) red[warp * H + lane + 32 * s] = acc_b2[s];
-  __syncthreads();
-  if (col) {
-    float sum = 0.0f;
-    for (int w = 0; w < kWarps; ++w) sum += red[w * H + c];
-    part_b2[c] = sum;
-  }
-  __syncthreads();
+        for (int s = 0; s < kColsPerLane; ++s)
+          if (lane + 32 * s < H) dvrow[lane + 32 * s] = __float2bfloat16(0.0f);
+        continue;
+      }
+      const float* row = stage + t * lds(H);
+      const float* dg = a.dagg + (size_t)m.row[t] * H;
+      float v[kColsPerLane], m0[kColsPerLane], dm1[kColsPerLane];
 #pragma unroll
-  for (int s = 0; s < kColsPerLane; ++s)
-    if (lane + 32 * s < H) red[warp * H + lane + 32 * s] = acc_att[s];
-  if (lane == 0) red[kWarps * H + warp] = acc_batt;
-  __syncthreads();
-  if (col) {
-    float sum = 0.0f;
-    for (int w = 0; w < kWarps; ++w) sum += red[w * H + c];
-    part_att[c] = sum;
-  }
-  if (threadIdx.x == 0) {
-    float sum = 0.0f;
-    for (int w = 0; w < kWarps; ++w) sum += red[kWarps * H + w];
-    part_att[H] = sum;
+      for (int s = 0; s < kColsPerLane; ++s) {
+        const int cc = lane + 32 * s;
+        v[s] = cc < H ? act<BF16>(act<BF16>(row[cc]) + b2[s]) : 0.0f;
+        m0[s] = cc < H ? silu_act<BF16>(v[s]) : 0.0f;
+        dm1[s] = cc < H ? act<BF16>(act<BF16>(dg[cc]) * m.emask[t]) : 0.0f;
+      }
+      float att = 1.0f, dza = 0.0f;
+      if (ATT) {
+        att = sigmoid_act<BF16>(act<BF16>(act<BF16>(warp_dot_bf16(m0, watt)) + batt));
+        float dot = 0.0f;
+#pragma unroll
+        for (int s = 0; s < kColsPerLane; ++s) dot += act<BF16>(dm1[s] * m0[s]);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        const float datt = act<BF16>(dot);
+        dza = act<BF16>(act<BF16>(datt * att) * act<BF16>(1.0f - att));
+        acc_batt += dza;
+      }
+      bf16* dv_out = a.dv + (size_t)(p0 + t) * H;
+#pragma unroll
+      for (int s = 0; s < kColsPerLane; ++s) {
+        const int cc = lane + 32 * s;
+        if (cc < H) {
+          const float dm0 = ATT ? act<BF16>(act<BF16>(dm1[s] * att) + act<BF16>(dza * watt_act[s]))
+                                : dm1[s];
+          const float dv = act<BF16>(dm0 * dsilu_act<BF16>(v[s]));
+          acc_b2[s] += dv;
+          if (ATT) acc_att[s] += round_bf16(m0[s]) * round_bf16(dza);
+          dvrow[cc] = dv_out[cc] = __float2bfloat16(dv);
+        }
+      }
+    }
+    __syncthreads();
+    HD_PHASE(3, clk);
+    tile_mma_t<kBwdTileM, true>(dvs, w2s, stage, H);   // du = dv W2^T
+    HD_PHASE(4, clk);
+
+    // dpre = du * silu'(pre), pre rebuilt: column per thread, edges in
+    // batches whose loads go first; the column's tile sums of dpre (db1)
+    // and of bf16(e) bf16(dpre) (dW_e)
+    float* out = a.tile_part + (size_t)tile * tile_part_floats(H, E);
+    if (col) {
+      float s_b1 = 0.0f, s_we[kRegE] = {};
+      for (int t0 = 0; t0 < nv; t0 += kBatch) {
+        float hs[kBatch], hdst[kBatch], ev[kBatch][kRegE];
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          const int t = t0 + k;
+          const bool real = t < nv;
+          const int r = real ? m.row[t] : 0, j = real ? m.col[t] : 0;
+          hs[k] = real ? a.proj[(size_t)r * 2 * H + c] : 0.0f;
+          hdst[k] = real ? a.proj[((size_t)(r / N) * N + j) * 2 * H + H + c] : 0.0f;
+#pragma unroll
+          for (int rr = 0; rr < kRegE; ++rr) ev[k][rr] = real && rr < E ? a.e[((size_t)r * N + j) * E + rr] : 0.0f;
+        }
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          const int t = t0 + k;
+          if (t >= nv) break;
+          float ep = 0.0f;
+#pragma unroll
+          for (int rr = 0; rr < kRegE; ++rr)
+            if (rr < E) ep += round_bf16(ev[k][rr]) * wreg[rr];
+#pragma unroll 1
+          for (int rr = kRegE; rr < E; ++rr)
+            ep += round_bf16(a.e[((size_t)m.row[t] * N + m.col[t]) * E + rr]) * __bfloat162float(a.we[rr * H + c]);
+          const float pre = pre_act<BF16>(hs[k], hdst[k], ep, bias1);
+          const float dpre = act<BF16>(act<BF16>(stage[t * lds(H) + c]) * dsilu_act<BF16>(pre));
+          us[t * ldu + c] = __float2bfloat16(dpre);
+          a.dpre[(size_t)(p0 + t) * H + c] = dpre;
+          s_b1 += dpre;
+#pragma unroll
+          for (int rr = 0; rr < kRegE; ++rr) s_we[rr] += round_bf16(ev[k][rr]) * round_bf16(dpre);
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < kRegE; ++rr)
+        if (rr < E) out[rr * H + c] = s_we[rr];
+      for (int rr = kRegE; rr < E; ++rr) {   // wide E: the rest over the tile again
+        float sum = 0.0f;
+        for (int t = 0; t < nv; ++t)
+          sum += round_bf16(a.e[((size_t)m.row[t] * N + m.col[t]) * E + rr]) * __bfloat162float(us[t * ldu + c]);
+        out[rr * H + c] = sum;
+      }
+      out[E * H + c] = s_b1;
+    }
+    __syncthreads();
+    HD_PHASE(5, clk);
+
+    // de = dpre W_e^T: warp per edge; the warps' sums into stage
+    for (int t = warp; t < nv; t += kWarps) {
+      const bf16* drow = us + t * ldu;
+      const size_t q = (size_t)m.row[t] * N + m.col[t];
+      for (int k = 0; k < E; ++k) {
+        float d = 0.0f;
+#pragma unroll
+        for (int s = 0; s < kColsPerLane; ++s) {
+          const int cc = lane + 32 * s;
+          if (cc < H) d += __bfloat162float(drow[cc]) * __bfloat162float(a.we[k * H + cc]);
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+        if (lane == 0) a.de[q * E + k] = d;
+      }
+    }
+    float* red = stage;   // [warp][db2 (H) | dw_att (H)], then [warp] db_att
+#pragma unroll
+    for (int s = 0; s < kColsPerLane; ++s)
+      if (lane + 32 * s < H) {
+        red[warp * 2 * H + lane + 32 * s] = acc_b2[s];
+        red[warp * 2 * H + H + lane + 32 * s] = acc_att[s];
+      }
+    if (lane == 0) red[kWarps * 2 * H + warp] = acc_batt;
+    __syncthreads();
+    // the tile's sums of db2, dw_att and db_att: warps in a fixed order
+    for (int i = threadIdx.x; i < 2 * H + 1; i += blockDim.x) {
+      float sum = 0.0f;
+      if (i < 2 * H)
+        for (int w = 0; w < kWarps; ++w) sum += red[w * 2 * H + i];
+      else
+        for (int w = 0; w < kWarps; ++w) sum += red[kWarps * 2 * H + w];
+      out[(E + 1) * H + i] = sum;
+    }
+    HD_PHASE(6, clk);
   }
 }
 
+// posmap[edges[p]] = p for every real edge p (posmap is -1 elsewhere).
+__global__ void posmap_kernel(const int* __restrict__ edges, const int* __restrict__ n_edges,
+                              int* __restrict__ posmap, size_t bound) {
+  const size_t n = (size_t)*n_edges;
+  HD_GRID_STRIDE(pos, bound < n ? bound : n) posmap[edges[pos]] = (int)pos;
+}
+
+// Per node r = b * N + n, column c: dhs[r] = sum of dpre over row r's list
+// segment in list order; dh_dst[r] = sum over i = 0 .. N-1 of dpre at
+// posmap[b, i, n] (real edges only), in i order. Loads go in batches.
+constexpr int kSumBatch = 8;
+
+__global__ void node_edge_sums_kernel(const float* __restrict__ dpre, const int* __restrict__ rowstart,
+                                      const int* __restrict__ posmap, float* __restrict__ dhs,
+                                      float* __restrict__ dhdst, int N, int H) {
+  const int r = blockIdx.x, c = threadIdx.x;
+  if (c >= H) return;
+  const int p0 = rowstart[r], p1 = rowstart[r + 1];
+  float s = 0.0f;
+  for (int pb = p0; pb < p1; pb += kSumBatch) {
+    float v[kSumBatch];
+#pragma unroll
+    for (int k = 0; k < kSumBatch; ++k) v[k] = pb + k < p1 ? dpre[(size_t)(pb + k) * H + c] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < kSumBatch; ++k)
+      if (pb + k < p1) s += v[k];
+  }
+  dhs[(size_t)r * H + c] = s;
+  const int* pm = posmap + (size_t)(r / N) * N * N + r % N;   // pm[i * N] = posmap[b, i, n]
+  float t = 0.0f;
+  for (int ib = 0; ib < N; ib += kSumBatch) {
+    int q[kSumBatch];
+    float v[kSumBatch];
+#pragma unroll
+    for (int k = 0; k < kSumBatch; ++k) q[k] = ib + k < N ? pm[(size_t)(ib + k) * N] : -1;
+#pragma unroll
+    for (int k = 0; k < kSumBatch; ++k) v[k] = q[k] >= 0 ? dpre[(size_t)q[k] * H + c] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < kSumBatch; ++k)
+      if (q[k] >= 0) t += v[k];
+  }
+  dhdst[(size_t)r * H + c] = t;
+}
+
 template <bool BF16, bool ATT>
-cudaError_t launch_gcl_bwd(const GclBwdArgs& a, int blocks, cudaStream_t stream) {
+cudaError_t launch_bwd_edges(const GclBwdArgs& a, int blocks, cudaStream_t stream) {
   const int smem = bwd_smem_bytes(a.H);
-  cudaError_t err = cudaFuncSetAttribute(gcl_bwd_kernel<BF16, ATT>,
+  cudaError_t err = cudaFuncSetAttribute(gcl_bwd_edge_kernel<BF16, ATT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  gcl_bwd_kernel<BF16, ATT><<<blocks, kThreads, smem, stream>>>(a);
+  gcl_bwd_edge_kernel<BF16, ATT><<<blocks, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -521,35 +596,59 @@ inline int wgrad_splits(int M) {
   return s < 1 ? 1 : (s > 32 ? 32 : s);
 }
 
-inline int bwd_blocks(int B, int N, int max_blocks) {
-  const int items = B * ((N + kRows - 1) / kRows);
-  return items < max_blocks ? items : max_blocks;
+// The fixed plan of the edge reductions: a pure function of (B, N). List
+// positions and tiles are bounded by the dense B*N*N edges.
+struct BwdPlan {
+  long long positions, tiles, tile_chunks;
+  __host__ BwdPlan(int B, int N) {
+    positions = (long long)B * N * N;
+    tiles = (positions + kBwdTileM - 1) / kBwdTileM;
+    tile_chunks = (tiles + kColChunk - 1) / kColChunk;
+  }
+};
+
+// Workspace pieces in carving order, in floats, each rounded up to
+// kWsAlign floats (256 bytes); the start is aligned to 256 bytes too.
+constexpr long long kWsAlign = 64;
+inline long long ws_round(long long n) { return (n + kWsAlign - 1) / kWsAlign * kWsAlign; }
+
+inline long long bwd_workspace_floats(int B, int N, int H, int E) {
+  const long long M = (long long)B * N;
+  const BwdPlan plan(B, N);
+  const long long pieces[] = {
+      M * 2 * H, M * 2 * H, M * 2 * H,                 // proj, cat, dcat
+      M * H, M * H, M * H, M * H, M * H, M * H, M * H, M * H,   // z1 o1 g2 do1 dz1 dagg dhs dhdst
+      plan.positions * H / 2, plan.positions * H / 2,  // u, dv (bf16)
+      plan.positions * H,                              // dpre
+      plan.positions,                                  // posmap (int)
+      M + 1, list_blocks((int)M), plan.positions,      // rowstart, totals, edges (int)
+      plan.tiles * tile_part_floats(H, E),             // tile_part
+      plan.tile_chunks * tile_part_floats(H, E),       // their chunk sums
+      // split-K partials: dW2's, then the node-level wgrads' (one buffer)
+      (long long)kBwdSplits * H * H > (long long)wgrad_splits((int)M) * 2 * H * H
+          ? (long long)kBwdSplits * H * H : (long long)wgrad_splits((int)M) * 2 * H * H,
+      (long long)col_chunks((int)M) * 2 * H,           // column-sum partials
+  };
+  long long n = kWsAlign;   // alignment slack of the start
+  for (long long piece : pieces) n += ws_round(piece);
+  return n;
 }
 
 }  // namespace hd
 
 // Floats of device workspace that hd_fused_gcl_bwd needs for these sizes.
-extern "C" long long hd_fused_gcl_bwd_workspace(int B, int N, int H, int E, int max_blocks) {
-  const long long M = (long long)B * N;
-  const long long row_blocks = (N + hd::kRows - 1) / hd::kRows;
-  const long long chunks = (M + hd::kColChunk - 1) / hd::kColChunk;
-  long long n = 0;
-  n += 3 * M * 2 * H;                   // proj, cat, dcat
-  n += 8 * M * H;                       // z1, o1, g2, do1, dz1, dagg, dhs, dhdst
-  n += row_blocks * M * H;              // dh_dst partials per row block
-  n += (long long)hd::bwd_blocks(B, N, max_blocks) * hd::part_floats(H, E);
-  n += (long long)hd::wgrad_splits((int)M) * 2 * H * H;   // split-K partials
-  n += chunks * 2 * H;                  // column-sum partials
-  return n + 512;                       // alignment slack of the carving
+extern "C" long long hd_fused_gcl_bwd_workspace(int B, int N, int H, int E) {
+  return hd::bwd_workspace_floats(B, N, H, E);
 }
 
 // Backward of hd_fused_gcl. Weight operands are the bf16 copies the forward
 // uses (wsd = [W_src | W_dst], we, w2, watt, nw1) plus the transposed bf16
 // copies of the backward (nw1t = Wn1^T (H x 2H), nw2t = Wn2^T, wsrct =
-// W_src^T, wdstt = W_dst^T) and the f32 gate weights watt32. Outputs: dh
-// (B,N,H), de (B,N,N,E) and `grads`, laid out as
+// W_src^T, wdstt = W_dst^T) and the f32 gate weights watt32. ws holds
+// hd_fused_gcl_bwd_workspace(B, N, H, E) floats. Outputs: dh (B,N,H), de
+// (B,N,N,E) and `grads`, laid out as
 //   [dW2 (H x H, in x out) | dW_e (E x H) | db1 | db2 | dw_att | db_att (1)
-//    | pad to part_floats(H, E) | dW_src (H x H) | dW_dst (H x H)
+//    | pad to a multiple of 8 floats | dW_src (H x H) | dW_dst (H x H)
 //    | dWn1 (2H x H) | dbn1 | dWn2 (H x H) | dbn2].
 extern "C" int hd_fused_gcl_bwd(const float* g, const float* h, const float* e,
                                 const float* emask, const float* nmask, const float* agg,
@@ -566,30 +665,39 @@ extern "C" int hd_fused_gcl_bwd(const float* g, const float* h, const float* e,
   if (H % 16 != 0 || H > kMaxH || E > kMaxE || max_blocks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * N;
-  const int row_blocks = (N + kRows - 1) / kRows;
-  const int blocks = bwd_blocks(B, N, max_blocks);
-  const int P = part_floats(H, E);
+  const BwdPlan plan(B, N);
   const int splits = wgrad_splits(M);
-  const int chunks = (M + kColChunk - 1) / kColChunk;
-  // workspace carving: 256-byte aligned start, each piece a multiple of 32 bytes
+  // workspace carving, in bwd_workspace_floats' order
   float* cur = reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(ws) + 255) & ~uintptr_t(255));
-  auto take = [&cur](size_t n) { float* out = cur; cur += (n + 7) / 8 * 8; return out; };
-  float* proj = take((size_t)M * 2 * H);
-  float* cat = take((size_t)M * 2 * H);
-  float* dcat = take((size_t)M * 2 * H);
-  float* z1 = take((size_t)M * H);
-  float* o1 = take((size_t)M * H);
-  float* g2 = take((size_t)M * H);
-  float* do1 = take((size_t)M * H);
-  float* dz1 = take((size_t)M * H);
-  float* dagg = take((size_t)M * H);
-  float* dhs = take((size_t)M * H);
-  float* dhdst = take((size_t)M * H);
-  float* dst_part = take((size_t)row_blocks * M * H);
-  float* blk = take((size_t)blocks * P);
-  float* split_part = take((size_t)splits * 2 * H * H);
-  float* col_part = take((size_t)chunks * 2 * H);
-  float* g_wsrc = grads + P;
+  auto take = [&cur](long long n) { float* out = cur; cur += ws_round(n); return out; };
+  float* proj = take((long long)M * 2 * H);
+  float* cat = take((long long)M * 2 * H);
+  float* dcat = take((long long)M * 2 * H);
+  float* z1 = take((long long)M * H);
+  float* o1 = take((long long)M * H);
+  float* g2 = take((long long)M * H);
+  float* do1 = take((long long)M * H);
+  float* dz1 = take((long long)M * H);
+  float* dagg = take((long long)M * H);
+  float* dhs = take((long long)M * H);
+  float* dhdst = take((long long)M * H);
+  bf16* u = reinterpret_cast<bf16*>(take(plan.positions * H / 2));
+  bf16* dv = reinterpret_cast<bf16*>(take(plan.positions * H / 2));
+  float* dpre = take(plan.positions * H);
+  int* posmap = reinterpret_cast<int*>(take(plan.positions));
+  int* rowstart = reinterpret_cast<int*>(take(M + 1));
+  int* totals = reinterpret_cast<int*>(take(list_blocks(M)));
+  int* edges = reinterpret_cast<int*>(take(plan.positions));
+  float* tile_part = take(plan.tiles * tile_part_floats(H, E));
+  float* tile_chunk_part = take(plan.tile_chunks * tile_part_floats(H, E));
+  float* split_part = cur;   // the rest: split-K partials, then column-sum partials
+  float* col_part = split_part + ws_round((long long)kBwdSplits * H * H > (long long)splits * 2 * H * H
+                                              ? (long long)kBwdSplits * H * H
+                                              : (long long)splits * 2 * H * H);
+  const int* n_edges = rowstart + M;
+  float* g_w2 = grads;
+  float* g_we = g_w2 + (size_t)H * H;   // dW_e, db1, db2, dw_att, db_att: the tile sums' layout
+  float* g_wsrc = grads + (H * H + E * H + 3 * H + 1 + 7) / 8 * 8;
   float* g_wdst = g_wsrc + (size_t)H * H;
   float* g_nw1 = g_wdst + (size_t)H * H;
   float* g_nb1 = g_nw1 + (size_t)2 * H * H;
@@ -600,7 +708,7 @@ extern "C" int hd_fused_gcl_bwd(const float* g, const float* h, const float* e,
 #define HD_TRY(call) do { err = (call); if (err != cudaSuccess) return (int)err; } while (0)
 #define HD_LAUNCHED() HD_TRY(cudaGetLastError())
 
-  // 1. node projections and the node-MLP backward
+  // 1-2. node projections and the node-MLP backward
   HD_TRY(launch_proj(h, wsd, proj, M, H, st));
   node_prep_kernel<<<ew_blocks(nh), kEwThreads, 0, st>>>(h, agg, g, nmask, cat, g2, M, H);
   HD_LAUNCHED();
@@ -614,25 +722,39 @@ extern "C" int hd_fused_gcl_bwd(const float* g, const float* h, const float* e,
   node_split_kernel<<<ew_blocks(nh), kEwThreads, 0, st>>>(g2, dcat, dh, dagg, M, H, norm);
   HD_LAUNCHED();
 
-  // 2. the edge backward
-  HD_TRY(cudaMemsetAsync(dst_part, 0, sizeof(float) * row_blocks * nh, st));
-  HD_TRY(cudaMemsetAsync(blk, 0, sizeof(float) * blocks * P, st));
-  const GclBwdArgs a{e, emask, proj, we, b1, w2, b2, watt, watt32, batt, dagg,
-                     dhs, dst_part, de, blk, B, N, H, E};
-  if (bf16_act)
-    err = attention ? launch_gcl_bwd<true, true>(a, blocks, st) : launch_gcl_bwd<true, false>(a, blocks, st);
-  else
-    err = attention ? launch_gcl_bwd<false, true>(a, blocks, st) : launch_gcl_bwd<false, false>(a, blocks, st);
-  if (err != cudaSuccess) return (int)err;
-  HD_TRY(reduce(dst_part, row_blocks, nh, nh, dhdst, st));
-  HD_TRY(reduce(blk, blocks, P, P, grads, st));
+  // 3. the real-edge list and every real edge's list position
+  HD_TRY(launch_edge_list(emask, M, N, rowstart, totals, edges, st));
+  HD_TRY(cudaMemsetAsync(posmap, 0xFF, sizeof(int) * plan.positions, st));
+  posmap_kernel<<<ew_blocks(plan.positions), kEwThreads, 0, st>>>(edges, n_edges, posmap,
+                                                                  (size_t)plan.positions);
+  HD_LAUNCHED();
 
-  // 3. dh += dhs W_src^T + dh_dst W_dst^T
+  // 4. the edge backward: per-edge values at list positions, per-tile sums
+  HD_TRY(cudaMemsetAsync(de, 0, sizeof(float) * plan.positions * E, st));
+  const GclBwdArgs a{e, emask, proj, we, b1, w2, b2, watt, watt32, batt, dagg, rowstart, edges,
+                     u, dv, dpre, de, tile_part, B, N, H, E};
+  const int blocks = (int)(plan.tiles < max_blocks ? plan.tiles : max_blocks);
+  if (bf16_act)
+    err = attention ? launch_bwd_edges<true, true>(a, blocks, st) : launch_bwd_edges<true, false>(a, blocks, st);
+  else
+    err = attention ? launch_bwd_edges<false, true>(a, blocks, st) : launch_bwd_edges<false, false>(a, blocks, st);
+  if (err != cudaSuccess) return (int)err;
+
+  // 5. the sums across edges, each in a fixed order
+  const size_t hh = (size_t)H * H;
+  HD_TRY(gemm<true>(u, dv, split_part, H, H, (int)plan.positions, H, H, H, kBwdSplits, false, st,
+                    n_edges));                                              // dW2 = U^T dV
+  HD_TRY(reduce(split_part, kBwdSplits, hh, hh, g_w2, st));
+  HD_TRY(column_sum(tile_part, (int)plan.tiles, tile_part_floats(H, E), tile_chunk_part, g_we, st,
+                    n_edges, kBwdTileM));                                   // dW_e .. db_att
+  node_edge_sums_kernel<<<M, kEwThreads, 0, st>>>(dpre, rowstart, posmap, dhs, dhdst, N, H);
+  HD_LAUNCHED();
+
+  // 6. dh += dhs W_src^T + dh_dst W_dst^T
   HD_TRY(gemm<false>(dhs, wsrct, dh, M, H, H, H, H, H, 1, true, st));
   HD_TRY(gemm<false>(dhdst, wdstt, dh, M, H, H, H, H, H, 1, true, st));
 
-  // 4. node-level weight gradients, K = B*N, split-K with a fixed-order sum
-  const size_t hh = (size_t)H * H;
+  // node-level weight gradients, K = B*N, split-K with a fixed-order sum
   HD_TRY(gemm<true>(h, dhs, split_part, H, H, M, H, H, H, splits, false, st));
   HD_TRY(reduce(split_part, splits, hh, hh, g_wsrc, st));
   HD_TRY(gemm<true>(h, dhdst, split_part, H, H, M, H, H, H, splits, false, st));

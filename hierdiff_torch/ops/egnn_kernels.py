@@ -246,7 +246,7 @@ _ENTRIES = {
     "fused_gcl": ("fused_gcl", "hd_fused_gcl", _GCL_ARGTYPES, ctypes.c_int),
     "fused_coord_update": ("fused_coord", "hd_fused_coord", _COORD_ARGTYPES, ctypes.c_int),
     "fused_gcl_bwd": ("fused_gcl_bwd", "hd_fused_gcl_bwd", _BWD_ARGTYPES, ctypes.c_int),
-    "fused_gcl_bwd_workspace": ("fused_gcl_bwd", "hd_fused_gcl_bwd_workspace", [_I] * 5,
+    "fused_gcl_bwd_workspace": ("fused_gcl_bwd", "hd_fused_gcl_bwd_workspace", [_I] * 4,
                                 ctypes.c_longlong),
 }
 
@@ -517,10 +517,78 @@ class FusedGCLFunction(torch.autograd.Function):
         return (None, grads.dh, grads.de, None, None, *linear_grads(grads))
 
 
-def bwd_part_floats(hidden: int, e_nf: int) -> int:
-    """Floats of the block-partial group at the head of the backward's
-    gradient buffer (``part_floats`` in csrc/fused_gcl_bwd.cu)."""
+def bwd_edge_grad_floats(hidden: int, e_nf: int) -> int:
+    """Floats of the edge-MLP group at the head of the backward's gradient
+    buffer, dW2 to db_att padded to 8 floats (layout in csrc/fused_gcl_bwd.cu)."""
     return (hidden * hidden + e_nf * hidden + 3 * hidden + 1 + 7) // 8 * 8
+
+
+# csrc/fused_gcl_bwd.cu: edges per tile of the edge kernel (kBwdTileM),
+# splits of the dW2 GEMM over list positions (kBwdSplits), rows per
+# column-sum partial (kColChunk), and the alignment of each workspace piece
+# in floats (kWsAlign)
+BWD_TILE_EDGES = 32
+BWD_SPLITS = 32
+BWD_COL_CHUNK = 64
+BWD_WS_ALIGN = 64
+
+
+def gcl_bwd_plan(b: int, n: int) -> Dict[str, int]:
+    """The fixed order of ``fused_gcl_bwd``'s sums across edges: a pure
+    function of (b, n), never of the mask, so two calls on the same inputs
+    sum in the same order. The edge kernel writes each real edge's values at
+    its list position (the real-edge work list of csrc/sm90.cuh: (b, i, j)
+    order); ``positions`` = b*n*n bounds them. ``tiles`` of
+    ``BWD_TILE_EDGES`` positions each carry the tile's sums (in edge order)
+    of e^T dpre, dpre, dv, m0 dza and dza (dW_e, db1, db2, dw_att, db_att),
+    summed over tiles in chunks of ``BWD_COL_CHUNK`` and the chunks in
+    order. dW2 = U^T dV is a split-K GEMM: split z sums the real edges among
+    positions [z * split_rows, (z + 1) * split_rows), the splits in order.
+    dhs: each source row's list segment in order; dh_dst[b, j]: i = 0 ..
+    n-1 in order, through the list position of edge (b, i, j)."""
+    _edge_list_sizes("fused_gcl_bwd", b, n)   # the int32 guard
+    positions = b * n * n
+    tiles = -(-positions // BWD_TILE_EDGES)
+    return {"positions": positions, "tiles": tiles, "tile_chunks": -(-tiles // BWD_COL_CHUNK),
+            "splits": BWD_SPLITS, "split_rows": -(-positions // BWD_SPLITS)}
+
+
+def _wgrad_splits(rows: int) -> int:
+    """Splits of the node-level wgrad GEMMs (K = b*n rows): ~256 rows each."""
+    return min(32, max(1, -(-rows // 256)))
+
+
+def gcl_bwd_workspace(b: int, n: int, hidden: int, e_nf: int) -> Dict[str, int]:
+    """Floats of each piece of ``fused_gcl_bwd``'s one workspace, in the order
+    the C entry carves them (``hd_fused_gcl_bwd_workspace`` gives the same
+    total): the node-level buffers (``proj`` .. ``dhdst``), the edge kernel's
+    per-position outputs ``u`` and ``dv`` (bf16, two per float) and ``dpre``
+    (f32), ``posmap`` (int32, the list position of each dense edge), the work
+    list (int32), the per-tile sums (dW_e, db1, db2, dw_att, db_att) and
+    their chunk sums, the split-K partials (dW2's and the node-level
+    wgrads' share one buffer) and the node column-sum partials. Sized by b*n*n, so
+    the host needs no count. List positions are int32 (``gcl_bwd_plan``
+    raises past them); element and byte offsets are 64-bit in the kernels
+    (dpre alone holds 1.13e8 elements, 451 MB, at b=64, n=83, h=256)."""
+    plan = gcl_bwd_plan(b, n)
+    rows, pos = b * n, plan["positions"]
+    tile_floats = (e_nf + 3) * hidden + 1
+    return {"proj": rows * 2 * hidden, "cat": rows * 2 * hidden, "dcat": rows * 2 * hidden,
+            **{k: rows * hidden for k in ("z1", "o1", "g2", "do1", "dz1", "dagg", "dhs", "dhdst")},
+            "u": pos * hidden // 2, "dv": pos * hidden // 2, "dpre": pos * hidden,
+            "posmap": pos, "rowstart": rows + 1, "totals": -(-rows // GCL_LIST_ROWS),
+            "edges": pos, "tile_part": plan["tiles"] * tile_floats,
+            "tile_chunk_part": plan["tile_chunks"] * tile_floats,
+            "split_part": max(BWD_SPLITS * hidden * hidden,
+                              _wgrad_splits(rows) * 2 * hidden * hidden),
+            "col_part": -(-rows // BWD_COL_CHUNK) * 2 * hidden}
+
+
+def gcl_bwd_workspace_floats(b: int, n: int, hidden: int, e_nf: int) -> int:
+    """The workspace's size: each piece rounded up to ``BWD_WS_ALIGN`` floats
+    (256 bytes), plus as much again for aligning the start."""
+    return BWD_WS_ALIGN + sum(-(-v // BWD_WS_ALIGN) * BWD_WS_ALIGN
+                              for v in gcl_bwd_workspace(b, n, hidden, e_nf).values())
 
 
 def _split_bwd_grads(layer, grads: Tensor, dh: Tensor, de: Tensor) -> GclGrads:
@@ -537,7 +605,7 @@ def _split_bwd_grads(layer, grads: Tensor, dh: Tensor, de: Tensor) -> GclGrads:
 
     w2, w_e, b1, b2 = take(hidden, hidden), take(e_nf, hidden), take(hidden), take(hidden)
     w_att, b_att = take(hidden), take(1)
-    offset = bwd_part_floats(hidden, e_nf)
+    offset = bwd_edge_grad_floats(hidden, e_nf)
     w_src, w_dst = take(hidden, hidden), take(hidden, hidden)
     w_node_in, b_node_in = take(2 * hidden, hidden), take(hidden)
     w_node_out, b_node_out = take(hidden, hidden), take(hidden)
@@ -570,16 +638,15 @@ def _launch_gcl_bwd(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor, node
     _check("agg", agg, h.shape, device)
     b, n, hidden = h.shape
     e_nf = edge_attr.shape[-1]
-    n_grads = bwd_part_floats(hidden, e_nf) + 5 * hidden * hidden + 2 * hidden
+    ws_floats = gcl_bwd_workspace_floats(b, n, hidden, e_nf)   # raises past int32 list positions
+    n_grads = bwd_edge_grad_floats(hidden, e_nf) + 5 * hidden * hidden + 2 * hidden
     if b * n == 0:
         return _split_bwd_grads(layer, h.new_zeros(n_grads), torch.zeros_like(h),
                                 torch.zeros_like(edge_attr))
     dh, de = torch.empty_like(h), torch.empty_like(edge_attr)
     grads = torch.empty(n_grads, dtype=torch.float32, device=device)
     w = _cached_weights(layer, _gcl_kernel_weights, device)
-    blocks = _sm_count(device)
-    ws = torch.empty(int(_entry("fused_gcl_bwd_workspace", phase_clocks)(b, n, hidden, e_nf, blocks)),
-                     dtype=torch.float32, device=device)
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _entry("fused_gcl_bwd", phase_clocks)(
         g.data_ptr(), h.data_ptr(), edge_attr.data_ptr(), edge_mask.data_ptr(),
@@ -589,7 +656,7 @@ def _launch_gcl_bwd(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor, node
         w["nw1t"].data_ptr(), w["nw2t"].data_ptr(), w["wsrct"].data_ptr(),
         w["wdstt"].data_ptr(), ws.data_ptr(), dh.data_ptr(), de.data_ptr(), grads.data_ptr(),
         b, n, hidden, e_nf, float(layer.normalization_factor), int(layer.attention),
-        int(layer.compute_dtype is torch.bfloat16), blocks, stream)
+        int(layer.compute_dtype is torch.bfloat16), _sm_count(device), stream)
     if err != 0:
         raise RuntimeError(f"fused_gcl_bwd kernel launch failed: CUDA error {err}")
     launch_counts["fused_gcl_bwd"] += 1

@@ -102,7 +102,7 @@ def cmd_coarse(args) -> dict:
     return {"batches": batches, "seconds": seconds, "molecules": len(results)}
 
 
-def main(argv: Optional[list] = None):
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="HierDiff sampling (PyTorch port)")
     sub = p.add_subparsers(dest="cmd", required=True)
     pc = sub.add_parser("coarse", help="stage-1 blurred point sets")
@@ -113,16 +113,23 @@ def main(argv: Optional[list] = None):
                     help="random weights from this seed instead of --weights")
     pc.add_argument("--num", type=int, default=64)
     pc.add_argument("--batch-size", type=int, default=64)
-    pc.add_argument("--steps", type=int, default=0,
-                    help="strided reverse-chain steps (0 = the model's full T)")
+    pc.add_argument("--sample-steps", "--steps", dest="steps", type=int, default=0,
+                    help="strided reverse-chain steps (0 = the model's full T); --steps "
+                         "is the port's earlier name")
     pc.add_argument("--seed", type=int, default=2022)
     pc.add_argument("--max-nodes", type=int, default=0)
-    pc.add_argument("--bf16", action="store_true",
-                    help="bf16 elementwise edge pipeline (default f32)")
+    pc.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=False,
+                    help="bf16 elementwise edge pipeline. Default f32, unlike the JAX CLI "
+                         "(default bf16): on the H100 the bf16 kernels are the slower "
+                         "ones (PERF.md)")
     pc.add_argument("--device", default=None, help="torch device (default cuda)")
     pc.add_argument("--out", default="sample_results.pkl")
     pc.set_defaults(fn=cmd_coarse)
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv: Optional[list] = None):
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

@@ -10,12 +10,11 @@ Needs a CUDA GPU. Four measurements, JSON lines:
      node counts), launched with ``phase_clocks=True``: their
      ``-DHD_PHASE_CLOCKS`` build (separate libraries), whose thread 0 of
      every block (of every warpgroup in the forward edge kernels, whose two
-     warpgroups run apart) reads ``clock64`` after each barrier. For the two
-     forward kernels the same build counts the edge slots their edge kernel
-     computes per call and the real edges among them, printed beside
-     nnz(edge_mask);
+     warpgroups run apart) reads ``clock64`` after each barrier. The same
+     build counts the edge slots each edge kernel computes per call and the
+     real edges among them, printed beside nnz(edge_mask);
   2. torch.profiler's device time per CUDA kernel for the same calls, and
-     for the two forward kernels also at the sampler's shape (B=64,
+     also at the sampler's shape (B=64,
      GEOM-histogram counts with seed 0, N = their maximum), where a call's
      host time can exceed its device time, so that CUDA events around
      back-to-back calls measure the host;
@@ -55,11 +54,14 @@ COORD_PHASES = ("W2 load and tile setup", "pre-activation build", "W2 product (w
                 "bias, silu, head, tanh and coordinate terms (registers)",
                 "row sums (fixed order)", "grid barrier (waiting for the last block)",
                 "output (x + agg / norm) * nmask")
-BWD_PHASES = ("tile setup", "pre-activation build", "W2 product", "gate and silu backward",
-              "du product and dW2 partial", "dpre, sums and dW_e", "de")
-# CUDA kernels of csrc/fused_gcl_bwd.cu besides proj_kernel
-BACKWARD_KERNELS = ("gcl_bwd_kernel", "gemm_kernel", "node_prep_kernel", "node_act_kernel",
-                    "node_dz_kernel", "node_split_kernel", "reduce_kernel", "colsum_kernel")
+BWD_PHASES = ("tile metadata", "pre-activation build, u out", "W2 product (WMMA)",
+              "gate and silu backward, dv out", "du product (WMMA)",
+              "dpre rebuilt, dpre out, its tile sums", "de, the tile's dv and gate sums")
+# CUDA kernels of csrc/fused_gcl_bwd.cu besides proj_kernel and the work list's
+# two kernels (those share their names with the forward's)
+BACKWARD_KERNELS = ("gcl_bwd_edge_kernel", "gemm_kernel", "node_prep_kernel", "node_act_kernel",
+                    "node_dz_kernel", "node_split_kernel", "reduce_kernel", "colsum_kernel",
+                    "posmap_kernel", "node_edge_sums_kernel")
 
 
 def layer_inputs(rng: np.random.Generator, device, b: int = B, n: int = N, h: int = H,
@@ -164,29 +166,34 @@ def main() -> None:
             line["node_kernel_phase_cycle_share"] = {
                 p: c / max(sum(node), 1) for p, c in zip(GCL_NODE_PHASES, node)}
             line["node_kernel_cycles_per_call_summed_over_blocks"] = sum(node) / reps
-        if name != "fused_gcl_bwd":   # edges computed against the mask's real edges
-            edges = (ctypes.c_ulonglong * 2)()
-            lib.hd_read_edge_counts.argtypes = [ctypes.c_void_p]
-            lib.hd_read_edge_counts(edges)   # the warm-up and the calls above
-            fn(phase_clocks=True)
-            torch.cuda.synchronize()
-            if lib.hd_read_edge_counts(edges) != 0:
-                raise RuntimeError("reading the edge counts failed")
-            line.update({"edge_slots_computed_per_call": edges[0],
-                         "real_edges_computed_per_call": edges[1],
-                         "nnz_edge_mask": int((em != 0).sum().item()),
-                         "dense_edges": em.numel()})
+        # edges computed against the mask's real edges
+        edges = (ctypes.c_ulonglong * 2)()
+        lib.hd_read_edge_counts.argtypes = [ctypes.c_void_p]
+        lib.hd_read_edge_counts(edges)   # the warm-up and the calls above
+        fn(phase_clocks=True)
+        torch.cuda.synchronize()
+        if lib.hd_read_edge_counts(edges) != 0:
+            raise RuntimeError("reading the edge counts failed")
+        line.update({"edge_slots_computed_per_call": edges[0],
+                     "real_edges_computed_per_call": edges[1],
+                     "nnz_edge_mask": int((em != 0).sum().item()),
+                     "dense_edges": em.numel()})
         print(json.dumps(line))
 
     # 2. device time per CUDA kernel, uninstrumented build
     s_counts = sampler_counts(B, 0)
     s_h, s_x, s_e, s_cdiff, s_em, s_nm, _ = layer_inputs(np.random.default_rng(0), device,
                                                          n=int(s_counts.max()), counts=s_counts)
+    s_g = torch.from_numpy(rng.standard_normal(s_h.shape).astype(np.float32)).to(device)
+    s_agg = torch.empty_like(s_h)
+    ek._launch_gcl(gcl, s_h, s_e, s_em, s_nm, s_h.device, agg_out=s_agg)
     shaped = [("kernel", name, fn) for name, (fn, _, _) in calls.items()] + [
         (f"sampler N={int(s_counts.max())}", "fused_gcl",
          partial(ek.fused_gcl, gcl, s_h, s_e, s_em, s_nm)),
         (f"sampler N={int(s_counts.max())}", "fused_coord_update",
-         partial(ek.fused_coord_update, equ, s_h, s_e, s_cdiff, s_x, s_em, s_nm))]
+         partial(ek.fused_coord_update, equ, s_h, s_e, s_cdiff, s_x, s_em, s_nm)),
+        (f"sampler N={int(s_counts.max())}", "fused_gcl_bwd",
+         partial(ek.fused_gcl_bwd, gcl, s_h, s_e, s_em, s_nm, s_g, s_agg))]
     for shape, name, fn in shaped:
         fn()
         torch.cuda.synchronize()
@@ -282,7 +289,9 @@ def train_step_breakdown(device: torch.device, steps: int = 8) -> dict:
                               if any(f"hd::{n}" in k for n in names))
     busy_us = sum(per_kernel.values())
     # the coordinate update takes its plain route here; proj_kernel
-    # (edge_mlp.cuh) runs in the backward, the forward has proj_sm90_kernel
+    # (edge_mlp.cuh) runs in the backward, the forward has proj_sm90_kernel;
+    # the backward's work list shares its kernels' names with the forward's,
+    # so its two launches per call count as forward kernels
     fwd_us = group(GCL_KERNELS)
     bwd_us = group(BACKWARD_KERNELS) + group(("proj_kernel",))
     return {"batch": B, "steps": steps, "bucket_mix": [int(b["positions"].shape[1]) for b in batches[2:]],

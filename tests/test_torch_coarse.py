@@ -197,3 +197,14 @@ def test_cli_coarse_on_cpu_writes_reference_pickle(tmp_path):
         assert mol["x"].shape == (c, 3) and mol["h"].shape == (c, 8)
         np.testing.assert_array_equal(mol["x"], x[:c].numpy())
         assert np.isfinite(mol["x"]).all() and np.isfinite(mol["h"]).all()
+
+
+def test_cli_coarse_takes_the_jax_flag_forms():
+    """The JAX CLI's --sample-steps and --bf16 / --no-bf16, and --steps as an
+    alias; f32 elementwise stays the port's default (README, port section)."""
+    parse = lambda *a: port_cli.build_parser().parse_args(["coarse", "--init-seed", "0", *a])  # noqa: E731
+    assert parse().bf16 is False and parse().steps == 0
+    assert parse("--sample-steps", "100").steps == 100
+    assert parse("--steps", "50").steps == 50
+    assert parse("--bf16").bf16 is True
+    assert parse("--bf16", "--no-bf16").bf16 is False

@@ -321,6 +321,132 @@ def test_coord_workspace_rejects_int32_overflow():
         ek.coord_workspace(4096, 1024, 256)
 
 
+@pytest.mark.parametrize("n", [1, 32, 83])
+def test_gcl_bwd_workspace_sizes(n):
+    """fused_gcl_bwd's one workspace: the node-level buffers, the edge
+    kernel's per-position outputs sized by the dense b*n*n positions (u, dv
+    bf16, dpre f32), the position map and work list, the per-tile sums, the
+    chunk partials and the split-K partials; each piece rounded to 256 bytes
+    in the total, plus the start's alignment."""
+    b, hid, e_nf = 64, 256, 2
+    rows, pos = b * n, b * n * n
+    plan = ek.gcl_bwd_plan(b, n)
+    tiles = -(-pos // ek.BWD_TILE_EDGES)
+    assert plan == {"positions": pos, "tiles": tiles, "tile_chunks": -(-tiles // 64),
+                    "splits": 32, "split_rows": -(-pos // 32)}
+    ws = ek.gcl_bwd_workspace(b, n, hid, e_nf)
+    assert list(ws)[:3] == ["proj", "cat", "dcat"] and ws["proj"] == rows * 2 * hid
+    assert all(ws[k] == rows * hid for k in ("z1", "o1", "g2", "do1", "dz1", "dagg", "dhs", "dhdst"))
+    assert ws["u"] * 2 == ws["dv"] * 2 == ws["dpre"] == pos * hid
+    assert ws["posmap"] == ws["edges"] == pos and ws["rowstart"] == rows + 1
+    assert ws["totals"] == -(-rows // ek.GCL_LIST_ROWS)
+    assert ws["tile_part"] == tiles * ((e_nf + 3) * hid + 1)
+    assert ws["tile_chunk_part"] == plan["tile_chunks"] * ((e_nf + 3) * hid + 1)
+    assert ws["split_part"] == max(32 * hid * hid, min(32, -(-rows // 256)) * 2 * hid * hid)
+    assert ws["col_part"] == -(-rows // 64) * 2 * hid
+    total = ek.gcl_bwd_workspace_floats(b, n, hid, e_nf)
+    assert total == 64 + sum(-(-v // 64) * 64 for v in ws.values())
+    # u, dv and dpre alone: 8 bytes per position and channel
+    assert total * 4 > 8 * pos * hid
+    if n == 83:   # 113 M elements of dpre: below 2^31, so are the list positions
+        assert pos < ws["dpre"] < 2 ** 31
+
+
+def test_gcl_bwd_workspace_rejects_int32_overflow():
+    with pytest.raises(ValueError, match="fused_gcl_bwd indexes edges with int32"):
+        ek.gcl_bwd_workspace(4096, 1024, 256, 2)
+
+
+def _in_order(parts):
+    """The sum of ``parts`` taken first to last, as the kernels sum partials."""
+    total = torch.zeros_like(parts[0])
+    for part in parts:
+        total = total + part
+    return total
+
+
+def _bwd_model(layer, h, e, em, nm, g):
+    """A plain-torch model of fused_gcl_bwd's data flow in f32: the per-edge
+    values the edge kernel writes at each real edge's list position, then
+    every sum across edges in the order ``gcl_bwd_plan`` fixes."""
+    b, n, hid = h.shape
+    plan = ek.gcl_bwd_plan(b, n)
+    e_in, e_out = layer.edge_mlp[0], layer.edge_mlp[2]
+    with torch.enable_grad():
+        h_ = h.clone().requires_grad_(True)
+        pre = ek._pair_preact(h_, e, e_in, None)
+        pre.retain_grad()
+        v = torch.nn.functional.silu(pre) @ e_out.weight.t() + e_out.bias
+        v.retain_grad()
+        m0 = torch.nn.functional.silu(v)
+        za = m0[..., :1] * 0.0
+        if layer.attention:
+            za = m0 @ layer.att_mlp[0].weight.t() + layer.att_mlp[0].bias
+            za.retain_grad()
+        m1 = m0 * torch.sigmoid(za) if layer.attention else m0
+        agg = ek._masked_rowsum(m1, em) / layer.normalization_factor
+        n_in, n_out = layer.node_mlp[0], layer.node_mlp[2]
+        out = (h_ + n_out(torch.nn.functional.silu(n_in(torch.cat([h_, agg], -1))))) * nm
+        out.backward(g)
+    # the work list: the real edges in (b, i, j) order, each row's segment,
+    # and every real edge's list position
+    real = em[..., 0].reshape(-1) != 0
+    edges = real.nonzero()[:, 0]
+    rowstart = torch.cat([torch.zeros(1, dtype=torch.long),
+                          real.reshape(b * n, n).sum(1).cumsum(0)])
+    posmap = torch.full((b * n * n,), -1, dtype=torch.long)
+    posmap[edges] = torch.arange(len(edges))
+    flat = lambda t: t.detach().reshape(b * n * n, -1)[edges]  # noqa: E731
+    u, dv, dpre, m0 = (flat(t) for t in (torch.nn.functional.silu(pre), v.grad, pre.grad, m0))
+    dza = flat(za.grad) if layer.attention else torch.zeros(len(edges), 1)
+    sr, tile = plan["split_rows"], ek.BWD_TILE_EDGES
+    w2 = _in_order([u[z * sr:(z + 1) * sr].t() @ dv[z * sr:(z + 1) * sr]
+                    for z in range(plan["splits"])])
+    e_real = e.reshape(b * n * n, -1)[edges]
+    tile_sums = [torch.cat([(e_real[t:t + tile].t() @ dpre[t:t + tile]).reshape(-1),
+                            dpre[t:t + tile].sum(0), dv[t:t + tile].sum(0),
+                            (m0 * dza)[t:t + tile].sum(0), dza[t:t + tile].sum(0)])
+                 for t in range(0, len(edges), tile)]
+    sums = _in_order([_in_order(tile_sums[c:c + ek.BWD_COL_CHUNK])
+                      for c in range(0, len(tile_sums), ek.BWD_COL_CHUNK)])
+    e_nf = e.shape[-1]
+    we, b1, b2, w_att, b_att = sums.split([e_nf * hid, hid, hid, hid, 1])
+    dhs = torch.stack([dpre[rowstart[r]:rowstart[r + 1]].sum(0) for r in range(b * n)])
+    pm = posmap.reshape(b, n, n)
+    dh_dst = torch.stack([_in_order([dpre[pm[bb, i, j]] if pm[bb, i, j] >= 0 else torch.zeros(hid)
+                                     for i in range(n)])
+                          for bb in range(b) for j in range(n)])
+    hf = h.reshape(b * n, hid)
+    return {"w2": w2, "w_e": we.reshape(e_nf, hid), "b1": b1, "b2": b2, "w_att": w_att,
+            "b_att": b_att, "w_src": hf.t() @ dhs, "w_dst": hf.t() @ dh_dst}
+
+
+@pytest.mark.parametrize("masks", ["prefix", "holey"])
+@pytest.mark.parametrize("attention", [True, False])
+def test_gcl_bwd_fixed_order_sums_match_plain_vjp(attention, masks):
+    """The sums across edges that fused_gcl_bwd takes outside its edge kernel
+    (dW2 split-K over list positions, dW_e / db1 / db2 / dw_att / db_att over
+    the tiles' own sums, dhs over row segments, dh_dst through the position
+    map in source-row order), in the fixed order that
+    ``gcl_bwd_plan(b, n)`` gives for any mask, held by a plain-torch model
+    against ``gcl_plain_vjp`` (f32, CPU)."""
+    _, _, port, _ = _gcl_pair(32, 2, attention)
+    hh, _, e, em, nm = _inputs(b=4, n=12, h=32, seed=3)
+    if masks == "holey":
+        hh, em, nm = _holey(hh, nm, seed=3)
+    th, te_, tem, tnm = _t(hh, e, em, nm)
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal(hh.shape).astype(np.float32))
+    # the real edges span several dW2 splits and several tiles
+    assert int((tem != 0).sum()) > 2 * max(ek.gcl_bwd_plan(4, 12)["split_rows"], ek.BWD_TILE_EDGES)
+    got = _bwd_model(port, th, te_, tem, tnm, g)
+    ref = ek.gcl_plain_vjp(port, th, te_, tem, tnm, g)
+    if not attention:
+        assert ref.w_att is None and float(got["w_att"].abs().max()) == 0.0
+        del got["w_att"], got["b_att"]
+    for name, value in got.items():
+        assert _rel(value, getattr(ref, name).reshape(value.shape)) < F32_REL, name
+
+
 def test_coord_kernel_weight_layout():
     """The coordinate kernel's cached operands: the pair linear's W_src and
     W_dst halves and W2 in nn.Linear layout (wgmma's K-major B), W_e, the
