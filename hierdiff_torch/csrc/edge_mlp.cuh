@@ -1,7 +1,7 @@
 // Shared pieces of the fused EGNN edge kernels: the elementwise numerics
 // (act, silu, sigmoid, pre_act, round_bf16) and limits of all of them, and
-// the WMMA tile pieces of fused_gcl_bwd.cu's edge kernel (the forward
-// kernels' Hopper pieces are in sm90.cuh).
+// the WMMA node projection of fused_gcl_bwd.cu (the edge kernels' Hopper
+// pieces are in sm90.cuh).
 //
 // The kernels run the same edge pipeline as hierdiff_tpu/ops/egnn_pallas.py
 // `_edge_mlp` (:95): pre_ij = h_i W_src + h_j W_dst + e_ij W_e + b1 -> silu
@@ -10,11 +10,7 @@
 // result rounded to bf16 at the points where the Pallas kernel's bf16 arrays
 // round (its compute_dtype='bfloat16' mode); arithmetic itself is done in
 // f32 registers.
-//
-// fused_gcl_bwd.cu walks tiles of real edges; per tile the pre-activation
-// is built in shared memory as bf16, multiplied by W2 (kept resident in
-// shared memory for the whole kernel) on the tensor cores with WMMA bf16 ->
-// f32, and the f32 result is staged in shared memory for the epilogue.
+
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,15 +23,9 @@ namespace hd {
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kTileM = 64;                          // edges per tensor-core tile
 constexpr int kMaxH = 256;                          // hidden width limit
 constexpr int kMaxE = 32;                           // edge feature limit
-constexpr int kColsPerLane = kMaxH / 32;            // epilogue columns per lane
-constexpr int kMaxColFrags = kMaxH / 16 / kWarps;   // W2 column fragments per warp
-
-__host__ __device__ constexpr int align128(int bytes) { return (bytes + 127) / 128 * 128; }
 
 // Phase clocks, compiled in only with -DHD_PHASE_CLOCKS (tools/kernel_phases.py):
 // placed right after a barrier, HD_PHASE(k, t) has thread 0 of the block add
@@ -63,12 +53,6 @@ extern "C" int hd_read_phase_cycles(unsigned long long* out) {
 #define HD_PHASE_START(t) do { } while (0)
 #define HD_PHASE(k, t) do { } while (0)
 #endif
-
-// Shared-memory row strides and the W2 region, in elements and bytes: W2
-// with a padded row stride, and the f32 tile stage (the W2 product).
-__host__ __device__ inline int ldw(int H) { return H + 8; }
-__host__ __device__ inline int lds(int H) { return H + 4; }
-__host__ __device__ inline int w2_bytes(int H) { return align128(H * ldw(H) * 2); }
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -177,16 +161,6 @@ inline cudaError_t launch_proj(const float* h, const bf16* wsd, float* proj, int
   return cudaGetLastError();
 }
 
-// Copy W2 (H x H bf16, row-major) into shared memory, row stride ldw(H).
-__device__ __forceinline__ void load_w2(const bf16* __restrict__ w2, bf16* w2s, int H) {
-  const int vecs = H / 8;   // 16-byte vectors per row
-  for (int idx = threadIdx.x; idx < H * vecs; idx += blockDim.x) {
-    const int r = idx / vecs, v = idx % vecs;
-    *reinterpret_cast<uint4*>(w2s + r * ldw(H) + v * 8) =
-        *reinterpret_cast<const uint4*>(w2 + (size_t)r * H + v * 8);
-  }
-}
-
 // pre = ((hs_i + hd_j) + e_ij W_e) + b1, each step rounded to the act dtype
 // (bias already rounded).
 template <bool BF16>
@@ -194,91 +168,7 @@ __device__ __forceinline__ float pre_act(float hs, float hdst, float ep, float b
   return act<BF16>(act<BF16>(act<BF16>(act<BF16>(hs) + act<BF16>(hdst)) + act<BF16>(ep)) + bias);
 }
 
-// The pre-activation builds keep the first kRegE rows of W_e in registers
-// and take edges in batches of kBatch, all of a batch's loads issued before
-// any of its arithmetic, so a batch waits for one memory round trip.
+// The pre-activation builds keep the first kRegE rows of W_e in registers.
 constexpr int kRegE = 4;
-constexpr int kBatch = 8;
-
-// stage (TM x H, f32) = a (TM x H, bf16, row stride ldw) @ W, where W is
-// w2s (H x H, bf16, row stride ldw) or, with TRANS_B, its transpose (w2s
-// read as a column-major operand, so one resident copy serves both). Warp w
-// owns column fragments w, w + kWarps; all accumulators stay in registers
-// until every warp has finished reading a, because stage may alias a.
-template <int TM, bool TRANS_B>
-__device__ __forceinline__ void tile_mma_t(const bf16* a, const bf16* w2s, float* stage, int H) {
-  const int warp = threadIdx.x / 32;
-  const int n_col_frags = H / 16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kMaxColFrags][TM / 16];
-#pragma unroll
-  for (int ci = 0; ci < kMaxColFrags; ++ci)
-#pragma unroll
-    for (int m = 0; m < TM / 16; ++m) wmma::fill_fragment(acc[ci][m], 0.0f);
-  for (int k = 0; k < H; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[TM / 16];
-#pragma unroll
-    for (int m = 0; m < TM / 16; ++m)
-      wmma::load_matrix_sync(fa[m], a + m * 16 * ldw(H) + k, ldw(H));
-#pragma unroll
-    for (int ci = 0; ci < kMaxColFrags; ++ci) {
-      const int cf = warp + ci * kWarps;
-      if (cf < n_col_frags) {
-        if constexpr (TRANS_B) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fb, w2s + cf * 16 * ldw(H) + k, ldw(H));
-#pragma unroll
-          for (int m = 0; m < TM / 16; ++m) wmma::mma_sync(acc[ci][m], fa[m], fb, acc[ci][m]);
-        } else {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, w2s + k * ldw(H) + cf * 16, ldw(H));
-#pragma unroll
-          for (int m = 0; m < TM / 16; ++m) wmma::mma_sync(acc[ci][m], fa[m], fb, acc[ci][m]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int ci = 0; ci < kMaxColFrags; ++ci) {
-    const int cf = warp + ci * kWarps;
-    if (cf < n_col_frags) {
-#pragma unroll
-      for (int m = 0; m < TM / 16; ++m)
-        wmma::store_matrix_sync(stage + m * 16 * lds(H) + cf * 16, acc[ci][m], lds(H),
-                                wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-}
-
-// Per-lane copies of a per-column vector: lane l holds columns l, l + 32, ...
-// (0 past H), loaded once per kernel for the warp-per-edge epilogues.
-template <bool BF16>
-__device__ __forceinline__ void lane_cols(const float* __restrict__ v, int H,
-                                          float (&out)[kColsPerLane]) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int s = 0; s < kColsPerLane; ++s) out[s] = lane + 32 * s < H ? act<BF16>(v[lane + 32 * s]) : 0.0f;
-}
-
-__device__ __forceinline__ void lane_cols_bf16(const bf16* __restrict__ v, int H,
-                                               float (&out)[kColsPerLane]) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int s = 0; s < kColsPerLane; ++s)
-    out[s] = lane + 32 * s < H ? __bfloat162float(v[lane + 32 * s]) : 0.0f;
-}
-
-// sum over the warp of sum_s bf16(m[s]) * w[s], in f32 (w: this lane's
-// columns of a bf16 vector, 0 past H).
-__device__ __forceinline__ float warp_dot_bf16(const float (&m)[kColsPerLane],
-                                               const float (&w)[kColsPerLane]) {
-  float dot = 0.0f;
-#pragma unroll
-  for (int s = 0; s < kColsPerLane; ++s) dot += round_bf16(m[s]) * w[s];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-  return dot;
-}
 
 }  // namespace hd

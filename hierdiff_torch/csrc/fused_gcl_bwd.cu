@@ -18,12 +18,14 @@
 // the node-MLP backward. At the GEOM layer shape of chip_smoke.py (B=64,
 // N=32, H=256, E=2, ragged counts) that is ~14 GFLOP (~14 us at the bf16
 // peak) and ~30 M exp+reciprocal (~7 us), against ~13 MB of device memory
-// (~4 us): bound by operations.
+// (~4 us): bound by operations. This design adds 8 bytes per real
+// edge-channel written by the edge kernel and read back by the sums (u, dv
+// in bf16, dpre in f32: 59 MB for 28,840 real edges at H = 256).
 //
 // Design. The edge kernel computes per-edge values over the real edges only
-// and holds no sum across edges; every sum across edges is a fixed-order
-// reduction outside it, over the edges' list positions. Launches on the
-// caller's stream behind one C entry point:
+// and holds no sum across its tiles; every sum across tiles is a
+// fixed-order reduction outside it, over list positions or tiles. Launches
+// on the caller's stream behind one C entry point:
 //   1. proj_kernel: [h W_src | h W_dst] for every node (as the forward).
 //   2. The node-MLP backward, row-parallel: z1 = [h, agg] Wn1 + bn1 is
 //      rematerialised from the saved agg, then do1 = g2 Wn2^T, dz1, dcat =
@@ -32,31 +34,37 @@
 //   3. The real-edge work list (sm90.cuh: rowstart, edges; no host sync) and
 //      posmap, the list position of every real edge by its flat index (-1
 //      for the others).
-//   4. gcl_bwd_edge_kernel, persistent blocks over kBwdTileM-edge tiles of
-//      the list. Per tile: rebuild u = silu(pre) (written out, bf16) and v =
-//      u W2 + b2 (W2 resident in shared memory), back through the gate and
-//      silu to dv (written out, bf16), du = dv W2^T (the same resident W2 read
-//      as a column-major operand), dpre (written out, f32), de = dpre W_e^T,
-//      and the tile's own sums in a fixed order: of e^T dpre and dpre (dW_e
-//      and db1), of dv, m0 * dza and dza (db2, dw_att and db_att), f32 where
-//      the Pallas kernel sums f32 values. Each edge's outputs go to its list
-//      position p, each tile's sums to its tile slot; the workspace holds
-//      B*N*N positions, so the host needs no count.
-//   5. Reductions, each in a fixed order over list positions (or tiles):
-//      dW2 = U^T dV as a split-K GEMM whose split bounds are fixed by B*N*N
-//      (splits past the real edges sum nothing), partials summed in split
-//      order; dW_e, db1, db2, dw_att, db_att over the tiles in order (in
-//      fixed chunks of tiles, the chunks in order); dhs[b,i] = the sum of
-//      dpre over row i's list segment, in list order; dh_dst[b,j] = the sum
-//      over i = 0 .. N-1 of dpre at posmap[b,i,j]. No float atomics
-//      anywhere: two runs on the same inputs give bitwise equal gradients.
+//   4. gcl_bwd_edge_kernel: one persistent block per SM holds W2 in shared
+//      memory (256 x 256 bf16, K-major, 128-byte swizzle, as fused_gcl) and
+//      runs two warpgroups that walk their own 64-edge tiles of the list.
+//      Per tile: the bf16 silu(pre) tile u (sm90.cuh's build), v = u W2 on
+//      wgmma m64n256k16 into f32 registers while u is copied to its list
+//      positions; in registers, b2, silu, the gate and their backward (row
+//      dots over the 4 lanes of a quad) to dv, which replaces u in the
+//      warpgroup's buffer; du = dv W2^T on wgmma through a transposed
+//      (MN-major) descriptor of the same resident W2 (W2's K-major atom is,
+//      byte for byte, an MN-major atom of W2^T: no second copy) while dv is
+//      copied out; dpre = du silu'(pre) with pre rebuilt in registers,
+//      written at its list position; de = dpre W_e^T (row dots over the
+//      quad); and the tile's own column sums in a fixed order (a butterfly
+//      over each warp's rows, then the 4 warps in order): of e^T dpre and
+//      dpre (dW_e, db1), of dv, m0 dza and dza (db2, dw_att, db_att), f32
+//      where the Pallas kernel sums f32 values. The workspace holds B*N*N
+//      positions and tiles, so the host needs no count.
+//   5. Reductions, each in a fixed order: dW2 = U^T dV as a split-K GEMM
+//      whose split bounds are fixed by B*N*N (splits past the real edges
+//      sum nothing), partials summed in split order; dW_e, db1, db2,
+//      dw_att, db_att over the tiles in order (in fixed chunks of tiles,
+//      the chunks in order); dhs[b,i] = the sum of dpre over row i's list
+//      segment, in list order; dh_dst[b,j] = the sum over i = 0 .. N-1 of
+//      dpre at posmap[b,i,j]. No float atomics anywhere: two runs on the
+//      same inputs give bitwise equal gradients.
 //   6. dh += dhs W_src^T + dh_dst W_dst^T, and the node-level wgrads (W_src,
 //      W_dst, Wn1, Wn2: K = B*N) as split-K GEMMs with a fixed-order sum.
 #include "sm90.cuh"
 
 namespace hd {
 
-constexpr int kBwdTileM = 32;        // edges per list tile of the edge kernel
 constexpr int kBwdSplits = 32;       // splits of the dW2 GEMM over list positions
 constexpr int kGemmTile = 64;        // output tile of the generic GEMM
 constexpr int kGemmK = 32;
@@ -261,17 +269,6 @@ cudaError_t column_sum(const float* x, int rows, int cols, float* parts, float* 
 // order: dW_e (E x H), db1, db2, dw_att (H each), db_att.
 __host__ __device__ inline int tile_part_floats(int H, int E) { return (E + 3) * H + 1; }
 
-struct BwdMeta {
-  int row[kBwdTileM];     // source row b * N + i of each edge of the tile, -1 past the last
-  int col[kBwdTileM];     // neighbour j
-  float emask[kBwdTileM]; // bf16-rounded edge mask
-};
-
-__host__ __device__ inline int bwd_smem_bytes(int H) {
-  return w2_bytes(H) + 2 * align128(kBwdTileM * ldw(H) * 2) + align128(kBwdTileM * lds(H) * 4) +
-         align128((int)sizeof(BwdMeta));
-}
-
 struct GclBwdArgs {
   const float* e;
   const float* emask;
@@ -294,245 +291,354 @@ struct GclBwdArgs {
   int B, N, H, E;
 };
 
-// u (TM x H, row stride ldw) = bf16(silu(pre)) for the tile's edges, also
-// written to a.u at their list positions; padding edges get 0. Thread c keeps
-// its column of b1 and the first kRegE rows of W_e in registers; edges go in
-// batches of kBatch whose loads are issued before any of their arithmetic.
-template <bool BF16>
-__device__ __forceinline__ void build_list_tile(const GclBwdArgs& a, const BwdMeta& m, int nv,
-                                                int p0, bf16* us) {
-  const int H = a.H, N = a.N, E = a.E, ldu = ldw(H);
-  for (int c = threadIdx.x; c < H; c += blockDim.x) {
-    float wreg[kRegE];
-#pragma unroll
-    for (int k = 0; k < kRegE; ++k) wreg[k] = k < E ? __bfloat162float(a.we[k * H + c]) : 0.0f;
-    const float bias = act<BF16>(a.b1[c]);
-    for (int t0 = 0; t0 < kBwdTileM; t0 += kBatch) {
-      float hs[kBatch], hdst[kBatch], ev[kBatch][kRegE];
-      size_t q[kBatch];
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        const int t = t0 + k;
-        const bool real = t < nv;
-        const int r = real ? m.row[t] : 0, j = real ? m.col[t] : 0;
-        q[k] = (size_t)r * N + j;
-        hs[k] = real ? a.proj[(size_t)r * 2 * H + c] : 0.0f;
-        hdst[k] = real ? a.proj[((size_t)(r / N) * N + j) * 2 * H + H + c] : 0.0f;
-#pragma unroll
-        for (int rr = 0; rr < kRegE; ++rr) ev[k][rr] = real && rr < E ? a.e[q[k] * E + rr] : 0.0f;
-      }
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        const int t = t0 + k;
-        float val = 0.0f;
-        if (t < nv) {
-          float ep = 0.0f;
-#pragma unroll
-          for (int rr = 0; rr < kRegE; ++rr)
-            if (rr < E) ep += round_bf16(ev[k][rr]) * wreg[rr];
-#pragma unroll 1   // wide E (sinusoid embedding) only: keep the code small
-          for (int rr = kRegE; rr < E; ++rr) ep += round_bf16(a.e[q[k] * E + rr]) * __bfloat162float(a.we[rr * H + c]);
-          val = silu_act<BF16>(pre_act<BF16>(hs[k], hdst[k], ep, bias));
-          a.u[(size_t)(p0 + t) * H + c] = __float2bfloat16(val);
-        }
-        us[t * ldu + c] = __float2bfloat16(val);
-      }
-    }
+// Per-column constants of the edge kernel, in shared memory.
+struct BwdConsts {
+  float b2[kMaxH];         // b2 in the act dtype
+  float watt[kMaxH];       // bf16 gate weights (the forward's dot)
+  float watt_act[kMaxH];   // f32 gate weights in the act dtype (the dm0 term)
+  float b1[kMaxH];         // b1 in the act dtype (pre rebuilt)
+  float we[kRegE][kMaxH];  // the first kRegE rows of W_e (bf16 values)
+};
+
+// Per warpgroup: two per-column sums staged per warp, and the warps' db_att.
+constexpr int kRedFloats = 2 * 4 * kMaxH + 4;
+
+__host__ __device__ constexpr int bwd_edge_smem_bytes() {
+  return 1024 + kW2Bytes + kEdgeWGs * (kUBytes + kMetaBytes + kRedFloats * 4) + (int)sizeof(BwdConsts);
+}
+
+// Rows 0 .. nv-1 of the warpgroup's 64 x 256 bf16 tile (K-major, 128-byte
+// swizzle) to rows p0 .. of dst (row-major, H columns), 16 bytes a thread.
+__device__ __forceinline__ void copy_tile_out(const bf16* tile, bf16* dst, int p0, int nv, int H, int tid) {
+  for (int idx = tid; idx < kTileM * (kMaxH / 8); idx += 128) {
+    const int r = idx / (kMaxH / 8), c0 = 8 * (idx % (kMaxH / 8));
+    if (r < nv && c0 < H)
+      *reinterpret_cast<uint4*>(dst + (size_t)(p0 + r) * H + c0) =
+          *reinterpret_cast<const uint4*>(tile + sw128_offset(r, c0, kTileM));
   }
 }
 
+// One column pair's sum over the tile's rows, first step: (x0, x1) holds the
+// thread's rows ra + rb for columns 8j + 2 (lane % 4) + {0, 1}; a butterfly
+// over lane / 4 adds the warp's 16 rows, and lanes 0-3 stage the result for
+// their warp. Then flush_colsum adds the 4 warps in order.
+__device__ __forceinline__ void warp_colsum(float* red_q, int j, float x0, float x1) {
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    x0 += __shfl_xor_sync(0xffffffffu, x0, off);
+    x1 += __shfl_xor_sync(0xffffffffu, x1, off);
+  }
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  if (lane < 4) *reinterpret_cast<float2*>(red_q + warp * kMaxH + 8 * j + 2 * lane) = make_float2(x0, x1);
+}
+
+__device__ __forceinline__ void flush_colsum(const float* red_q, float* out, int H) {
+  const int tid = threadIdx.x % 128;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = 2 * tid + i;
+    if (c < H) out[c] = ((red_q[c] + red_q[kMaxH + c]) + red_q[2 * kMaxH + c]) + red_q[3 * kMaxH + c];
+  }
+}
+
+// The edge backward: one block per SM holds W2 in shared memory (K-major,
+// 128-byte swizzle) and runs two warpgroups that walk their own 64-edge
+// tiles of the work list. A thread holds the rows ra, rb of the tile and 64
+// columns of each (wgmma's accumulator layout) through every step.
 template <bool BF16, bool ATT>
-__global__ void __launch_bounds__(kThreads, 1) gcl_bwd_edge_kernel(GclBwdArgs a) {
+__global__ void __launch_bounds__(kEdgeThreads, 1) gcl_bwd_edge_kernel(GclBwdArgs a) {
   const int H = a.H, N = a.N, E = a.E;
   const int n_edges = a.rowstart[a.B * N];
-  const int n_tiles = (n_edges + kBwdTileM - 1) / kBwdTileM;
-  if (blockIdx.x >= n_tiles) return;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldu = ldw(H);
+  const int n_tiles = (n_edges + kTileM - 1) / kTileM;
+  if (blockIdx.x * kEdgeWGs >= n_tiles) return;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);   // swizzle atoms on 1 KB
   bf16* w2s = reinterpret_cast<bf16*>(smem);
-  unsigned char* p = smem + w2_bytes(H);
-  bf16* us = reinterpret_cast<bf16*>(p);     // u, then bf16 dpre
-  p += align128(kBwdTileM * ldu * 2);
-  bf16* dvs = reinterpret_cast<bf16*>(p);    // dv
-  p += align128(kBwdTileM * ldu * 2);
-  float* stage = reinterpret_cast<float*>(p);   // u W2, then dv W2^T, then the warps' tile sums
-  p += align128(kBwdTileM * lds(H) * 4);
-  BwdMeta& m = *reinterpret_cast<BwdMeta*>(p);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  bf16* u = reinterpret_cast<bf16*>(smem + kW2Bytes + wg * kUBytes);   // u, then dv
+  TileMeta& tm = *reinterpret_cast<TileMeta*>(smem + kW2Bytes + kEdgeWGs * kUBytes + wg * kMetaBytes);
+  float* red = reinterpret_cast<float*>(smem + kW2Bytes + kEdgeWGs * (kUBytes + kMetaBytes)) + wg * kRedFloats;
+  BwdConsts& cst = *reinterpret_cast<BwdConsts*>(smem + kW2Bytes + kEdgeWGs * (kUBytes + kMetaBytes) +
+                                                 kEdgeWGs * kRedFloats * 4);
 
   HD_PHASE_START(clk);
-  load_w2(a.w2, w2s, H);
-  float b2[kColsPerLane], watt[kColsPerLane], watt_act[kColsPerLane];
-  lane_cols<BF16>(a.b2, H, b2);
-  lane_cols_bf16(a.watt, H, watt);       // bf16 gate weights (forward product)
-  lane_cols<BF16>(a.watt32, H, watt_act);   // f32 gate weights in the act dtype (dm0 term)
+  load_w2_sw128(a.w2, w2s, H);
+  for (int c = threadIdx.x; c < kMaxH; c += blockDim.x) {
+    const bool in = c < H;
+    cst.b2[c] = in ? act<BF16>(a.b2[c]) : 0.0f;
+    cst.watt[c] = ATT && in ? __bfloat162float(a.watt[c]) : 0.0f;
+    cst.watt_act[c] = ATT && in ? act<BF16>(a.watt32[c]) : 0.0f;
+    cst.b1[c] = in ? act<BF16>(a.b1[c]) : 0.0f;
+#pragma unroll
+    for (int r = 0; r < kRegE; ++r) cst.we[r][c] = in && r < E ? __bfloat162float(a.we[r * H + c]) : 0.0f;
+  }
   const float batt = ATT ? act<BF16>(a.batt[0]) : 0.0f;
-  // column c = threadIdx.x of the dpre epilogue: W_e and b1 in registers
-  const int c = threadIdx.x;
-  const bool col = c < H;
-  float wreg[kRegE];
-#pragma unroll
-  for (int k = 0; k < kRegE; ++k) wreg[k] = col && k < E ? __bfloat162float(a.we[k * H + c]) : 0.0f;
-  const float bias1 = col ? act<BF16>(a.b1[c]) : 0.0f;
+  fence_proxy_async();
+  __syncthreads();
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int p0 = tile * kBwdTileM, nv = min(kBwdTileM, n_edges - p0);
-    if (threadIdx.x < kBwdTileM) {
-      const int t = threadIdx.x;
-      const int q = t < nv ? a.edges[p0 + t] : -1;
-      m.row[t] = q >= 0 ? q / N : -1;
-      m.col[t] = q >= 0 ? q % N : 0;
-      m.emask[t] = q >= 0 ? round_bf16(a.emask[q]) : 0.0f;
-      if (t == 0) HD_COUNT_EDGES(kBwdTileM, nv);
+  const int bar = 1 + wg;
+  const int warp = tid / 32, lane = tid % 32;
+  const int ra = warp * 16 + lane / 4, rb = ra + 8;   // accumulator rows of this thread
+  const int stride = gridDim.x * kEdgeWGs;
+  int tile = blockIdx.x * kEdgeWGs + wg;
+  MetaPrefetch pf = fetch_meta(a, tile, n_edges, tid);
+  for (; tile < n_tiles; tile += stride) {
+    const int p0 = tile * kTileM, nv = min(kTileM, n_edges - p0);
+    if (tid < kTileM) {
+      tm.row[tid] = pf.q >= 0 ? pf.q / N : -1;
+      tm.col[tid] = pf.q >= 0 ? pf.q % N : 0;
+      tm.emask[tid] = pf.emask;
+      if (tid == 0) HD_COUNT_EDGES(kTileM, nv);
     }
-    __syncthreads();
-    HD_PHASE(0, clk);
-    build_list_tile<BF16>(a, m, nv, p0, us);
-    __syncthreads();
-    HD_PHASE(1, clk);
-    tile_mma_t<kBwdTileM, false>(us, w2s, stage, H);
-    HD_PHASE(2, clk);
+    wg_barrier(bar);
+    HD_WG_PHASE(0, clk);
+    build_tile<BF16>(tm, nv, a, u);
+    pf = fetch_meta(a, tile + stride, n_edges, tid);   // in flight during this tile
+    fence_proxy_async();
+    wg_barrier(bar);
+    HD_WG_PHASE(1, clk);
 
-    // back through silu, the gate and the mask to dv: warp per edge; the
-    // warp's sums over its edges of dv, m0 dza and dza (f32)
-    float acc_b2[kColsPerLane] = {}, acc_att[kColsPerLane] = {};
-    float acc_batt = 0.0f;
-    for (int t = warp; t < kBwdTileM; t += kWarps) {
-      bf16* dvrow = dvs + t * ldu;
-      if (t >= nv) {
+    // v = u W2 (wgmma), u to its list positions meanwhile
+    float d[128];
 #pragma unroll
-        for (int s = 0; s < kColsPerLane; ++s)
-          if (lane + 32 * s < H) dvrow[lane + 32 * s] = __float2bfloat16(0.0f);
-        continue;
+    for (int i = 0; i < 128; ++i) d[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) fence_operand(d[i]);
+    wgmma_fence();
+    for (int s = 0; s < H / 16; ++s)
+      wgmma_m64n256k16(d, sw128_desc(u + sw128_offset(0, 16 * s, kTileM)),
+                       sw128_desc(w2s + sw128_offset(0, 16 * s, kMaxH)));
+    wgmma_commit();
+    copy_tile_out(u, a.u, p0, nv, H, tid);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 128; ++i) fence_operand(d[i]);
+    wg_barrier(bar);   // u copied out by every thread: its buffer takes dv
+    HD_WG_PHASE(2, clk);
+
+    // back through silu, the gate and the mask to dv, in registers
+    const int row_a = tm.row[ra], row_b = tm.row[rb];
+    const float em_a = tm.emask[ra], em_b = tm.emask[rb];
+    const float* dg_a = a.dagg + (size_t)(row_a < 0 ? 0 : row_a) * H;
+    const float* dg_b = a.dagg + (size_t)(row_b < 0 ? 0 : row_b) * H;
+    float att_a = 1.0f, att_b = 1.0f, dza_a = 0.0f, dza_b = 0.0f;
+    if (ATT) {   // the gate and datt: row dots over the 4 lanes of a quad
+      float dot_a = 0.0f, dot_b = 0.0f, dd_a = 0.0f, dd_b = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int c = 8 * j + 2 * (lane % 4);
+        const bool in = c < H;
+        const float2 bb = *reinterpret_cast<const float2*>(cst.b2 + c);
+        const float2 ww = *reinterpret_cast<const float2*>(cst.watt + c);
+        const float2 ga = in && row_a >= 0 ? *reinterpret_cast<const float2*>(dg_a + c) : make_float2(0.f, 0.f);
+        const float2 gb = in && row_b >= 0 ? *reinterpret_cast<const float2*>(dg_b + c) : make_float2(0.f, 0.f);
+        d[4 * j] = act<BF16>(act<BF16>(d[4 * j]) + bb.x);
+        d[4 * j + 1] = act<BF16>(act<BF16>(d[4 * j + 1]) + bb.y);
+        d[4 * j + 2] = act<BF16>(act<BF16>(d[4 * j + 2]) + bb.x);
+        d[4 * j + 3] = act<BF16>(act<BF16>(d[4 * j + 3]) + bb.y);
+        const float m00 = silu_act<BF16>(d[4 * j]), m01 = silu_act<BF16>(d[4 * j + 1]);
+        const float m10 = silu_act<BF16>(d[4 * j + 2]), m11 = silu_act<BF16>(d[4 * j + 3]);
+        dot_a += round_bf16(m00) * ww.x + round_bf16(m01) * ww.y;
+        dot_b += round_bf16(m10) * ww.x + round_bf16(m11) * ww.y;
+        dd_a += act<BF16>(act<BF16>(act<BF16>(ga.x) * em_a) * m00) + act<BF16>(act<BF16>(act<BF16>(ga.y) * em_a) * m01);
+        dd_b += act<BF16>(act<BF16>(act<BF16>(gb.x) * em_b) * m10) + act<BF16>(act<BF16>(act<BF16>(gb.y) * em_b) * m11);
       }
-      const float* row = stage + t * lds(H);
-      const float* dg = a.dagg + (size_t)m.row[t] * H;
-      float v[kColsPerLane], m0[kColsPerLane], dm1[kColsPerLane];
 #pragma unroll
-      for (int s = 0; s < kColsPerLane; ++s) {
-        const int cc = lane + 32 * s;
-        v[s] = cc < H ? act<BF16>(act<BF16>(row[cc]) + b2[s]) : 0.0f;
-        m0[s] = cc < H ? silu_act<BF16>(v[s]) : 0.0f;
-        dm1[s] = cc < H ? act<BF16>(act<BF16>(dg[cc]) * m.emask[t]) : 0.0f;
+      for (int off = 1; off < 4; off <<= 1) {
+        dot_a += __shfl_xor_sync(0xffffffffu, dot_a, off);
+        dot_b += __shfl_xor_sync(0xffffffffu, dot_b, off);
+        dd_a += __shfl_xor_sync(0xffffffffu, dd_a, off);
+        dd_b += __shfl_xor_sync(0xffffffffu, dd_b, off);
       }
-      float att = 1.0f, dza = 0.0f;
-      if (ATT) {
-        att = sigmoid_act<BF16>(act<BF16>(act<BF16>(warp_dot_bf16(m0, watt)) + batt));
-        float dot = 0.0f;
-#pragma unroll
-        for (int s = 0; s < kColsPerLane; ++s) dot += act<BF16>(dm1[s] * m0[s]);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        const float datt = act<BF16>(dot);
-        dza = act<BF16>(act<BF16>(datt * att) * act<BF16>(1.0f - att));
-        acc_batt += dza;
-      }
-      bf16* dv_out = a.dv + (size_t)(p0 + t) * H;
-#pragma unroll
-      for (int s = 0; s < kColsPerLane; ++s) {
-        const int cc = lane + 32 * s;
-        if (cc < H) {
-          const float dm0 = ATT ? act<BF16>(act<BF16>(dm1[s] * att) + act<BF16>(dza * watt_act[s]))
-                                : dm1[s];
-          const float dv = act<BF16>(dm0 * dsilu_act<BF16>(v[s]));
-          acc_b2[s] += dv;
-          if (ATT) acc_att[s] += round_bf16(m0[s]) * round_bf16(dza);
-          dvrow[cc] = dv_out[cc] = __float2bfloat16(dv);
-        }
-      }
+      att_a = sigmoid_act<BF16>(act<BF16>(act<BF16>(dot_a) + batt));
+      att_b = sigmoid_act<BF16>(act<BF16>(act<BF16>(dot_b) + batt));
+      dza_a = act<BF16>(act<BF16>(act<BF16>(dd_a) * att_a) * act<BF16>(1.0f - att_a));
+      dza_b = act<BF16>(act<BF16>(act<BF16>(dd_b) * att_b) * act<BF16>(1.0f - att_b));
     }
-    __syncthreads();
-    HD_PHASE(3, clk);
-    tile_mma_t<kBwdTileM, true>(dvs, w2s, stage, H);   // du = dv W2^T
-    HD_PHASE(4, clk);
+    float* red_b2 = red;                 // per warp: the tile's column sums of dv
+    float* red_att = red + 4 * kMaxH;    // and of m0 dza
+    const float dzb_a = round_bf16(dza_a), dzb_b = round_bf16(dza_b);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = 8 * j + 2 * (lane % 4);
+      const bool in = c < H;
+      const float2 bb = *reinterpret_cast<const float2*>(cst.b2 + c);
+      const float2 wa = *reinterpret_cast<const float2*>(cst.watt_act + c);
+      const float2 ga = in && row_a >= 0 ? *reinterpret_cast<const float2*>(dg_a + c) : make_float2(0.f, 0.f);
+      const float2 gb = in && row_b >= 0 ? *reinterpret_cast<const float2*>(dg_b + c) : make_float2(0.f, 0.f);
+      const float g4[4] = {ga.x, ga.y, gb.x, gb.y};
+      const float b4[2] = {bb.x, bb.y}, w4[2] = {wa.x, wa.y};
+      float m4[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool row_a_half = i < 2;
+        const float v = ATT ? d[4 * j + i] : act<BF16>(act<BF16>(d[4 * j + i]) + b4[i % 2]);
+        const float sg = sigmoid_act<BF16>(v);
+        m4[i] = act<BF16>(v * sg);   // silu(v)
+        const float dsv = act<BF16>(sg * act<BF16>(1.0f + act<BF16>(v * act<BF16>(1.0f - sg))));
+        const float dm1 = act<BF16>(act<BF16>(g4[i]) * (row_a_half ? em_a : em_b));
+        const float dm0 = ATT ? act<BF16>(act<BF16>(dm1 * (row_a_half ? att_a : att_b)) +
+                                          act<BF16>((row_a_half ? dza_a : dza_b) * w4[i % 2]))
+                              : dm1;
+        d[4 * j + i] = act<BF16>(dm0 * dsv);
+      }
+      warp_colsum(red_b2, j, d[4 * j] + d[4 * j + 2], d[4 * j + 1] + d[4 * j + 3]);
+      if (ATT)
+        warp_colsum(red_att, j, round_bf16(m4[0]) * dzb_a + round_bf16(m4[2]) * dzb_b,
+                    round_bf16(m4[1]) * dzb_a + round_bf16(m4[3]) * dzb_b);
+      *reinterpret_cast<__nv_bfloat162*>(u + sw128_offset(ra, c, kTileM)) =
+          __floats2bfloat162_rn(d[4 * j], d[4 * j + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(u + sw128_offset(rb, c, kTileM)) =
+          __floats2bfloat162_rn(d[4 * j + 2], d[4 * j + 3]);
+    }
+    if (ATT) {   // db_att: the rows' dza, quad lane 0's copy
+      float z = lane % 4 == 0 ? dza_a + dza_b : 0.0f;
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) z += __shfl_xor_sync(0xffffffffu, z, off);
+      if (lane == 0) red[8 * kMaxH + warp] = z;
+    }
+    fence_proxy_async();   // dv in u's buffer, for wgmma's reads
+    wg_barrier(bar);
+    HD_WG_PHASE(3, clk);
 
-    // dpre = du * silu'(pre), pre rebuilt: column per thread, edges in
-    // batches whose loads go first; the column's tile sums of dpre (db1)
-    // and of bf16(e) bf16(dpre) (dW_e)
+    // du = dv W2^T: the same resident W2 through a transposed descriptor;
+    // the tile's sums and dv to their places meanwhile
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) fence_operand(d[i]);
+    wgmma_fence();
+    for (int s = 0; s < H / 16; ++s)
+      wgmma_m64n256k16<1>(d, sw128_desc(u + sw128_offset(0, 16 * s, kTileM)),
+                          sw128_desc_mn(w2s + sw128_offset(16 * s, 0, kMaxH)));
+    wgmma_commit();
     float* out = a.tile_part + (size_t)tile * tile_part_floats(H, E);
-    if (col) {
-      float s_b1 = 0.0f, s_we[kRegE] = {};
-      for (int t0 = 0; t0 < nv; t0 += kBatch) {
-        float hs[kBatch], hdst[kBatch], ev[kBatch][kRegE];
-#pragma unroll
-        for (int k = 0; k < kBatch; ++k) {
-          const int t = t0 + k;
-          const bool real = t < nv;
-          const int r = real ? m.row[t] : 0, j = real ? m.col[t] : 0;
-          hs[k] = real ? a.proj[(size_t)r * 2 * H + c] : 0.0f;
-          hdst[k] = real ? a.proj[((size_t)(r / N) * N + j) * 2 * H + H + c] : 0.0f;
-#pragma unroll
-          for (int rr = 0; rr < kRegE; ++rr) ev[k][rr] = real && rr < E ? a.e[((size_t)r * N + j) * E + rr] : 0.0f;
-        }
-#pragma unroll
-        for (int k = 0; k < kBatch; ++k) {
-          const int t = t0 + k;
-          if (t >= nv) break;
-          float ep = 0.0f;
-#pragma unroll
-          for (int rr = 0; rr < kRegE; ++rr)
-            if (rr < E) ep += round_bf16(ev[k][rr]) * wreg[rr];
-#pragma unroll 1
-          for (int rr = kRegE; rr < E; ++rr)
-            ep += round_bf16(a.e[((size_t)m.row[t] * N + m.col[t]) * E + rr]) * __bfloat162float(a.we[rr * H + c]);
-          const float pre = pre_act<BF16>(hs[k], hdst[k], ep, bias1);
-          const float dpre = act<BF16>(act<BF16>(stage[t * lds(H) + c]) * dsilu_act<BF16>(pre));
-          us[t * ldu + c] = __float2bfloat16(dpre);
-          a.dpre[(size_t)(p0 + t) * H + c] = dpre;
-          s_b1 += dpre;
-#pragma unroll
-          for (int rr = 0; rr < kRegE; ++rr) s_we[rr] += round_bf16(ev[k][rr]) * round_bf16(dpre);
-        }
-      }
-#pragma unroll
-      for (int rr = 0; rr < kRegE; ++rr)
-        if (rr < E) out[rr * H + c] = s_we[rr];
-      for (int rr = kRegE; rr < E; ++rr) {   // wide E: the rest over the tile again
-        float sum = 0.0f;
-        for (int t = 0; t < nv; ++t)
-          sum += round_bf16(a.e[((size_t)m.row[t] * N + m.col[t]) * E + rr]) * __bfloat162float(us[t * ldu + c]);
-        out[rr * H + c] = sum;
-      }
-      out[E * H + c] = s_b1;
+    flush_colsum(red_b2, out + (E + 1) * H, H);
+    if (ATT) {
+      flush_colsum(red_att, out + (E + 2) * H, H);
+    } else {
+      for (int c = tid; c < H; c += 128) out[(E + 2) * H + c] = 0.0f;
     }
-    __syncthreads();
-    HD_PHASE(5, clk);
+    if (tid == 0)
+      out[(E + 3) * H] = ATT ? ((red[8 * kMaxH] + red[8 * kMaxH + 1]) + red[8 * kMaxH + 2]) + red[8 * kMaxH + 3]
+                             : 0.0f;
+    copy_tile_out(u, a.dv, p0, nv, H, tid);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 128; ++i) fence_operand(d[i]);
+    wg_barrier(bar);   // the sums read out, dv copied out
+    HD_WG_PHASE(4, clk);
 
-    // de = dpre W_e^T: warp per edge; the warps' sums into stage
-    for (int t = warp; t < nv; t += kWarps) {
-      const bf16* drow = us + t * ldu;
-      const size_t q = (size_t)m.row[t] * N + m.col[t];
-      for (int k = 0; k < E; ++k) {
-        float d = 0.0f;
+    // dpre = du * silu'(pre), pre rebuilt in registers, to its list position
+    const int col_a = tm.col[ra], col_b = tm.col[rb];
+    const size_t q_a = row_a >= 0 ? (size_t)row_a * N + col_a : 0;
+    const size_t q_b = row_b >= 0 ? (size_t)row_b * N + col_b : 0;
+    const float* hs_a = a.proj + (size_t)(row_a < 0 ? 0 : row_a) * 2 * H;
+    const float* hs_b = a.proj + (size_t)(row_b < 0 ? 0 : row_b) * 2 * H;
+    const float* hd_a = a.proj + ((size_t)(row_a < 0 ? 0 : row_a) / N * N + col_a) * 2 * H + H;
+    const float* hd_b = a.proj + ((size_t)(row_b < 0 ? 0 : row_b) / N * N + col_b) * 2 * H + H;
+    float ev_a[kRegE], ev_b[kRegE];
 #pragma unroll
-        for (int s = 0; s < kColsPerLane; ++s) {
-          const int cc = lane + 32 * s;
-          if (cc < H) d += __bfloat162float(drow[cc]) * __bfloat162float(a.we[k * H + cc]);
+    for (int r = 0; r < kRegE; ++r) {
+      ev_a[r] = row_a >= 0 && r < E ? round_bf16(a.e[q_a * E + r]) : 0.0f;
+      ev_b[r] = row_b >= 0 && r < E ? round_bf16(a.e[q_b * E + r]) : 0.0f;
+    }
+    float* dpre_a = a.dpre + (size_t)(p0 + ra) * H;
+    float* dpre_b = a.dpre + (size_t)(p0 + rb) * H;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = 8 * j + 2 * (lane % 4);
+      const bool in = c < H;
+      const float2 sa = in && row_a >= 0 ? *reinterpret_cast<const float2*>(hs_a + c) : make_float2(0.f, 0.f);
+      const float2 sb = in && row_b >= 0 ? *reinterpret_cast<const float2*>(hs_b + c) : make_float2(0.f, 0.f);
+      const float2 ta = in && row_a >= 0 ? *reinterpret_cast<const float2*>(hd_a + c) : make_float2(0.f, 0.f);
+      const float2 tb = in && row_b >= 0 ? *reinterpret_cast<const float2*>(hd_b + c) : make_float2(0.f, 0.f);
+      const float2 bias = *reinterpret_cast<const float2*>(cst.b1 + c);
+      float ep[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < kRegE; ++r) {
+        const float2 w = *reinterpret_cast<const float2*>(cst.we[r] + c);
+        ep[0] += ev_a[r] * w.x;
+        ep[1] += ev_a[r] * w.y;
+        ep[2] += ev_b[r] * w.x;
+        ep[3] += ev_b[r] * w.y;
+      }
+      if (E > kRegE && in) {   // wide E (sinusoid embedding): the rest from L1
+        for (int r = kRegE; r < E; ++r) {
+          const float ea = row_a >= 0 ? round_bf16(a.e[q_a * E + r]) : 0.0f;
+          const float eb = row_b >= 0 ? round_bf16(a.e[q_b * E + r]) : 0.0f;
+          const float w0 = __bfloat162float(a.we[r * H + c]), w1 = __bfloat162float(a.we[r * H + c + 1]);
+          ep[0] += ea * w0;
+          ep[1] += ea * w1;
+          ep[2] += eb * w0;
+          ep[3] += eb * w1;
         }
+      }
+      const float hs4[4] = {sa.x, sa.y, sb.x, sb.y}, hd4[4] = {ta.x, ta.y, tb.x, tb.y};
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
-        if (lane == 0) a.de[q * E + k] = d;
+      for (int i = 0; i < 4; ++i) {
+        const float pre = pre_act<BF16>(hs4[i], hd4[i], ep[i], i % 2 ? bias.y : bias.x);
+        d[4 * j + i] = act<BF16>(act<BF16>(d[4 * j + i]) * dsilu_act<BF16>(pre));
+      }
+      if (in && ra < nv) *reinterpret_cast<float2*>(dpre_a + c) = make_float2(d[4 * j], d[4 * j + 1]);
+      if (in && rb < nv) *reinterpret_cast<float2*>(dpre_b + c) = make_float2(d[4 * j + 2], d[4 * j + 3]);
+    }
+    HD_WG_PHASE(5, clk);
+
+    // the tile's sums of dpre (db1) and of bf16(e) bf16(dpre) (dW_e rows),
+    // two at a time; then de = dpre W_e^T, a row dot over each quad
+    for (int q0 = 0; q0 <= E; q0 += 2) {
+#pragma unroll
+      for (int qi = 0; qi < 2; ++qi) {
+        const int qn = q0 + qi;   // 0: db1, 1 + k: row k of dW_e
+        if (qn > E) break;
+        const float ea = qn == 0 || row_a < 0 ? 0.0f : round_bf16(a.e[q_a * E + qn - 1]);
+        const float eb = qn == 0 || row_b < 0 ? 0.0f : round_bf16(a.e[q_b * E + qn - 1]);
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const float x0 = qn == 0 ? d[4 * j] + d[4 * j + 2]
+                                   : ea * round_bf16(d[4 * j]) + eb * round_bf16(d[4 * j + 2]);
+          const float x1 = qn == 0 ? d[4 * j + 1] + d[4 * j + 3]
+                                   : ea * round_bf16(d[4 * j + 1]) + eb * round_bf16(d[4 * j + 3]);
+          warp_colsum(red + qi * 4 * kMaxH, j, x0, x1);
+        }
+      }
+      wg_barrier(bar);
+#pragma unroll
+      for (int qi = 0; qi < 2; ++qi) {
+        const int qn = q0 + qi;
+        if (qn <= E) flush_colsum(red + qi * 4 * kMaxH, out + (qn == 0 ? E : qn - 1) * H, H);
+      }
+      wg_barrier(bar);
+    }
+    for (int k = 0; k < E; ++k) {
+      float s_a = 0.0f, s_b = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int c = 8 * j + 2 * (lane % 4);
+        float w0, w1;
+        if (k < kRegE) {
+          const float2 w = *reinterpret_cast<const float2*>(cst.we[k] + c);
+          w0 = w.x;
+          w1 = w.y;
+        } else {
+          w0 = c < H ? __bfloat162float(a.we[k * H + c]) : 0.0f;
+          w1 = c < H ? __bfloat162float(a.we[k * H + c + 1]) : 0.0f;
+        }
+        s_a += round_bf16(d[4 * j]) * w0 + round_bf16(d[4 * j + 1]) * w1;
+        s_b += round_bf16(d[4 * j + 2]) * w0 + round_bf16(d[4 * j + 3]) * w1;
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        s_a += __shfl_xor_sync(0xffffffffu, s_a, off);
+        s_b += __shfl_xor_sync(0xffffffffu, s_b, off);
+      }
+      if (lane % 4 == 0) {
+        if (row_a >= 0) a.de[q_a * E + k] = s_a;
+        if (row_b >= 0) a.de[q_b * E + k] = s_b;
       }
     }
-    float* red = stage;   // [warp][db2 (H) | dw_att (H)], then [warp] db_att
-#pragma unroll
-    for (int s = 0; s < kColsPerLane; ++s)
-      if (lane + 32 * s < H) {
-        red[warp * 2 * H + lane + 32 * s] = acc_b2[s];
-        red[warp * 2 * H + H + lane + 32 * s] = acc_att[s];
-      }
-    if (lane == 0) red[kWarps * 2 * H + warp] = acc_batt;
-    __syncthreads();
-    // the tile's sums of db2, dw_att and db_att: warps in a fixed order
-    for (int i = threadIdx.x; i < 2 * H + 1; i += blockDim.x) {
-      float sum = 0.0f;
-      if (i < 2 * H)
-        for (int w = 0; w < kWarps; ++w) sum += red[w * 2 * H + i];
-      else
-        for (int w = 0; w < kWarps; ++w) sum += red[kWarps * 2 * H + w];
-      out[(E + 1) * H + i] = sum;
-    }
-    HD_PHASE(6, clk);
+    HD_WG_PHASE(6, clk);
   }
 }
 
@@ -581,12 +687,13 @@ __global__ void node_edge_sums_kernel(const float* __restrict__ dpre, const int*
 }
 
 template <bool BF16, bool ATT>
-cudaError_t launch_bwd_edges(const GclBwdArgs& a, int blocks, cudaStream_t stream) {
-  const int smem = bwd_smem_bytes(a.H);
-  cudaError_t err = cudaFuncSetAttribute(gcl_bwd_edge_kernel<BF16, ATT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+cudaError_t launch_bwd_edges(const GclBwdArgs& a, long long tiles, int max_blocks,
+                             std::atomic<uint64_t>& smem_set, cudaStream_t stream) {
+  const int smem = bwd_edge_smem_bytes();
+  cudaError_t err = smem_limit_once((const void*)gcl_bwd_edge_kernel<BF16, ATT>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  gcl_bwd_edge_kernel<BF16, ATT><<<blocks, kThreads, smem, stream>>>(a);
+  const long long want = (tiles + kEdgeWGs - 1) / kEdgeWGs;
+  gcl_bwd_edge_kernel<BF16, ATT><<<(int)(want < max_blocks ? want : max_blocks), kEdgeThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -602,7 +709,7 @@ struct BwdPlan {
   long long positions, tiles, tile_chunks;
   __host__ BwdPlan(int B, int N) {
     positions = (long long)B * N * N;
-    tiles = (positions + kBwdTileM - 1) / kBwdTileM;
+    tiles = (positions + kTileM - 1) / kTileM;
     tile_chunks = (tiles + kColChunk - 1) / kColChunk;
   }
 };
@@ -733,11 +840,15 @@ extern "C" int hd_fused_gcl_bwd(const float* g, const float* h, const float* e,
   HD_TRY(cudaMemsetAsync(de, 0, sizeof(float) * plan.positions * E, st));
   const GclBwdArgs a{e, emask, proj, we, b1, w2, b2, watt, watt32, batt, dagg, rowstart, edges,
                      u, dv, dpre, de, tile_part, B, N, H, E};
-  const int blocks = (int)(plan.tiles < max_blocks ? plan.tiles : max_blocks);
+  // once-flags per kernel variant, local to this library (see smem_limit_once)
+  static std::atomic<uint64_t> edge_smem_set[4];
+  std::atomic<uint64_t>& set = edge_smem_set[2 * (bf16_act != 0) + (attention != 0)];
   if (bf16_act)
-    err = attention ? launch_bwd_edges<true, true>(a, blocks, st) : launch_bwd_edges<true, false>(a, blocks, st);
+    err = attention ? launch_bwd_edges<true, true>(a, plan.tiles, max_blocks, set, st)
+                    : launch_bwd_edges<true, false>(a, plan.tiles, max_blocks, set, st);
   else
-    err = attention ? launch_bwd_edges<false, true>(a, blocks, st) : launch_bwd_edges<false, false>(a, blocks, st);
+    err = attention ? launch_bwd_edges<false, true>(a, plan.tiles, max_blocks, set, st)
+                    : launch_bwd_edges<false, false>(a, plan.tiles, max_blocks, set, st);
   if (err != cudaSuccess) return (int)err;
 
   // 5. the sums across edges, each in a fixed order
@@ -746,7 +857,7 @@ extern "C" int hd_fused_gcl_bwd(const float* g, const float* h, const float* e,
                     n_edges));                                              // dW2 = U^T dV
   HD_TRY(reduce(split_part, kBwdSplits, hh, hh, g_w2, st));
   HD_TRY(column_sum(tile_part, (int)plan.tiles, tile_part_floats(H, E), tile_chunk_part, g_we, st,
-                    n_edges, kBwdTileM));                                   // dW_e .. db_att
+                    n_edges, kTileM));                                   // dW_e .. db_att
   node_edge_sums_kernel<<<M, kEwThreads, 0, st>>>(dpre, rowstart, posmap, dhs, dhdst, N, H);
   HD_LAUNCHED();
 

@@ -527,7 +527,7 @@ def bwd_edge_grad_floats(hidden: int, e_nf: int) -> int:
 # splits of the dW2 GEMM over list positions (kBwdSplits), rows per
 # column-sum partial (kColChunk), and the alignment of each workspace piece
 # in floats (kWsAlign)
-BWD_TILE_EDGES = 32
+BWD_TILE_EDGES = 64
 BWD_SPLITS = 32
 BWD_COL_CHUNK = 64
 BWD_WS_ALIGN = 64

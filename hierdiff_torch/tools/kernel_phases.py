@@ -54,9 +54,9 @@ COORD_PHASES = ("W2 load and tile setup", "pre-activation build", "W2 product (w
                 "bias, silu, head, tanh and coordinate terms (registers)",
                 "row sums (fixed order)", "grid barrier (waiting for the last block)",
                 "output (x + agg / norm) * nmask")
-BWD_PHASES = ("tile metadata", "pre-activation build, u out", "W2 product (WMMA)",
-              "gate and silu backward, dv out", "du product (WMMA)",
-              "dpre rebuilt, dpre out, its tile sums", "de, the tile's dv and gate sums")
+BWD_PHASES = ("W2 load and tile setup", "pre-activation build", "W2 product (wgmma), u out",
+              "gate and silu backward (registers), dv sums", "du product (wgmma), sums and dv out",
+              "dpre rebuilt (registers), dpre out", "dpre and e^T dpre sums, de")
 # CUDA kernels of csrc/fused_gcl_bwd.cu besides proj_kernel and the work list's
 # two kernels (those share their names with the forward's)
 BACKWARD_KERNELS = ("gcl_bwd_edge_kernel", "gemm_kernel", "node_prep_kernel", "node_act_kernel",
