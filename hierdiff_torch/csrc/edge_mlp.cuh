@@ -1,7 +1,6 @@
 // Shared pieces of the fused EGNN edge kernels: the elementwise numerics
-// (act, silu, sigmoid, pre_act, round_bf16) and limits of all of them, and
-// the WMMA node projection of fused_gcl_bwd.cu (the edge kernels' Hopper
-// pieces are in sm90.cuh).
+// (act, silu, sigmoid, pre_act, round_bf16), the limits of all of them and
+// their phase clocks (their Hopper pieces are in sm90.cuh).
 //
 // The kernels run the same edge pipeline as hierdiff_tpu/ops/egnn_pallas.py
 // `_edge_mlp` (:95): pre_ij = h_i W_src + h_j W_dst + e_ij W_e + b1 -> silu
@@ -89,76 +88,6 @@ template <bool BF16>
 __device__ __forceinline__ float dsilu_act(float x) {
   const float s = sigmoid_act<BF16>(x);
   return act<BF16>(s * act<BF16>(1.0f + act<BF16>(x * act<BF16>(1.0f - s))));
-}
-
-// P[M, NC] = bf16(A[M, K]) @ W[K, NC] (bf16, row-major), f32 out: the node
-// halves of the pair linear, [h W_src | h W_dst], for every node at once.
-constexpr int kProjTile = 64;
-constexpr int kProjK = 32;
-constexpr int kProjThreads = 128;
-
-__global__ void __launch_bounds__(kProjThreads)
-proj_kernel(const float* __restrict__ a, const bf16* __restrict__ w,
-            float* __restrict__ p, int M, int K, int NC) {
-  __shared__ __align__(128) bf16 as[kProjTile][kProjK + 8];
-  __shared__ __align__(128) bf16 bs[kProjK][kProjTile + 8];
-  __shared__ __align__(128) float cs[kProjTile][kProjTile + 4];
-  const int row0 = blockIdx.x * kProjTile, col0 = blockIdx.y * kProjTile;
-  const int warp = threadIdx.x / 32;
-  const int wr = warp / 2, wc = warp % 2;   // each warp owns a 32 x 32 quadrant
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < K; k0 += kProjK) {
-    for (int idx = threadIdx.x; idx < kProjTile * kProjK; idx += kProjThreads) {
-      const int r = idx / kProjK, k = idx % kProjK;
-      const int gr = row0 + r, gk = k0 + k;
-      as[r][k] = __float2bfloat16(gr < M && gk < K ? a[(size_t)gr * K + gk] : 0.0f);
-    }
-    for (int idx = threadIdx.x; idx < kProjK * kProjTile; idx += kProjThreads) {
-      const int k = idx / kProjTile, c = idx % kProjTile;
-      const int gk = k0 + k, gc = col0 + c;
-      bs[k][c] = gk < K && gc < NC ? w[(size_t)gk * NC + gc] : __float2bfloat16(0.0f);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kProjK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &as[wr * 32 + i * 16][kk], kProjK + 8);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &bs[kk][wc * 32 + j * 16], kProjTile + 8);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&cs[wr * 32 + i * 16][wc * 32 + j * 16], acc[i][j],
-                              kProjTile + 4, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kProjTile * kProjTile; idx += kProjThreads) {
-    const int r = idx / kProjTile, c = idx % kProjTile;
-    if (row0 + r < M && col0 + c < NC) p[(size_t)(row0 + r) * NC + col0 + c] = cs[r][c];
-  }
-}
-
-inline cudaError_t launch_proj(const float* h, const bf16* wsd, float* proj, int M, int H,
-                               cudaStream_t stream) {
-  const dim3 grid((M + kProjTile - 1) / kProjTile, (2 * H + kProjTile - 1) / kProjTile);
-  proj_kernel<<<grid, kProjThreads, 0, stream>>>(h, wsd, proj, M, H, 2 * H);
-  return cudaGetLastError();
 }
 
 // pre = ((hs_i + hd_j) + e_ij W_e) + b1, each step rounded to the act dtype

@@ -26,7 +26,8 @@
 // and holds no sum across its tiles; every sum across tiles is a
 // fixed-order reduction outside it, over list positions or tiles. Launches
 // on the caller's stream behind one C entry point:
-//   1. proj_kernel: [h W_src | h W_dst] for every node (as the forward).
+//   1. proj_sm90_kernel (sm90.cuh, as fused_coord.cu launches it):
+//      [h W_src | h W_dst] for every node, on wgmma.
 //   2. The node-MLP backward, row-parallel: z1 = [h, agg] Wn1 + bn1 is
 //      rematerialised from the saved agg, then do1 = g2 Wn2^T, dz1, dcat =
 //      dz1 Wn1^T, giving dh's direct part and dagg. Products run in this
@@ -78,16 +79,33 @@ constexpr int kColChunk = 64;        // rows per partial column sum
 // bf16); B[k][n] = Bm[k * ldb + n] (f32 or bf16). Split z covers K rows
 // [z * k_chunk, (z + 1) * k_chunk) and writes C + z * split_stride. With
 // k_dev, K is read from the device (*k_dev): splits past it write zeros.
+// Global memory is read in 16-byte vectors (A, Bm, lda, ldb and k_chunk
+// aligned to them), a k-step's loads issued while the step before is on the
+// tensor cores.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ bf16 to_bf16(float v) { return __float2bfloat16(v); }
 __device__ __forceinline__ bf16 to_bf16(bf16 v) { return v; }
+
+// The 16-byte vector of T at p + i, i < n; elements past n are zero.
+template <typename T>
+__device__ __forceinline__ uint4 load_vec(const T* __restrict__ p, int n) {
+  constexpr int V = 16 / sizeof(T);
+  if (n >= V) return *reinterpret_cast<const uint4*>(p);
+  uint4 r = make_uint4(0, 0, 0, 0);
+  T* e = reinterpret_cast<T*>(&r);
+  for (int i = 0; i < n; ++i) e[i] = p[i];
+  return r;
+}
 
 template <bool TA, typename TAe, typename TB>
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_kernel(const TAe* __restrict__ A, const TB* __restrict__ Bm, float* __restrict__ C,
             int M, int Nc, int K, int lda, int ldb, int ldc, int k_chunk, size_t split_stride,
             int accumulate, const int* __restrict__ k_dev) {
+  constexpr int VA = 16 / sizeof(TAe), VB = 16 / sizeof(TB);      // elements per vector
+  constexpr int kAV = kGemmTile * kGemmK / VA / kGemmThreads;       // vectors per thread and k-step
+  constexpr int kBV = kGemmK * kGemmTile / VB / kGemmThreads;
   __shared__ __align__(128) bf16 as[kGemmTile][kGemmK + 8];
   __shared__ __align__(128) bf16 bs[kGemmK][kGemmTile + 8];
   __shared__ __align__(128) float cs[kGemmTile][kGemmTile + 4];
@@ -103,22 +121,59 @@ gemm_kernel(const TAe* __restrict__ A, const TB* __restrict__ Bm, float* __restr
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
+  // vector v of the A tile: TA, k-row v / (64 / VA) and VA rows of op(A)
+  // from m = VA * (v % (64 / VA)); otherwise row v / (32 / VA) and VA k's.
+  // Vector v of the B tile: k-row v / (64 / VB), VB columns.
+  uint4 ra[kAV], rb[kBV];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < kAV; ++i) {
+      const int v = threadIdx.x + i * kGemmThreads;
+      if (TA) {
+        const int gk = k0 + v / (kGemmTile / VA), gm = row0 + VA * (v % (kGemmTile / VA));
+        ra[i] = load_vec(A + (size_t)gk * lda + gm, gk < ke ? min(VA, M - gm) : 0);
+      } else {
+        const int gm = row0 + v / (kGemmK / VA), gk = k0 + VA * (v % (kGemmK / VA));
+        ra[i] = load_vec(A + (size_t)gm * lda + gk, gm < M ? min(VA, ke - gk) : 0);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBV; ++i) {
+      const int v = threadIdx.x + i * kGemmThreads;
+      const int gk = k0 + v / (kGemmTile / VB), gc = col0 + VB * (v % (kGemmTile / VB));
+      rb[i] = load_vec(Bm + (size_t)gk * ldb + gc, gk < ke ? min(VB, Nc - gc) : 0);
+    }
+  };
+  auto store = [&]() {
+#pragma unroll
+    for (int i = 0; i < kAV; ++i) {
+      const int v = threadIdx.x + i * kGemmThreads;
+      const TAe* e = reinterpret_cast<const TAe*>(&ra[i]);
+      if (TA) {
+        const int k = v / (kGemmTile / VA), m = VA * (v % (kGemmTile / VA));
+#pragma unroll
+        for (int j = 0; j < VA; ++j) as[m + j][k] = to_bf16(e[j]);
+      } else {
+        const int m = v / (kGemmK / VA), k = VA * (v % (kGemmK / VA));
+#pragma unroll
+        for (int j = 0; j < VA; ++j) as[m][k + j] = to_bf16(e[j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBV; ++i) {
+      const int v = threadIdx.x + i * kGemmThreads;
+      const TB* e = reinterpret_cast<const TB*>(&rb[i]);
+      const int k = v / (kGemmTile / VB), c = VB * (v % (kGemmTile / VB));
+#pragma unroll
+      for (int j = 0; j < VB; ++j) bs[k][c + j] = to_bf16(e[j]);
+    }
+  };
+
+  if (kb < ke) load(kb);
   for (int k0 = kb; k0 < ke; k0 += kGemmK) {
-    for (int idx = threadIdx.x; idx < kGemmTile * kGemmK; idx += kGemmThreads) {
-      int r, k;
-      if (TA) { k = idx / kGemmTile; r = idx % kGemmTile; }   // neighbours read neighbours
-      else { r = idx / kGemmK; k = idx % kGemmK; }
-      const int gr = row0 + r, gk = k0 + k;
-      bf16 v = __float2bfloat16(0.0f);
-      if (gr < M && gk < ke) v = to_bf16(TA ? A[(size_t)gk * lda + gr] : A[(size_t)gr * lda + gk]);
-      as[r][k] = v;
-    }
-    for (int idx = threadIdx.x; idx < kGemmK * kGemmTile; idx += kGemmThreads) {
-      const int k = idx / kGemmTile, c = idx % kGemmTile;
-      const int gk = k0 + k, gc = col0 + c;
-      bs[k][c] = gk < ke && gc < Nc ? to_bf16(Bm[(size_t)gk * ldb + gc]) : __float2bfloat16(0.0f);
-    }
+    store();
     __syncthreads();
+    if (k0 + kGemmK < ke) load(k0 + kGemmK);   // in flight during this step's products
 #pragma unroll
     for (int kk = 0; kk < kGemmK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
@@ -150,13 +205,20 @@ gemm_kernel(const TAe* __restrict__ A, const TB* __restrict__ Bm, float* __restr
   }
 }
 
+// Rows of K per split: ceil(K / splits), rounded up to whole k-steps (so
+// every split starts on a 16-byte vector).
+inline int split_rows(int K, int splits) {
+  const int rows = (K + splits - 1) / splits;
+  return (rows + kGemmK - 1) / kGemmK * kGemmK;
+}
+
 template <bool TA, typename TAe, typename TB>
 cudaError_t gemm(const TAe* A, const TB* Bm, float* C, int M, int Nc, int K, int lda, int ldb,
                  int ldc, int splits, bool accumulate, cudaStream_t st, const int* k_dev = nullptr) {
-  const int k_chunk = (K + splits - 1) / splits;
   const dim3 grid((M + kGemmTile - 1) / kGemmTile, (Nc + kGemmTile - 1) / kGemmTile, splits);
-  gemm_kernel<TA, TAe, TB><<<grid, kGemmThreads, 0, st>>>(A, Bm, C, M, Nc, K, lda, ldb, ldc, k_chunk,
-                                                          (size_t)M * ldc, accumulate ? 1 : 0, k_dev);
+  gemm_kernel<TA, TAe, TB><<<grid, kGemmThreads, 0, st>>>(A, Bm, C, M, Nc, K, lda, ldb, ldc,
+                                                          split_rows(K, splits), (size_t)M * ldc,
+                                                          accumulate ? 1 : 0, k_dev);
   return cudaGetLastError();
 }
 
@@ -749,9 +811,9 @@ extern "C" long long hd_fused_gcl_bwd_workspace(int B, int N, int H, int E) {
 }
 
 // Backward of hd_fused_gcl. Weight operands are the bf16 copies the forward
-// uses (wsd = [W_src | W_dst], we, w2, watt, nw1) plus the transposed bf16
-// copies of the backward (nw1t = Wn1^T (H x 2H), nw2t = Wn2^T, wsrct =
-// W_src^T, wdstt = W_dst^T) and the f32 gate weights watt32. ws holds
+// uses (we, w2, watt, nw1; nw1t = Wn1^T (H x 2H), nw2t = Wn2^T, wsrct =
+// W_src^T, wdstt = W_dst^T) and the f32 gate weights watt32. h must be
+// 16-byte aligned (the GEMMs read it in vectors). ws holds
 // hd_fused_gcl_bwd_workspace(B, N, H, E) floats. Outputs: dh (B,N,H), de
 // (B,N,N,E) and `grads`, laid out as
 //   [dW2 (H x H, in x out) | dW_e (E x H) | db1 | db2 | dw_att | db_att (1)
@@ -759,7 +821,7 @@ extern "C" long long hd_fused_gcl_bwd_workspace(int B, int N, int H, int E) {
 //    | dWn1 (2H x H) | dbn1 | dWn2 (H x H) | dbn2].
 extern "C" int hd_fused_gcl_bwd(const float* g, const float* h, const float* e,
                                 const float* emask, const float* nmask, const float* agg,
-                                const hd::bf16* wsd, const hd::bf16* we, const float* b1,
+                                const hd::bf16* we, const float* b1,
                                 const hd::bf16* w2, const float* b2, const hd::bf16* watt,
                                 const float* watt32, const float* batt, const hd::bf16* nw1,
                                 const float* nb1, const hd::bf16* nw1t, const hd::bf16* nw2t,
@@ -815,8 +877,13 @@ extern "C" int hd_fused_gcl_bwd(const float* g, const float* h, const float* e,
 #define HD_TRY(call) do { err = (call); if (err != cudaSuccess) return (int)err; } while (0)
 #define HD_LAUNCHED() HD_TRY(cudaGetLastError())
 
-  // 1-2. node projections and the node-MLP backward
-  HD_TRY(launch_proj(h, wsd, proj, M, H, st));
+  // 1-2. node projections and the node-MLP backward; the once-flags live
+  // here, local to this library (see smem_limit_once)
+  static std::atomic<uint64_t> proj_smem_set{0}, edge_smem_set[4];
+  HD_TRY(smem_limit_once((const void*)proj_sm90_kernel, node_smem_bytes(), proj_smem_set));
+  proj_sm90_kernel<<<dim3((M + kRowTile - 1) / kRowTile, 2), kNodeThreads, node_smem_bytes(), st>>>(
+      h, wsrct, wdstt, nullptr, proj, nullptr, M, H);
+  HD_LAUNCHED();
   node_prep_kernel<<<ew_blocks(nh), kEwThreads, 0, st>>>(h, agg, g, nmask, cat, g2, M, H);
   HD_LAUNCHED();
   HD_TRY(gemm<false>(cat, nw1, z1, M, H, 2 * H, 2 * H, H, H, 1, false, st));
@@ -840,8 +907,6 @@ extern "C" int hd_fused_gcl_bwd(const float* g, const float* h, const float* e,
   HD_TRY(cudaMemsetAsync(de, 0, sizeof(float) * plan.positions * E, st));
   const GclBwdArgs a{e, emask, proj, we, b1, w2, b2, watt, watt32, batt, dagg, rowstart, edges,
                      u, dv, dpre, de, tile_part, B, N, H, E};
-  // once-flags per kernel variant, local to this library (see smem_limit_once)
-  static std::atomic<uint64_t> edge_smem_set[4];
   std::atomic<uint64_t>& set = edge_smem_set[2 * (bf16_act != 0) + (attention != 0)];
   if (bf16_act)
     err = attention ? launch_bwd_edges<true, true>(a, plan.tiles, max_blocks, set, st)

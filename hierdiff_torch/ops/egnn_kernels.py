@@ -237,7 +237,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _GCL_ARGTYPES = [_P] * 24 + [_I, _I, _I, _I, _F, _I, _I, _I, _P]
 _COORD_ARGTYPES = [_P] * 20 + [_I, _I, _I, _I, _F, _F, _I, _I, _I, _P]
-_BWD_ARGTYPES = [_P] * 24 + [_I, _I, _I, _I, _F, _I, _I, _I, _P]
+_BWD_ARGTYPES = [_P] * 23 + [_I, _I, _I, _I, _F, _I, _I, _I, _P]
 _num_sms: Dict[int, int] = {}
 
 
@@ -290,8 +290,6 @@ def _gcl_kernel_weights(layer) -> dict:
     w = _pair_kernel_weights(layer.edge_mlp[0], layer.edge_mlp[2])
     w["w2"] = _bf16(layer.edge_mlp[2].weight.t())   # (in, out)
     hidden = w["w2"].shape[0]
-    w_src, w_dst, _ = _pair_weights(layer.edge_mlp[0])
-    w["wsd"] = _bf16(torch.cat([w_src, w_dst], dim=1))   # the backward's projection
     if layer.attention:
         w["watt"] = _bf16(layer.att_mlp[0].weight.reshape(hidden))
         w["watt32"] = _f32(layer.att_mlp[0].weight.reshape(hidden))   # backward's dm0 term
@@ -523,12 +521,13 @@ def bwd_edge_grad_floats(hidden: int, e_nf: int) -> int:
     return (hidden * hidden + e_nf * hidden + 3 * hidden + 1 + 7) // 8 * 8
 
 
-# csrc/fused_gcl_bwd.cu: edges per tile of the edge kernel (kBwdTileM),
-# splits of the dW2 GEMM over list positions (kBwdSplits), rows per
-# column-sum partial (kColChunk), and the alignment of each workspace piece
-# in floats (kWsAlign)
+# csrc/fused_gcl_bwd.cu: edges per tile of the edge kernel (kTileM),
+# splits of the dW2 GEMM over list positions (kBwdSplits) in whole GEMM
+# k-steps (kGemmK), rows per column-sum partial (kColChunk), and the
+# alignment of each workspace piece in floats (kWsAlign)
 BWD_TILE_EDGES = 64
 BWD_SPLITS = 32
+BWD_GEMM_K = 32
 BWD_COL_CHUNK = 64
 BWD_WS_ALIGN = 64
 
@@ -543,14 +542,16 @@ def gcl_bwd_plan(b: int, n: int) -> Dict[str, int]:
     of e^T dpre, dpre, dv, m0 dza and dza (dW_e, db1, db2, dw_att, db_att),
     summed over tiles in chunks of ``BWD_COL_CHUNK`` and the chunks in
     order. dW2 = U^T dV is a split-K GEMM: split z sums the real edges among
-    positions [z * split_rows, (z + 1) * split_rows), the splits in order.
+    positions [z * split_rows, (z + 1) * split_rows), split_rows in whole
+    k-steps of ``BWD_GEMM_K``, the splits in order.
     dhs: each source row's list segment in order; dh_dst[b, j]: i = 0 ..
     n-1 in order, through the list position of edge (b, i, j)."""
     _edge_list_sizes("fused_gcl_bwd", b, n)   # the int32 guard
     positions = b * n * n
     tiles = -(-positions // BWD_TILE_EDGES)
+    split_rows = -(-positions // BWD_SPLITS)
     return {"positions": positions, "tiles": tiles, "tile_chunks": -(-tiles // BWD_COL_CHUNK),
-            "splits": BWD_SPLITS, "split_rows": -(-positions // BWD_SPLITS)}
+            "splits": BWD_SPLITS, "split_rows": -(-split_rows // BWD_GEMM_K) * BWD_GEMM_K}
 
 
 def _wgrad_splits(rows: int) -> int:
@@ -636,6 +637,8 @@ def _launch_gcl_bwd(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor, node
     _check_gcl_inputs(layer, h, edge_attr, edge_mask, node_mask, device)
     _check("g", g, h.shape, device)
     _check("agg", agg, h.shape, device)
+    if h.data_ptr() % 16:
+        raise ValueError("fused_gcl_bwd reads h in 16-byte vectors: h must be 16-byte aligned")
     b, n, hidden = h.shape
     e_nf = edge_attr.shape[-1]
     ws_floats = gcl_bwd_workspace_floats(b, n, hidden, e_nf)   # raises past int32 list positions
@@ -650,7 +653,7 @@ def _launch_gcl_bwd(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor, node
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _entry("fused_gcl_bwd", phase_clocks)(
         g.data_ptr(), h.data_ptr(), edge_attr.data_ptr(), edge_mask.data_ptr(),
-        node_mask.data_ptr(), agg.data_ptr(), w["wsd"].data_ptr(), w["we"].data_ptr(),
+        node_mask.data_ptr(), agg.data_ptr(), w["we"].data_ptr(),
         w["b1"].data_ptr(), w["w2"].data_ptr(), w["b2"].data_ptr(), w["watt"].data_ptr(),
         w["watt32"].data_ptr(), w["batt"].data_ptr(), w["nw1"].data_ptr(), w["nb1"].data_ptr(),
         w["nw1t"].data_ptr(), w["nw2t"].data_ptr(), w["wsrct"].data_ptr(),

@@ -241,19 +241,21 @@ def test_cpu_wrappers_take_the_plain_version_and_do_not_count():
 
 
 def test_kernel_weight_layout_and_cache_invalidation():
-    """The cached kernel operands are the pair linear's W_src | W_dst and
-    W_e, W2 and the node MLP, transposed to (in, out) and cast to bf16. The
+    """The cached kernel operands are the pair linear's W_src and W_dst
+    halves (nn.Linear layout, as the projection kernel reads them), and W_e,
+    W2 and the node MLP, transposed to (in, out), all cast to bf16. The
     cache is reused while the parameters stand still and rebuilt after an
     in-place update (mul_, an optimizer step, load_state_dict) or .to()."""
     _, _, port, _ = _gcl_pair(32, 2, True)
     cached = lambda: ek._cached_weights(port, ek._gcl_kernel_weights, torch.device("cpu"))  # noqa: E731
     w = cached()
     w0 = port.edge_mlp[0].weight.detach()
-    assert torch.equal(w["wsd"], torch.cat([w0[:, :32].t(), w0[:, 32:64].t()], 1).bfloat16())
+    assert torch.equal(w["wsrct"], w0[:, :32].bfloat16())
+    assert torch.equal(w["wdstt"], w0[:, 32:64].bfloat16())
     assert torch.equal(w["we"], w0[:, 64:].t().bfloat16())
     assert torch.equal(w["w2"], port.edge_mlp[2].weight.detach().t().bfloat16())
     assert torch.equal(w["nw1"], port.node_mlp[0].weight.detach().t().bfloat16())
-    assert w["wsd"].is_contiguous() and w["nw1"].is_contiguous()
+    assert w["wsrct"].is_contiguous() and w["wdstt"].is_contiguous() and w["nw1"].is_contiguous()
     assert cached() is w
 
     with torch.no_grad():
@@ -333,7 +335,7 @@ def test_gcl_bwd_workspace_sizes(n):
     plan = ek.gcl_bwd_plan(b, n)
     tiles = -(-pos // ek.BWD_TILE_EDGES)
     assert plan == {"positions": pos, "tiles": tiles, "tile_chunks": -(-tiles // 64),
-                    "splits": 32, "split_rows": -(-pos // 32)}
+                    "splits": 32, "split_rows": -(-pos // 32 // 32) * 32}
     ws = ek.gcl_bwd_workspace(b, n, hid, e_nf)
     assert list(ws)[:3] == ["proj", "cat", "dcat"] and ws["proj"] == rows * 2 * hid
     assert all(ws[k] == rows * hid for k in ("z1", "o1", "g2", "do1", "dz1", "dagg", "dhs", "dhdst"))
