@@ -66,7 +66,7 @@
 
 namespace hd {
 
-constexpr int kBwdSplits = 32;       // splits of the dW2 GEMM over list positions
+constexpr int kBwdSplits = 128;      // splits of the dW2 GEMM over list positions
 constexpr int kGemmTile = 64;        // output tile of the generic GEMM
 constexpr int kGemmK = 32;
 constexpr int kGemmThreads = 128;
@@ -294,9 +294,12 @@ __global__ void colsum_kernel(const float* __restrict__ x, int rows, int cols,
   parts[(size_t)blockIdx.y * cols + c] = s;
 }
 
-// out[i] = sum over z = 0, 1, ... of parts[z * stride + i]
+// out[i] = sum over z = 0, 1, ... of parts[z * stride + i]; with count_dev,
+// z only up to ceil(*count_dev / per) (the parts past it hold zeros).
 __global__ void reduce_kernel(const float* __restrict__ parts, int count, size_t stride,
-                              size_t size, float* __restrict__ out) {
+                              size_t size, float* __restrict__ out, const int* __restrict__ count_dev,
+                              int per) {
+  if (count_dev != nullptr) count = min(count, (*count_dev + per - 1) / per);
   HD_GRID_STRIDE(i, size) {
     float s = 0.0f;
     for (int z = 0; z < count; ++z) s += parts[z * stride + i];
@@ -305,8 +308,8 @@ __global__ void reduce_kernel(const float* __restrict__ parts, int count, size_t
 }
 
 cudaError_t reduce(const float* parts, int count, size_t stride, size_t size, float* out,
-                   cudaStream_t st) {
-  reduce_kernel<<<ew_blocks(size), kEwThreads, 0, st>>>(parts, count, stride, size, out);
+                   cudaStream_t st, const int* count_dev = nullptr, int per = 1) {
+  reduce_kernel<<<ew_blocks(size), kEwThreads, 0, st>>>(parts, count, stride, size, out, count_dev, per);
   return cudaGetLastError();
 }
 
@@ -920,7 +923,8 @@ extern "C" int hd_fused_gcl_bwd(const float* g, const float* h, const float* e,
   const size_t hh = (size_t)H * H;
   HD_TRY(gemm<true>(u, dv, split_part, H, H, (int)plan.positions, H, H, H, kBwdSplits, false, st,
                     n_edges));                                              // dW2 = U^T dV
-  HD_TRY(reduce(split_part, kBwdSplits, hh, hh, g_w2, st));
+  HD_TRY(reduce(split_part, kBwdSplits, hh, hh, g_w2, st, n_edges,
+                split_rows((int)plan.positions, kBwdSplits)));
   HD_TRY(column_sum(tile_part, (int)plan.tiles, tile_part_floats(H, E), tile_chunk_part, g_we, st,
                     n_edges, kTileM));                                   // dW_e .. db_att
   node_edge_sums_kernel<<<M, kEwThreads, 0, st>>>(dpre, rowstart, posmap, dhs, dhdst, N, H);

@@ -526,7 +526,7 @@ def bwd_edge_grad_floats(hidden: int, e_nf: int) -> int:
 # k-steps (kGemmK), rows per column-sum partial (kColChunk), and the
 # alignment of each workspace piece in floats (kWsAlign)
 BWD_TILE_EDGES = 64
-BWD_SPLITS = 32
+BWD_SPLITS = 128
 BWD_GEMM_K = 32
 BWD_COL_CHUNK = 64
 BWD_WS_ALIGN = 64

@@ -335,7 +335,7 @@ def test_gcl_bwd_workspace_sizes(n):
     plan = ek.gcl_bwd_plan(b, n)
     tiles = -(-pos // ek.BWD_TILE_EDGES)
     assert plan == {"positions": pos, "tiles": tiles, "tile_chunks": -(-tiles // 64),
-                    "splits": 32, "split_rows": -(-pos // 32 // 32) * 32}
+                    "splits": 128, "split_rows": -(-(-(-pos // 128)) // 32) * 32}
     ws = ek.gcl_bwd_workspace(b, n, hid, e_nf)
     assert list(ws)[:3] == ["proj", "cat", "dcat"] and ws["proj"] == rows * 2 * hid
     assert all(ws[k] == rows * hid for k in ("z1", "o1", "g2", "do1", "dz1", "dagg", "dhs", "dhdst"))
@@ -344,7 +344,7 @@ def test_gcl_bwd_workspace_sizes(n):
     assert ws["totals"] == -(-rows // ek.GCL_LIST_ROWS)
     assert ws["tile_part"] == tiles * ((e_nf + 3) * hid + 1)
     assert ws["tile_chunk_part"] == plan["tile_chunks"] * ((e_nf + 3) * hid + 1)
-    assert ws["split_part"] == max(32 * hid * hid, min(32, -(-rows // 256)) * 2 * hid * hid)
+    assert ws["split_part"] == max(128 * hid * hid, min(32, -(-rows // 256)) * 2 * hid * hid)
     assert ws["col_part"] == -(-rows // 64) * 2 * hid
     total = ek.gcl_bwd_workspace_floats(b, n, hid, e_nf)
     assert total == 64 + sum(-(-v // 64) * 64 for v in ws.values())
