@@ -50,6 +50,7 @@ Phases, one output line each, any failure exits non-zero:
      kernel only) must each push a gradient over its bar; the edge slots
      its edge kernel computes (phase-clock build) must equal nnz(edge_mask)
      rounded up to the last tile, at the kernel and the sampler's shapes;
+     the C entry's workspace size must equal the wrapper's Python mirror;
      kernel, plain and bound times at both shapes;
   3. E(3) equivariance of the full-width DenseEGNN forward on the card;
   4. the sampling path: the ``coarse`` CLI at the GEOM configuration (H=256,
@@ -386,8 +387,6 @@ def main() -> None:
     torch.set_grad_enabled(False)
     rng = np.random.default_rng(SEED)
     h, x, e, cdiff, em, nm, counts = layer_inputs(rng, device, B, N, H)
-    c = counts.astype(np.int64)
-    n_edges, n_nodes = float((c * (c - 1)).sum()), float(c.sum())
     results = {}
     gcl_extra = {}
 
@@ -682,6 +681,14 @@ def main() -> None:
             {"fault": fault, "rel_err": errs[worst][1], "caught_by": worst})
         if not seen:
             fail(f"the fused_gcl_bwd check cannot see the planted fault: {fault}")
+
+    # the workspace: the C entry's size against the wrapper's Python mirror
+    ws_size = ek._entry("fused_gcl_bwd_workspace", False)
+    ws_sizes = {f"B={b_} N={n_}": (int(ws_size(b_, n_, H, E)), ek.gcl_bwd_workspace_floats(b_, n_, H, E))
+                for b_, n_ in ((B, N), (B, s_n), (len(big_counts), 83), (len(tiny_counts), 16), (B, 1))}
+    print(f"fused_gcl_bwd workspace floats, C entry against the Python mirror: {ws_sizes}")
+    if any(c_ != py_ for c_, py_ in ws_sizes.values()):
+        fail(f"fused_gcl_bwd's workspace size differs between C and Python: {ws_sizes}")
 
     # edge slots computed against nnz(edge_mask), device times at the sampler's shape
     s_args = cases[f"sampler shape B={B} N={s_n}"]

@@ -543,9 +543,9 @@ def gcl_bwd_plan(b: int, n: int) -> Dict[str, int]:
     summed over tiles in chunks of ``BWD_COL_CHUNK`` and the chunks in
     order. dW2 = U^T dV is a split-K GEMM: split z sums the real edges among
     positions [z * split_rows, (z + 1) * split_rows), split_rows in whole
-    k-steps of ``BWD_GEMM_K``, the splits in order.
-    dhs: each source row's list segment in order; dh_dst[b, j]: i = 0 ..
-    n-1 in order, through the list position of edge (b, i, j)."""
+    k-steps of ``BWD_GEMM_K``, the splits in order. dhs: each source row's
+    list segment in order; dh_dst[b, j]: i = 0 .. n-1 in order, through the
+    list position of edge (b, i, j)."""
     _edge_list_sizes("fused_gcl_bwd", b, n)   # the int32 guard
     positions = b * n * n
     tiles = -(-positions // BWD_TILE_EDGES)
@@ -567,10 +567,11 @@ def gcl_bwd_workspace(b: int, n: int, hidden: int, e_nf: int) -> Dict[str, int]:
     (f32), ``posmap`` (int32, the list position of each dense edge), the work
     list (int32), the per-tile sums (dW_e, db1, db2, dw_att, db_att) and
     their chunk sums, the split-K partials (dW2's and the node-level
-    wgrads' share one buffer) and the node column-sum partials. Sized by b*n*n, so
-    the host needs no count. List positions are int32 (``gcl_bwd_plan``
-    raises past them); element and byte offsets are 64-bit in the kernels
-    (dpre alone holds 1.13e8 elements, 451 MB, at b=64, n=83, h=256)."""
+    wgrads' share one buffer) and the node column-sum partials. Sized by
+    b*n*n, so the host needs no count. List positions are int32
+    (``gcl_bwd_plan`` raises past them); element and byte offsets are 64-bit
+    in the kernels (dpre alone holds 1.13e8 elements, 451 MB, at b=64,
+    n=83, h=256)."""
     plan = gcl_bwd_plan(b, n)
     rows, pos = b * n, plan["positions"]
     tile_floats = (e_nf + 3) * hidden + 1
