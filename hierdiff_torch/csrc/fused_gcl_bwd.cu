@@ -566,35 +566,11 @@ __global__ void __launch_bounds__(kEdgeThreads, 1) gcl_bwd_edge_kernel(GclBwdArg
     wg_barrier(bar);
     HD_WG_PHASE(3, clk);
 
-    // du = dv W2^T: the same resident W2 through a transposed descriptor;
-    // the tile's sums and dv to their places meanwhile
-#pragma unroll
-    for (int i = 0; i < 128; ++i) d[i] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < 128; ++i) fence_operand(d[i]);
-    wgmma_fence();
-    for (int s = 0; s < H / 16; ++s)
-      wgmma_m64n256k16<1>(d, sw128_desc(u + sw128_offset(0, 16 * s, kTileM)),
-                          sw128_desc_mn(w2s + sw128_offset(16 * s, 0, kMaxH)));
-    wgmma_commit();
+    // du = dv W2^T, through a transposed descriptor of the same resident W2,
+    // and everything after it, in two halves of 128 columns: 64 accumulators
+    // a thread leave registers for the loads of the rebuild. The tile's
+    // sums and dv go to their places during the first half's product.
     float* out = a.tile_part + (size_t)tile * tile_part_floats(H, E);
-    flush_colsum(red_b2, out + (E + 1) * H, H);
-    if (ATT) {
-      flush_colsum(red_att, out + (E + 2) * H, H);
-    } else {
-      for (int c = tid; c < H; c += 128) out[(E + 2) * H + c] = 0.0f;
-    }
-    if (tid == 0)
-      out[(E + 3) * H] = ATT ? ((red[8 * kMaxH] + red[8 * kMaxH + 1]) + red[8 * kMaxH + 2]) + red[8 * kMaxH + 3]
-                             : 0.0f;
-    copy_tile_out(u, a.dv, p0, nv, H, tid);
-    wgmma_wait<0>();
-#pragma unroll
-    for (int i = 0; i < 128; ++i) fence_operand(d[i]);
-    wg_barrier(bar);   // the sums read out, dv copied out
-    HD_WG_PHASE(4, clk);
-
-    // dpre = du * silu'(pre), pre rebuilt in registers, to its list position
     const int col_a = tm.col[ra], col_b = tm.col[rb];
     const size_t q_a = row_a >= 0 ? (size_t)row_a * N + col_a : 0;
     const size_t q_b = row_b >= 0 ? (size_t)row_b * N + col_b : 0;
@@ -610,100 +586,138 @@ __global__ void __launch_bounds__(kEdgeThreads, 1) gcl_bwd_edge_kernel(GclBwdArg
     }
     float* dpre_a = a.dpre + (size_t)(p0 + ra) * H;
     float* dpre_b = a.dpre + (size_t)(p0 + rb) * H;
+    for (int half = 0; half < 2; ++half) {
+      const int c0 = 128 * half;
+      float d2[64];
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = 8 * j + 2 * (lane % 4);
-      const bool in = c < H;
-      const float2 sa = in && row_a >= 0 ? *reinterpret_cast<const float2*>(hs_a + c) : make_float2(0.f, 0.f);
-      const float2 sb = in && row_b >= 0 ? *reinterpret_cast<const float2*>(hs_b + c) : make_float2(0.f, 0.f);
-      const float2 ta = in && row_a >= 0 ? *reinterpret_cast<const float2*>(hd_a + c) : make_float2(0.f, 0.f);
-      const float2 tb = in && row_b >= 0 ? *reinterpret_cast<const float2*>(hd_b + c) : make_float2(0.f, 0.f);
-      const float2 bias = *reinterpret_cast<const float2*>(cst.b1 + c);
-      float ep[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int i = 0; i < 64; ++i) d2[i] = 0.0f;
 #pragma unroll
-      for (int r = 0; r < kRegE; ++r) {
-        const float2 w = *reinterpret_cast<const float2*>(cst.we[r] + c);
-        ep[0] += ev_a[r] * w.x;
-        ep[1] += ev_a[r] * w.y;
-        ep[2] += ev_b[r] * w.x;
-        ep[3] += ev_b[r] * w.y;
-      }
-      if (E > kRegE && in) {   // wide E (sinusoid embedding): the rest from L1
-        for (int r = kRegE; r < E; ++r) {
-          const float ea = row_a >= 0 ? round_bf16(a.e[q_a * E + r]) : 0.0f;
-          const float eb = row_b >= 0 ? round_bf16(a.e[q_b * E + r]) : 0.0f;
-          const float w0 = __bfloat162float(a.we[r * H + c]), w1 = __bfloat162float(a.we[r * H + c + 1]);
-          ep[0] += ea * w0;
-          ep[1] += ea * w1;
-          ep[2] += eb * w0;
-          ep[3] += eb * w1;
-        }
-      }
-      const float hs4[4] = {sa.x, sa.y, sb.x, sb.y}, hd4[4] = {ta.x, ta.y, tb.x, tb.y};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pre = pre_act<BF16>(hs4[i], hd4[i], ep[i], i % 2 ? bias.y : bias.x);
-        d[4 * j + i] = act<BF16>(act<BF16>(d[4 * j + i]) * dsilu_act<BF16>(pre));
-      }
-      if (in && ra < nv) *reinterpret_cast<float2*>(dpre_a + c) = make_float2(d[4 * j], d[4 * j + 1]);
-      if (in && rb < nv) *reinterpret_cast<float2*>(dpre_b + c) = make_float2(d[4 * j + 2], d[4 * j + 3]);
-    }
-    HD_WG_PHASE(5, clk);
-
-    // the tile's sums of dpre (db1) and of bf16(e) bf16(dpre) (dW_e rows),
-    // two at a time; then de = dpre W_e^T, a row dot over each quad
-    for (int q0 = 0; q0 <= E; q0 += 2) {
-#pragma unroll
-      for (int qi = 0; qi < 2; ++qi) {
-        const int qn = q0 + qi;   // 0: db1, 1 + k: row k of dW_e
-        if (qn > E) break;
-        const float ea = qn == 0 || row_a < 0 ? 0.0f : round_bf16(a.e[q_a * E + qn - 1]);
-        const float eb = qn == 0 || row_b < 0 ? 0.0f : round_bf16(a.e[q_b * E + qn - 1]);
-#pragma unroll
-        for (int j = 0; j < 32; ++j) {
-          const float x0 = qn == 0 ? d[4 * j] + d[4 * j + 2]
-                                   : ea * round_bf16(d[4 * j]) + eb * round_bf16(d[4 * j + 2]);
-          const float x1 = qn == 0 ? d[4 * j + 1] + d[4 * j + 3]
-                                   : ea * round_bf16(d[4 * j + 1]) + eb * round_bf16(d[4 * j + 3]);
-          warp_colsum(red + qi * 4 * kMaxH, j, x0, x1);
-        }
-      }
-      wg_barrier(bar);
-#pragma unroll
-      for (int qi = 0; qi < 2; ++qi) {
-        const int qn = q0 + qi;
-        if (qn <= E) flush_colsum(red + qi * 4 * kMaxH, out + (qn == 0 ? E : qn - 1) * H, H);
-      }
-      wg_barrier(bar);
-    }
-    for (int k = 0; k < E; ++k) {
-      float s_a = 0.0f, s_b = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const int c = 8 * j + 2 * (lane % 4);
-        float w0, w1;
-        if (k < kRegE) {
-          const float2 w = *reinterpret_cast<const float2*>(cst.we[k] + c);
-          w0 = w.x;
-          w1 = w.y;
+      for (int i = 0; i < 64; ++i) fence_operand(d2[i]);
+      wgmma_fence();
+      for (int s = 0; s < H / 16; ++s)
+        wgmma_m64n128k16<1>(d2, sw128_desc(u + sw128_offset(0, 16 * s, kTileM)),
+                            sw128_desc_mn(w2s + sw128_offset(16 * s, c0, kMaxH)));
+      wgmma_commit();
+      if (half == 0) {
+        flush_colsum(red_b2, out + (E + 1) * H, H);
+        if (ATT) {
+          flush_colsum(red_att, out + (E + 2) * H, H);
         } else {
-          w0 = c < H ? __bfloat162float(a.we[k * H + c]) : 0.0f;
-          w1 = c < H ? __bfloat162float(a.we[k * H + c + 1]) : 0.0f;
+          for (int c = tid; c < H; c += 128) out[(E + 2) * H + c] = 0.0f;
         }
-        s_a += round_bf16(d[4 * j]) * w0 + round_bf16(d[4 * j + 1]) * w1;
-        s_b += round_bf16(d[4 * j + 2]) * w0 + round_bf16(d[4 * j + 3]) * w1;
+        if (tid == 0)
+          out[(E + 3) * H] = ATT ? ((red[8 * kMaxH] + red[8 * kMaxH + 1]) + red[8 * kMaxH + 2]) + red[8 * kMaxH + 3]
+                                 : 0.0f;
+        copy_tile_out(u, a.dv, p0, nv, H, tid);
       }
+      wgmma_wait<0>();
 #pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        s_a += __shfl_xor_sync(0xffffffffu, s_a, off);
-        s_b += __shfl_xor_sync(0xffffffffu, s_b, off);
+      for (int i = 0; i < 64; ++i) fence_operand(d2[i]);
+      if (half == 0) wg_barrier(bar);   // the sums read out of red
+      HD_WG_PHASE(4, clk);
+
+      // dpre = du * silu'(pre), pre rebuilt in registers, to its list position
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = c0 + 8 * j + 2 * (lane % 4);
+        const bool in = c < H;
+        const float2 sa = in && row_a >= 0 ? *reinterpret_cast<const float2*>(hs_a + c) : make_float2(0.f, 0.f);
+        const float2 sb = in && row_b >= 0 ? *reinterpret_cast<const float2*>(hs_b + c) : make_float2(0.f, 0.f);
+        const float2 ta = in && row_a >= 0 ? *reinterpret_cast<const float2*>(hd_a + c) : make_float2(0.f, 0.f);
+        const float2 tb = in && row_b >= 0 ? *reinterpret_cast<const float2*>(hd_b + c) : make_float2(0.f, 0.f);
+        const float2 bias = *reinterpret_cast<const float2*>(cst.b1 + c);
+        float ep[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int r = 0; r < kRegE; ++r) {
+          const float2 w = *reinterpret_cast<const float2*>(cst.we[r] + c);
+          ep[0] += ev_a[r] * w.x;
+          ep[1] += ev_a[r] * w.y;
+          ep[2] += ev_b[r] * w.x;
+          ep[3] += ev_b[r] * w.y;
+        }
+        if (E > kRegE && in) {   // wide E (sinusoid embedding): the rest from L1
+          for (int r = kRegE; r < E; ++r) {
+            const float ea = row_a >= 0 ? round_bf16(a.e[q_a * E + r]) : 0.0f;
+            const float eb = row_b >= 0 ? round_bf16(a.e[q_b * E + r]) : 0.0f;
+            const float w0 = __bfloat162float(a.we[r * H + c]), w1 = __bfloat162float(a.we[r * H + c + 1]);
+            ep[0] += ea * w0;
+            ep[1] += ea * w1;
+            ep[2] += eb * w0;
+            ep[3] += eb * w1;
+          }
+        }
+        const float hs4[4] = {sa.x, sa.y, sb.x, sb.y}, hd4[4] = {ta.x, ta.y, tb.x, tb.y};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pre = pre_act<BF16>(hs4[i], hd4[i], ep[i], i % 2 ? bias.y : bias.x);
+          d2[4 * j + i] = act<BF16>(act<BF16>(d2[4 * j + i]) * dsilu_act<BF16>(pre));
+        }
+        if (in && ra < nv) *reinterpret_cast<float2*>(dpre_a + c) = make_float2(d2[4 * j], d2[4 * j + 1]);
+        if (in && rb < nv) *reinterpret_cast<float2*>(dpre_b + c) = make_float2(d2[4 * j + 2], d2[4 * j + 3]);
       }
-      if (lane % 4 == 0) {
-        if (row_a >= 0) a.de[q_a * E + k] = s_a;
-        if (row_b >= 0) a.de[q_b * E + k] = s_b;
+      HD_WG_PHASE(5, clk);
+
+      // the half's tile sums of dpre (db1) and of bf16(e) bf16(dpre) (dW_e
+      // rows), two at a time; de = dpre W_e^T, a row dot over each quad,
+      // written by the first half and completed by the second
+      for (int q0 = 0; q0 <= E; q0 += 2) {
+#pragma unroll
+        for (int qi = 0; qi < 2; ++qi) {
+          const int qn = q0 + qi;   // 0: db1, 1 + k: row k of dW_e
+          if (qn > E) break;
+          const float ea = qn == 0 || row_a < 0 ? 0.0f : round_bf16(a.e[q_a * E + qn - 1]);
+          const float eb = qn == 0 || row_b < 0 ? 0.0f : round_bf16(a.e[q_b * E + qn - 1]);
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const float x0 = qn == 0 ? d2[4 * j] + d2[4 * j + 2]
+                                     : ea * round_bf16(d2[4 * j]) + eb * round_bf16(d2[4 * j + 2]);
+            const float x1 = qn == 0 ? d2[4 * j + 1] + d2[4 * j + 3]
+                                     : ea * round_bf16(d2[4 * j + 1]) + eb * round_bf16(d2[4 * j + 3]);
+            warp_colsum(red + qi * 4 * kMaxH, 16 * half + j, x0, x1);
+          }
+        }
+        wg_barrier(bar);
+#pragma unroll
+        for (int qi = 0; qi < 2; ++qi) {
+          const int qn = q0 + qi;
+          const int c = c0 + tid;
+          if (qn <= E && c < H) {
+            const float* red_q = red + qi * 4 * kMaxH;
+            out[(qn == 0 ? E : qn - 1) * H + c] =
+                ((red_q[c] + red_q[kMaxH + c]) + red_q[2 * kMaxH + c]) + red_q[3 * kMaxH + c];
+          }
+        }
+        wg_barrier(bar);
       }
+      for (int k = 0; k < E; ++k) {
+        float s_a = 0.0f, s_b = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int c = c0 + 8 * j + 2 * (lane % 4);
+          float w0, w1;
+          if (k < kRegE) {
+            const float2 w = *reinterpret_cast<const float2*>(cst.we[k] + c);
+            w0 = w.x;
+            w1 = w.y;
+          } else {
+            w0 = c < H ? __bfloat162float(a.we[k * H + c]) : 0.0f;
+            w1 = c < H ? __bfloat162float(a.we[k * H + c + 1]) : 0.0f;
+          }
+          s_a += round_bf16(d2[4 * j]) * w0 + round_bf16(d2[4 * j + 1]) * w1;
+          s_b += round_bf16(d2[4 * j + 2]) * w0 + round_bf16(d2[4 * j + 3]) * w1;
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          s_a += __shfl_xor_sync(0xffffffffu, s_a, off);
+          s_b += __shfl_xor_sync(0xffffffffu, s_b, off);
+        }
+        if (lane % 4 == 0) {   // the thread that wrote the first half reads it back
+          if (row_a >= 0) a.de[q_a * E + k] = half ? a.de[q_a * E + k] + s_a : s_a;
+          if (row_b >= 0) a.de[q_b * E + k] = half ? a.de[q_b * E + k] + s_b : s_b;
+        }
+      }
+      HD_WG_PHASE(6, clk);
     }
-    HD_WG_PHASE(6, clk);
   }
 }
 
