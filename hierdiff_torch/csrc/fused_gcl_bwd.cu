@@ -45,16 +45,18 @@
 //      warpgroup's buffer; du = dv W2^T on wgmma through a transposed
 //      (MN-major) descriptor of the same resident W2 (W2's K-major atom is,
 //      byte for byte, an MN-major atom of W2^T: no second copy) while dv is
-//      copied out; dpre = du silu'(pre) with pre rebuilt in registers,
-//      written at its list position; de = dpre W_e^T (row dots over the
-//      quad); and the tile's own column sums in a fixed order (a butterfly
+//      copied out (in two halves of 128 columns, m64n128k16, so that 64
+//      accumulators a thread leave registers for what follows); dpre =
+//      du silu'(pre) with pre rebuilt in registers, written at its list
+//      position; de = dpre W_e^T (row dots over the quad); and the tile's
+//      own column sums in a fixed order (a butterfly
 //      over each warp's rows, then the 4 warps in order): of e^T dpre and
 //      dpre (dW_e, db1), of dv, m0 dza and dza (db2, dw_att, db_att), f32
 //      where the Pallas kernel sums f32 values. The workspace holds B*N*N
 //      positions and tiles, so the host needs no count.
 //   5. Reductions, each in a fixed order: dW2 = U^T dV as a split-K GEMM
 //      whose split bounds are fixed by B*N*N (splits past the real edges
-//      sum nothing), partials summed in split order; dW_e, db1, db2,
+//      sum nothing and are not read), partials summed in split order; dW_e, db1, db2,
 //      dw_att, db_att over the tiles in order (in fixed chunks of tiles,
 //      the chunks in order); dhs[b,i] = the sum of dpre over row i's list
 //      segment, in list order; dh_dst[b,j] = the sum over i = 0 .. N-1 of
