@@ -75,6 +75,25 @@ Phases, one output line each, any failure exits non-zero:
      it). Those at rounding level are printed with their readings;
   4d. 64 samples at 100 steps from the ``ema.pt`` that 4b wrote, through
      ``sampling.cli coarse --weights``: finite, masked and CoM-free;
+  4e. the fine stage: ``sampling.cli assemble --denoise-init-seed 0`` at the
+     GEOM denoise width (H=256, 3 full and 3 focal layers, 781 tokens, 780
+     types) on the 128 point sets of phase 4: a spanning tree for every
+     molecule (n-1 symmetric edges, connected; the root marker at n=1), wids
+     in [0, 780), finite logps. On 8 molecules of each of the two fullest pad
+     buckets: the card's lattice against the CPU's under the margin rule of
+     ``tools/lattice_check.py`` (a differing choice only where the CPU's best
+     two candidates are within 1e-4, and top_logp within 1e-3 of the step's
+     largest |top_logp|; the CPU's f32 lattice against its f64 one is
+     printed beside it, the scale of f32 rounding at these magnitudes), the
+     dynamic-depth lattice bitwise equal to the static one, two card runs
+     bitwise equal. The lattice's wall and device
+     ms per chunk, by bucket (device: torch.profiler), the host search's
+     seconds and trees/s;
+  4f. ``sampling.cli generate --init-seed 0 --denoise-init-seed 0``: 64
+     molecules, 100 coarse steps, beam 5: a spanning tree for every molecule,
+     the coarse kernels' launches exactly 12 fused_gcl and 6
+     fused_coord_update per model call (100 reverse steps and the final one)
+     per coarse chunk; molecules/s, t_coarse and t_fine;
   5. the kernel list as JSON, then the result JSON as the last line.
 """
 
@@ -87,6 +106,7 @@ import csv
 import ctypes
 import json
 import math
+import pickle
 import shutil
 import subprocess
 import sys
@@ -331,6 +351,176 @@ def edge_slots(call) -> tuple:
     if lib.hd_read_edge_counts(counts) != 0:
         fail("reading fused_gcl_bwd's edge counts failed")
     return int(counts[0]), int(counts[1])
+
+
+def spanning_tree_faults(trees, sizes) -> list:
+    """(molecule, fault) for each tree of a trees pickle that is missing, not
+    a spanning tree of its n nodes (n-1 symmetric edges, connected; n=1 keeps
+    the root marker), or has a wid outside [0, 780) or a non-finite logp."""
+    faults = []
+    for i, (d, n) in enumerate(zip(trees, sizes)):
+        if d is None:
+            faults.append((i, "missing"))
+            continue
+        adj = np.asarray(d["adj"])
+        off = adj * (1.0 - np.eye(n))
+        seen, frontier = {0}, [0]
+        while frontier:
+            for j in np.flatnonzero(off[frontier.pop()]):
+                if int(j) not in seen:
+                    seen.add(int(j))
+                    frontier.append(int(j))
+        if (off.sum() != 2 * (n - 1) or not np.array_equal(off, off.T) or len(seen) != n
+                or (n == 1 and adj[0, 0] != 1.0)):
+            faults.append((i, "not a spanning tree"))
+        if d["wids"].shape != (n,) or not ((d["wids"] >= 0) & (d["wids"] < 780)).all():
+            faults.append((i, "wid out of range"))
+        if not math.isfinite(d["logp"]):
+            faults.append((i, "logp not finite"))
+    return faults
+
+
+def profiled_device_ms(prof) -> float:
+    """Device time of every CUDA activity (kernels, copies) under ``prof``."""
+    from torch.autograd import DeviceType
+
+    total = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            t = getattr(evt, "self_device_time_total", None)
+            total += evt.self_cuda_time_total if t is None else t
+    return total / 1e3
+
+
+def assemble_phase(cli, coarse_pkl: bytes, device) -> dict:
+    """Phase 4e: ``sampling.cli assemble`` at GEOM width on phase 4's point
+    sets; the card's lattice against the CPU's on 16 molecules of two
+    buckets, dynamic against static depth and a repeat, bitwise; the
+    lattice's times per chunk."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hierdiff_torch.config import EdgeDenoiseConfig
+    from hierdiff_torch.data.collate import bucket_for
+    from hierdiff_torch.sampling.lattice import _next_pow2, pad_blur, pow2_chunks
+    from hierdiff_torch.tools.lattice_check import compare_lattices
+    from hierdiff_torch.utils.weights import init_weights
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = Path(tmp) / "coarse.pkl", Path(tmp) / "trees.pkl"
+        src.write_bytes(coarse_pkl)
+        run = cli.main(["assemble", "--coarse-pkl", str(src), "--denoise-init-seed", "0",
+                        "--out", str(out)])
+        with open(out, "rb") as f:
+            trees = pickle.load(f)["trees"]
+    blur, sampler = run["blur"], run["sampler"]
+    sizes = [b["h"].shape[0] for b in blur]
+    faults = spanning_tree_faults(trees, sizes)
+    seconds = run["lattice_s"] + run["search_s"]
+    print(f"assemble: GEOM denoise H={sampler.model.hidden_nf}, {len(blur)} molecules of "
+          f"{min(sizes)}-{max(sizes)} nodes: lattices {run['lattice_s']:.3f} s, host search "
+          f"{run['search_s']:.3f} s, {len(blur) / seconds:.3f} trees/s; faults {faults}")
+    if faults:
+        fail(f"assemble gave trees that are missing or invalid: {faults}")
+
+    by_bucket = {}
+    for i, n in enumerate(sizes):
+        by_bucket.setdefault(bucket_for(n, sampler.buckets), []).append(i)
+    chunks = []
+    for nb, idxs in sorted(by_bucket.items()):
+        c0 = 0
+        for take in pow2_chunks(len(idxs), sampler._max_batch(nb)):
+            chunk = idxs[c0: c0 + take]
+            c0 += take
+
+            def lattice():
+                lattices = {}
+                for c, o in sampler._dispatch_lattices(blur, chunk):
+                    sampler._collect_lattice(c, o, blur, lattices)
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lattice()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                lattice()
+                torch.cuda.synchronize()
+            row = {"bucket": nb, "molecules": len(chunk), "batch": _next_pow2(len(chunk)),
+                   "wall_ms": wall_ms, "device_ms": profiled_device_ms(prof)}
+            row["device_share"] = row["device_ms"] / wall_ms
+            chunks.append(row)
+            print(f"lattice chunk: bucket {nb}, {len(chunk)} molecules padded to "
+                  f"{row['batch']}: wall {wall_ms:.1f} ms, device {row['device_ms']:.1f} ms "
+                  f"(torch.profiler; {row['device_share']:.3f} of the wall)")
+
+    cpu_model = init_weights(cli.build_denoise_from_cfg(EdgeDenoiseConfig(), "cpu"),
+                             torch.Generator().manual_seed(0)).clone(dynamic_depth=True)
+    cpu64_model = copy.deepcopy(cpu_model).double()
+    card_model = sampler.model
+    checks = {}
+    for nb in sorted(by_bucket, key=lambda k: -len(by_bucket[k]))[:2]:
+        chunk = by_bucket[nb][:8]
+        arrays = pad_blur(blur, chunk, len(chunk), nb)
+        on_card = [torch.from_numpy(a).to(device) for a in arrays]
+        card, again = card_model.ar_lattice(*on_card), card_model.ar_lattice(*on_card)
+        static = card_model.clone(dynamic_depth=False).ar_lattice(*on_card)
+        cpu = cpu_model.ar_lattice(*(torch.from_numpy(a) for a in arrays))
+        cpu_np = {k: v.numpy() for k, v in cpu.items()}
+        n_steps = [sizes[i] for i in chunk]
+        report = compare_lattices(cpu_np, {k: v.cpu().numpy() for k, v in card.items()},
+                                  n_steps, margin=1e-4, logp_tol=1e-3, relative=True)
+        # the scale of f32 rounding itself: the CPU's f32 lattice against its f64 one
+        f64 = compare_lattices({k: v.numpy() for k, v in cpu64_model.ar_lattice(
+            *(torch.from_numpy(a).double() for a in arrays)).items()}, cpu_np, n_steps,
+            margin=1e-4, logp_tol=1e-3, relative=True)
+        check = {"molecules": len(chunk), "steps_compared": report["steps_compared"],
+                 "cut": report["cut"], "failures": report["failures"][:5],
+                 "max_logp_err": report["max_logp_err"],
+                 "max_logp_rel_err": report["max_logp_rel_err"],
+                 "bitwise_repeat": all(torch.equal(card[k], again[k]) for k in card),
+                 "bitwise_static_depth": all(torch.equal(card[k], static[k]) for k in card),
+                 "cpu_f32_against_f64": {k: f64[k] for k in (
+                     "steps_compared", "cut", "max_logp_err", "max_logp_rel_err")}}
+        checks[f"bucket {nb}"] = check
+        print(f"lattice card against CPU, bucket {nb}, {len(chunk)} molecules: "
+              f"{json.dumps(check)}")
+        if not (report["ok"] and check["bitwise_repeat"] and check["bitwise_static_depth"]):
+            fail(f"the card's lattice disagrees with the CPU's or is not repeatable: {check}")
+    return {"molecules": len(blur), "lattice_s": run["lattice_s"], "search_s": run["search_s"],
+            "trees_per_s": len(blur) / seconds, "chunks": chunks, "card_against_cpu": checks}
+
+
+def generate_phase(cli, ek, num: int = 64, steps: int = 100):
+    """Phase 4f: ``sampling.cli generate`` from the GEOM histogram to trees;
+    the coarse kernels' launches must be exact for the chunk plan."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "generated.pkl"
+        ek.reset_launch_counts()
+        run = cli.main(["generate", "--init-seed", "0", "--denoise-init-seed", "0",
+                        "--num", str(num), "--sample-steps", str(steps), "--beam", "5",
+                        "--seed", str(SEED), "--out", str(out)])
+        torch.cuda.synchronize()
+        launches = dict(ek.launch_counts)
+        with open(out, "rb") as f:
+            trees = pickle.load(f)["trees"]
+    result, pipe = run["result"], run["pipeline"]
+    sizes = [b["h"].shape[0] for b in result.blur]
+    n_chunks = len(pipe._plan_chunks(np.asarray(sizes)))
+    expect = {"fused_gcl": n_chunks * (steps + 1) * 12,
+              "fused_coord_update": n_chunks * (steps + 1) * 6,
+              "fused_gcl_bwd": 0, "coord_update_autograd": 0}
+    faults = spanning_tree_faults(trees, sizes)
+    stats = {"molecules": num, "seconds": run["seconds"],
+             "molecules_per_s": num / run["seconds"], **result.stats,
+             "coarse_chunks": n_chunks, "launches": launches, "faults": faults}
+    print(f"generate: {num} molecules, {steps} coarse steps, beam 5, {n_chunks} coarse chunks: "
+          f"{run['seconds']:.3f} s, {stats['molecules_per_s']:.3f} molecules/s, t_coarse "
+          f"{result.stats['t_coarse']:.3f} s, t_fine {result.stats['t_fine']:.3f} s; launches "
+          f"{launches} (expected {expect}); faults {faults}")
+    if launches != expect:
+        fail(f"generate's kernel launch counts {launches} != {expect}")
+    if faults:
+        fail(f"generate gave trees that are missing or invalid: {faults}")
+    return stats, launches
 
 
 def main() -> None:
@@ -755,6 +945,7 @@ def main() -> None:
                         "--out", str(Path(tmp) / "coarse.pkl")])
         torch.cuda.synchronize()
         launches = dict(ek.launch_counts)
+        coarse_pkl = (Path(tmp) / "coarse.pkl").read_bytes()   # phase 4e's input
     expect = {"fused_gcl": n_batches * (steps + 1) * 12,
               "fused_coord_update": n_batches * (steps + 1) * 6,
               "fused_gcl_bwd": 0, "coord_update_autograd": 0}
@@ -836,6 +1027,12 @@ def main() -> None:
     if not ema_ok:
         fail("samples from the trained EMA weights are not finite, masked and CoM-free")
 
+    # ---- 4e. the fine stage on phase 4's point sets
+    assembled = assemble_phase(cli, coarse_pkl, device)
+
+    # ---- 4f. the pipeline from the histogram to junction trees
+    generated, generate_launches = generate_phase(cli, ek)
+
     # ---- 5. kernel list
     bounds = {"fused_gcl": bound(gcl_flops, gcl_sfu, gcl_bytes, sm_clock_hz, n_sms),
               "fused_coord_update": bound(coord_flops, coord_sfu, coord_bytes, sm_clock_hz, n_sms),
@@ -846,7 +1043,7 @@ def main() -> None:
                                    "hierdiff_tpu/ops/egnn_pallas.py:492"),
             "fused_gcl_bwd": ("hierdiff_torch/csrc/fused_gcl_bwd.cu",
                               "hierdiff_tpu/ops/egnn_pallas.py:346")}
-    paths = {"sample": launches, "train": train_launches}
+    paths = {"sample": launches, "train": train_launches, "generate": generate_launches}
     kernels = []
     for name, runs in results.items():
         main_run = runs[0]   # random weights, attention on, f32: the main path's variant
@@ -863,7 +1060,8 @@ def main() -> None:
             "ok": all(r["ok"] for r in runs), **gcl_extra.get(name, {})})
     print(json.dumps({"kernels": kernels, "train": {
         k: train[k] for k in ("steps", "seconds", "steps_per_sec", "molecules_per_sec")},
-        "cache_after_step": cache, "step_gradients": step_grads}))
+        "cache_after_step": cache, "step_gradients": step_grads, "assemble": assembled,
+        "generate": generated}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,11 +1,13 @@
-"""Configuration of the coarse stage: model, optimizer and training loop
-(the port's copy of ``hierdiff_tpu/config.py``: ``CoarseModelConfig``,
+"""Configuration: the coarse model, the fine stage's edge-denoise model,
+the optimizer and the training loop (the port's copy of
+``hierdiff_tpu/config.py``: ``CoarseModelConfig``, ``EdgeDenoiseConfig``,
 ``OptimConfig``, ``TrainConfig`` and a ``Config`` holding them).
 
-Defaults are the GEOM-Drugs coarse model (reference
-endiffusion/conf/model/ddpmgblur.yaml). A YAML file in the JAX package's
-format (``configs/coarse_geom.yaml``) can override them; PyYAML is imported
-only when a path is given. Dotted ``k=v`` overrides are parsed without it.
+Defaults are the GEOM-Drugs models (reference
+endiffusion/conf/model/ddpmgblur.yaml and conf/model/edge_denoise.yaml, as
+``configs/coarse_geom.yaml`` and ``configs/denoise_geom.yaml``). A YAML file
+in the JAX package's format can override them; PyYAML is imported only when
+a path is given. Dotted ``k=v`` overrides are parsed without it.
 """
 
 from __future__ import annotations
@@ -85,6 +87,24 @@ def load_coarse_config(path: Optional[str] = None) -> CoarseModelConfig:
 
 
 @dataclass
+class EdgeDenoiseConfig:
+    """conf/model/edge_denoise.yaml equivalents. The loss weights and
+    ``full_softmax`` serve training, which is not ported yet."""
+
+    vocab_size: int = 781
+    out_node_nf: int = 780
+    in_node_nf: int = 8
+    hidden_nf: int = 256
+    n_layers_full: int = 3
+    n_layers_focal: int = 3
+    focal_loss: float = 5.0
+    edge_loss: float = 1.0
+    node_loss: float = 2.0
+    full_softmax: bool = True
+    vocab_conditioning: bool = False
+
+
+@dataclass
 class OptimConfig:
     """conf/optim + conf/scheduler equivalents (``build_optimizer``)."""
 
@@ -119,6 +139,7 @@ class TrainConfig:
 class Config:
     stage: str = "coarse"
     coarse: CoarseModelConfig = field(default_factory=CoarseModelConfig)
+    denoise: EdgeDenoiseConfig = field(default_factory=EdgeDenoiseConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
 
@@ -180,14 +201,15 @@ def _update_from_dict(cfg: Any, d: dict, prefix: str = "") -> None:
     for k, v in d.items():
         if isinstance(v, dict):
             _update_from_dict(cfg, v, f"{prefix}{k}.")
-        elif prefix.split(".")[0] in ("coarse", "optim", "train") or (not prefix and k == "stage"):
+        elif prefix.split(".")[0] in ("coarse", "denoise", "optim", "train") or (
+                not prefix and k == "stage"):
             _apply(cfg, f"{prefix}{k}", v)
 
 
 def load_config(path: Optional[str] = None, overrides: Sequence[str] = ()) -> Config:
-    """Defaults, then the YAML file's ``coarse`` / ``optim`` / ``train``
-    sections (other stages' sections are not ported and are skipped), then
-    ``key=value`` overrides such as ``train.max_steps=20``."""
+    """Defaults, then the YAML file's ``coarse`` / ``denoise`` / ``optim`` /
+    ``train`` sections (the refine stage's section is not ported and is
+    skipped), then ``key=value`` overrides such as ``train.max_steps=20``."""
     cfg = Config()
     if path:
         import yaml

@@ -1,7 +1,7 @@
 """Bucketed dense collation of padded fragment-tree batches.
 
-Port of ``hierdiff_tpu/data/collate.py`` (``DEFAULT_BUCKETS``, ``bucket_for``,
-``collate_coarse``): node counts are padded to a small set of buckets, and a
+Port of ``hierdiff_tpu/data/collate.py`` (``DEFAULT_BUCKETS``,
+``SAMPLING_BUCKETS``, ``bucket_for``, ``collate_coarse``): node counts are padded to a small set of buckets, and a
 batch is node features, positions, a node mask and a fully connected,
 self-loop-free edge mask (the reference's ``PadCollate``,
 endiffusion/dataset/blur_utils.py:110-155). numpy only.
@@ -14,6 +14,11 @@ from typing import Dict, Iterable, Optional, Sequence
 import numpy as np
 
 DEFAULT_BUCKETS = (8, 16, 24, 32, 48, 64, 96)
+
+# The generation pipeline's default pad buckets (coarse chunks and fine-stage
+# lattices): finer than DEFAULT_BUCKETS, since dense (B, N, N) work grows
+# with the square of the pad. The JAX package chose this set on a TPU.
+SAMPLING_BUCKETS = (8, 12, 16, 20, 24, 32, 40, 48, 64, 96)
 
 
 def bucket_for(n: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:

@@ -77,3 +77,23 @@ def subspace_dimensionality(node_mask: Tensor, n_dims: int) -> Tensor:
     (reference: diffusion_qm9.py:160-163)"""
     n = node_mask.to(torch.float32).squeeze(2).sum(dim=1)
     return (n - 1.0) * n_dims
+
+
+# Log-probability of entries outside a support: finite, so that a row
+# selection or a sum over such entries never meets 0 * inf.
+NEG_INF = -1e9
+
+
+def masked_log_softmax(logits: Tensor, support: Tensor, dim: int = -1) -> Tensor:
+    """log-softmax restricted to ``support`` (1 = allowed); entries outside
+    it get ~NEG_INF. (hierdiff_tpu/ops/masked.py:113)"""
+    logits = torch.where(support > 0, logits, torch.full_like(logits, NEG_INF))
+    return torch.log_softmax(logits, dim=dim)
+
+
+def take_rows(t: Tensor, idx: Tensor) -> Tensor:
+    """Row selection t[b, idx[b]] for t (B, N, ...) and idx (B,) -> (B, ...),
+    with idx clamped into [0, N). A gather, exact like the JAX package's
+    one-hot contraction (``onehot_take``)."""
+    b, n = t.shape[:2]
+    return t[torch.arange(b, device=t.device), idx.clamp(0, n - 1)]

@@ -1,15 +1,28 @@
-"""Sampling CLI of the port: coarse point clouds.
+"""Sampling CLI of the port: coarse point sets, junction-tree assembly and
+the pipeline from a histogram to junction trees.
 
     # stage 1 (sampler.py equivalent): pickle blurred point sets
     python -m hierdiff_torch.sampling.cli coarse --weights coarse.pt \\
         --num 64 --out samples.pkl
     # random GEOM-width weights from a seed, 100 strided reverse steps
     python -m hierdiff_torch.sampling.cli coarse --init-seed 0 --steps 100
+    # stage 2 (ar_sampling_nosize.py equivalent): point sets -> trees
+    python -m hierdiff_torch.sampling.cli assemble --coarse-pkl samples.pkl \\
+        --denoise-weights denoise.pt --out trees.pkl
+    # both stages: histogram -> trees
+    python -m hierdiff_torch.sampling.cli generate --init-seed 0 \\
+        --denoise-init-seed 0 --num 64 --sample-steps 100
 
 Weights come from a ``.pt`` or ``.npz`` state dict in the reference layout
-(``utils/weights.py``) or from ``--init-seed``. The JAX package's Orbax
-workdirs need JAX to read; convert them with ``state_dict_from_flax`` first.
-Runs on CUDA unless ``--device`` names another device.
+(``utils/weights.py``) or from a seed (``--init-seed`` for the coarse model,
+``--denoise-init-seed`` for the edge-denoise model). The JAX package's Orbax
+workdirs need JAX to read; convert them with ``state_dict_from_flax`` /
+``denoise_state_dict_from_flax`` first. The models are the GEOM
+configurations unless ``k=v`` overrides (``denoise.hidden_nf=32``) say
+otherwise; ``generate``'s coarse model runs f32 elementwise, as ``coarse``
+does by default. Runs on CUDA unless ``--device``
+names another device. Reconstruction to molecules (RDKit) is not ported: the
+trees pickle is the end of the port's pipeline.
 """
 
 from __future__ import annotations
@@ -22,11 +35,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from hierdiff_torch.config import CoarseModelConfig, load_coarse_config
+from hierdiff_torch.config import (CoarseModelConfig, EdgeDenoiseConfig, load_coarse_config,
+                                   load_config)
 from hierdiff_torch.data.assets import load_histogram
+from hierdiff_torch.data.collate import DEFAULT_BUCKETS, SAMPLING_BUCKETS
 from hierdiff_torch.models.diffusion import CoarseDiffusion
+from hierdiff_torch.models.edge_denoise import EdgeDenoise
 from hierdiff_torch.ops.distributions import DistributionNodes
 from hierdiff_torch.sampling.coarse import make_masks_for_counts, sample_coarse
+from hierdiff_torch.sampling.pipeline import (GenerationPipeline, build_fine_sampler,
+                                              round_int_features)
 from hierdiff_torch.utils.device import resolve_device
 from hierdiff_torch.utils.weights import init_weights
 
@@ -52,6 +70,16 @@ def build_coarse_from_cfg(cfg: CoarseModelConfig, compute_dtype=None,
         compute_dtype=cfg.compute_dtype if compute_dtype is None else compute_dtype,
         mode=cfg.mode, sin_embedding=cfg.sin_embedding)
     return model.to(device).eval()
+
+
+def build_denoise_from_cfg(cfg: EdgeDenoiseConfig, device=None) -> EdgeDenoise:
+    """The edge-denoise model of ``cfg`` on ``device`` (default CUDA), with
+    PyTorch's default initialisation."""
+    return EdgeDenoise(vocab_size=cfg.vocab_size, out_node_nf=cfg.out_node_nf,
+                       in_node_nf=cfg.in_node_nf, hidden_nf=cfg.hidden_nf,
+                       n_layers_full=cfg.n_layers_full, n_layers_focal=cfg.n_layers_focal,
+                       vocab_conditioning=cfg.vocab_conditioning
+                       ).to(resolve_device(device)).eval()
 
 
 def load_state(path: str) -> dict:
@@ -102,6 +130,113 @@ def cmd_coarse(args) -> dict:
     return {"batches": batches, "seconds": seconds, "molecules": len(results)}
 
 
+def _weights(model, path: str, seed: Optional[int], flags: str):
+    """Load ``path`` into ``model``, or give it random weights from ``seed``."""
+    if path:
+        model.load_state_dict(load_state(path), strict=True)
+    elif seed is not None:
+        init_weights(model, torch.Generator().manual_seed(seed))
+    else:
+        raise SystemExit(f"pass {flags}")
+    return model
+
+
+def _fine_stage_setup(args, device):
+    """Shared stage-2 setup of ``assemble`` and ``generate``: the
+    configuration, the edge-denoise model with its weights and the pad
+    buckets."""
+    cfg = load_config(None, args.overrides)
+    denoise = _weights(build_denoise_from_cfg(cfg.denoise, device), args.denoise_weights,
+                       args.denoise_init_seed, "--denoise-weights or --denoise-init-seed")
+    buckets = DEFAULT_BUCKETS if args.default_buckets else SAMPLING_BUCKETS
+    return cfg, denoise, buckets
+
+
+def _tree_to_dict(t):
+    """TreeState -> the portable pickle form of the JAX package's CLI."""
+    return None if t is None else {"wids": t.wids, "adj": t.adj, "pos": t.pos,
+                                   "feats": t.feats, "logp": t.logp}
+
+
+def _flatten_blur_pkl(obj) -> list:
+    """Coarse pickles are nested containers of {'x', 'h'} dicts: the
+    ``coarse`` command's is list-wrapped, the reference pickles
+    sample_batches' raw ``(results, test_names)`` tuple (diffusion_qm9.py:437,
+    sampler.py:40-41). Flatten any list/tuple nesting down to the dicts;
+    other leaves (the pocket test_names strings) are skipped."""
+    if isinstance(obj, dict):
+        return [obj]
+    if not isinstance(obj, (list, tuple)):
+        return []
+    out = []
+    for item in obj:
+        out.extend(_flatten_blur_pkl(item))
+    return out
+
+
+def cmd_assemble(args) -> dict:
+    """Stage 2 on its own: a coarse pickle's point sets -> junction trees,
+    pickled as ``{"trees": [...]}``. Returns the blur sets, the trees, the
+    sampler and the seconds of the lattices and of the search."""
+    device = resolve_device(args.device)
+    cfg, denoise, buckets = _fine_stage_setup(args, device)
+    with open(args.coarse_pkl, "rb") as f:
+        blur = _flatten_blur_pkl(pickle.load(f))
+    if args.num:
+        blur = blur[: args.num]
+    if any("context" in b for b in blur):
+        # the reference's global-context variant concatenates jt['context']
+        # into h before assembly (ar_sampling_nosize.py:278-279)
+        raise SystemExit("coarse pickle carries global-context channels, "
+                         "which this assemble path does not support")
+    int_nf = 5 if cfg.denoise.in_node_nf == 8 else 3
+    blur = [{"x": np.asarray(b["x"], np.float32),
+             "h": round_int_features(np.asarray(b["h"], np.float32), int_nf)} for b in blur]
+    sampler = build_fine_sampler(denoise, beam_size=args.beam, buckets=buckets)
+    t0 = time.perf_counter()
+    lattices = sampler.compute_lattices(blur)
+    t1 = time.perf_counter()
+    trees = sampler._search(blur, lattices)
+    t2 = time.perf_counter()
+    ok = sum(t is not None for t in trees)
+    print(f"assembled {ok}/{len(blur)} junction trees in {t2 - t0:.3f} s "
+          f"({len(blur) / (t2 - t0):.3f} trees/s, device {device}): lattices {t1 - t0:.3f} s, "
+          f"host search {t2 - t1:.3f} s")
+    with open(args.out, "wb") as f:
+        pickle.dump({"trees": [_tree_to_dict(t) for t in trees]}, f)
+    print(f"-> {args.out}")
+    return {"blur": blur, "trees": trees, "sampler": sampler, "lattice_s": t1 - t0,
+            "search_s": t2 - t1}
+
+
+def cmd_generate(args) -> dict:
+    """Histogram -> coarse point sets -> junction trees, pickled as
+    ``{"trees": [...], "molecules": None, "stats": {...}}``. Returns the
+    pipeline's result and the wall seconds."""
+    device = resolve_device(args.device)
+    cfg, denoise, buckets = _fine_stage_setup(args, device)
+    coarse = _weights(build_coarse_from_cfg(cfg.coarse, "float32", device),
+                      args.weights, args.init_seed, "--weights or --init-seed")
+    pipe = GenerationPipeline(coarse, denoise, histogram=load_histogram(cfg.coarse.dataset),
+                              beam_size=args.beam, int_nf=cfg.coarse.int_nf,
+                              max_n_cap=args.max_nodes or None,
+                              sample_steps=args.steps or None, sample_buckets=buckets)
+    t0 = time.perf_counter()
+    result = pipe.run(args.seed, args.num)
+    seconds = time.perf_counter() - t0
+    ok = sum(t is not None for t in result.trees)
+    print(f"assembled {ok}/{args.num} junction trees in {seconds:.3f} s "
+          f"({args.num / seconds:.3f} molecules/s, device {device}): t_coarse "
+          f"{result.stats['t_coarse']:.3f} s, t_fine {result.stats['t_fine']:.3f} s")
+    print("reconstruction to molecules is not ported yet (it needs RDKit): "
+          "the pickle holds junction trees")
+    with open(args.out, "wb") as f:
+        pickle.dump({"trees": [_tree_to_dict(t) for t in result.trees], "molecules": None,
+                     "stats": result.stats}, f)
+    print(f"-> {args.out}")
+    return {"result": result, "pipeline": pipe, "seconds": seconds}
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="HierDiff sampling (PyTorch port)")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -125,6 +260,38 @@ def build_parser() -> argparse.ArgumentParser:
     pc.add_argument("--device", default=None, help="torch device (default cuda)")
     pc.add_argument("--out", default="sample_results.pkl")
     pc.set_defaults(fn=cmd_coarse)
+
+    def fine_args(sp, out: str) -> None:
+        sp.add_argument("--denoise-weights", default="", help=".pt or .npz state dict")
+        sp.add_argument("--denoise-init-seed", type=int, default=None,
+                        help="random edge-denoise weights from this seed")
+        sp.add_argument("--beam", type=int, default=5)
+        sp.add_argument("--default-buckets", action="store_true",
+                        help="pad to the coarser DEFAULT_BUCKETS instead of SAMPLING_BUCKETS")
+        sp.add_argument("--device", default=None, help="torch device (default cuda)")
+        sp.add_argument("--out", default=out)
+        sp.add_argument("overrides", nargs="*",
+                        help="dotted overrides, in one run: denoise.hidden_nf=32 coarse.n_layers=1")
+
+    pa = sub.add_parser("assemble", help="stage 2: blur point sets -> junction trees "
+                                         "(reference ar_sampling_nosize.py)")
+    pa.add_argument("--coarse-pkl", required=True,
+                    help="pickle from `coarse` (or a reference sample_results.pkl)")
+    pa.add_argument("--num", type=int, default=0, help="cap (0 = all)")
+    fine_args(pa, "assembled_trees.pkl")
+    pa.set_defaults(fn=cmd_assemble)
+
+    pg = sub.add_parser("generate", help="histogram -> coarse point sets -> junction trees")
+    pg.add_argument("--weights", default="", help="coarse .pt or .npz state dict")
+    pg.add_argument("--init-seed", type=int, default=None,
+                    help="random coarse weights from this seed")
+    pg.add_argument("--num", type=int, default=64)
+    pg.add_argument("--sample-steps", "--steps", dest="steps", type=int, default=0,
+                    help="strided reverse-chain steps (0 = the model's full T)")
+    pg.add_argument("--seed", type=int, default=2022)
+    pg.add_argument("--max-nodes", type=int, default=0)
+    fine_args(pg, "generated.pkl")
+    pg.set_defaults(fn=cmd_generate)
     return p
 
 

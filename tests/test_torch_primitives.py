@@ -176,7 +176,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert report["bad"] == []
     for name in ("sampling.cli", "ops.egnn_kernels", "ops.losses", "models.diffusion",
                  "data.synthetic", "data.collate", "train.data_iters", "train.trainer",
-                 "train.cli", "parallel.train_step"):
+                 "train.cli", "parallel.train_step", "ops.graph", "ops.gcl",
+                 "models.edge_denoise", "sampling.beam", "sampling.lattice",
+                 "sampling.pipeline", "tools.lattice_check"):
         assert f"hierdiff_torch.{name}" in report["modules"], name
 
 
