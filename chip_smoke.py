@@ -94,6 +94,26 @@ Phases, one output line each, any failure exits non-zero:
      the coarse kernels' launches exactly 12 fused_gcl and 6
      fused_coord_update per model call (100 reverse steps and the final one)
      per coarse chunk; molecules/s, t_coarse and t_fine;
+  4g. the refine stage: ``sampling.cli assemble --denoise-init-seed 0
+     --refine-init-seed 0`` at the GEOM refine width (H=256, 2 layers per
+     phase, 780 types, max_size 26) on phase 4's 128 point sets, beam 5: a
+     spanning tree for every molecule, at least one fused check and one
+     committed swap (counted around the hook). On the first checked fleet of
+     the two fullest buckets: the card's fused check against the CPU's
+     under ``tools/refine_check.py`` (total and new_total within 1e-3 of the
+     fleet's largest |total|; a differing node, type or valid slot only
+     where the CPU's competing log-probabilities are within 1e-4 of the
+     row's largest |log-probability|; the CPU's f32 against its f64 printed
+     beside it), the dynamic depth against the static one and a repeat,
+     bitwise. Wall, device ms (torch.profiler) and peak memory of one
+     fused check per bucket. On the fullest bucket's molecules, card
+     against card, bitwise: the pipelined search against the sequential
+     group searches with the same seeds, a second pipelined run, and merge
+     4 against merge 1 (16 one-molecule groups). trees/s, lattice and
+     search seconds, the hook's dispatch / collect / walk seconds;
+  4h. ``sampling.cli generate`` as 4f with ``--refine-init-seed 0``: a tree
+     per molecule, the coarse launches exact per chunk; molecules/s,
+     t_coarse, t_fine and the hook's counters;
   5. the kernel list as JSON, then the result JSON as the last line.
 """
 
@@ -489,13 +509,16 @@ def assemble_phase(cli, coarse_pkl: bytes, device) -> dict:
             "trees_per_s": len(blur) / seconds, "chunks": chunks, "card_against_cpu": checks}
 
 
-def generate_phase(cli, ek, num: int = 64, steps: int = 100):
-    """Phase 4f: ``sampling.cli generate`` from the GEOM histogram to trees;
-    the coarse kernels' launches must be exact for the chunk plan."""
+def generate_phase(cli, ek, num: int = 64, steps: int = 100, refine: bool = False):
+    """Phase 4f (4h with ``refine``: the refine model's checks in the
+    search): ``sampling.cli generate`` from the GEOM histogram to trees; the
+    coarse kernels' launches must be exact for the chunk plan."""
+    name = "generate, refine on" if refine else "generate"
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "generated.pkl"
         ek.reset_launch_counts()
         run = cli.main(["generate", "--init-seed", "0", "--denoise-init-seed", "0",
+                        *(["--refine-init-seed", "0"] if refine else []),
                         "--num", str(num), "--sample-steps", str(steps), "--beam", "5",
                         "--seed", str(SEED), "--out", str(out)])
         torch.cuda.synchronize()
@@ -509,18 +532,210 @@ def generate_phase(cli, ek, num: int = 64, steps: int = 100):
               "fused_coord_update": n_chunks * (steps + 1) * 6,
               "fused_gcl_bwd": 0, "coord_update_autograd": 0}
     faults = spanning_tree_faults(trees, sizes)
+    hook = pipe.sampler.refine_hook
     stats = {"molecules": num, "seconds": run["seconds"],
              "molecules_per_s": num / run["seconds"], **result.stats,
-             "coarse_chunks": n_chunks, "launches": launches, "faults": faults}
-    print(f"generate: {num} molecules, {steps} coarse steps, beam 5, {n_chunks} coarse chunks: "
+             "coarse_chunks": n_chunks, "launches": launches, "faults": faults,
+             "refine": None if hook is None else dict(hook.stats)}
+    print(f"{name}: {num} molecules, {steps} coarse steps, beam 5, {n_chunks} coarse chunks: "
           f"{run['seconds']:.3f} s, {stats['molecules_per_s']:.3f} molecules/s, t_coarse "
           f"{result.stats['t_coarse']:.3f} s, t_fine {result.stats['t_fine']:.3f} s; launches "
-          f"{launches} (expected {expect}); faults {faults}")
+          f"{launches} (expected {expect}); faults {faults}; refine {stats['refine']}")
     if launches != expect:
-        fail(f"generate's kernel launch counts {launches} != {expect}")
+        fail(f"{name}: kernel launch counts {launches} != {expect}")
     if faults:
-        fail(f"generate gave trees that are missing or invalid: {faults}")
+        fail(f"{name} gave trees that are missing or invalid: {faults}")
     return stats, launches
+
+
+def same_trees(a, b) -> bool:
+    """Two searches' trees equal bit for bit (wids, adjacency and logp)."""
+    return len(a) == len(b) and all(
+        (x is None) == (y is None) and (x is None or (
+            np.array_equal(x.wids, y.wids) and np.array_equal(x.adj, y.adj) and x.logp == y.logp))
+        for x, y in zip(a, b))
+
+
+def refine_assemble_phase(cli, coarse_pkl: bytes, device) -> dict:
+    """Phase 4g: ``sampling.cli assemble`` with the refine model at GEOM
+    width on phase 4's point sets. Trees, at least one fused check and one
+    committed swap; on the first checked fleets of the two fullest buckets
+    the card's fused check against the CPU's (``tools/refine_check.py``),
+    the dynamic against the static depth and a repeat, bitwise; device ms
+    and peak memory of a fused check by bucket; on one bucket's molecules
+    the pipelined search against the sequential group searches, a second
+    pipelined run, and merge 4 against merge 1, bitwise."""
+    import random
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from hierdiff_torch.config import RefineConfig
+    from hierdiff_torch.data.collate import bucket_for
+    from hierdiff_torch.sampling import lattice as lat
+    from hierdiff_torch.sampling.beam import PQBeamSearch
+    from hierdiff_torch.sampling.refine_hook import RefineHook
+    from hierdiff_torch.tools.refine_check import compare_fused
+    from hierdiff_torch.utils.weights import init_weights
+
+    # counted around the hook, not inside it: the first checked fleet of
+    # each bucket, and the swaps the walk commits
+    seen = {"fleets": {}, "swaps": 0}
+    real_dispatch, real_collect = RefineHook.dispatch_batch, RefineHook.collect_batch
+
+    def dispatch(self, states):
+        act = [s for s in states if np.sum(s.wids >= 0) * self.check_frac > 1]
+        if act:
+            nb = bucket_for(max(s.n for s in act), self.buckets)
+            seen["fleets"].setdefault(nb, [s.clone() for s in act])
+        return real_dispatch(self, states)
+
+    def collect(self, token, states):
+        out = real_collect(self, token, states)
+        seen["swaps"] += sum(changed for _, _, changed in out)
+        return out
+
+    RefineHook.dispatch_batch, RefineHook.collect_batch = dispatch, collect
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            src, out = Path(tmp) / "coarse.pkl", Path(tmp) / "trees.pkl"
+            src.write_bytes(coarse_pkl)
+            run = cli.main(["assemble", "--coarse-pkl", str(src), "--denoise-init-seed", "0",
+                            "--refine-init-seed", "0", "--out", str(out)])
+            with open(out, "rb") as f:
+                trees = pickle.load(f)["trees"]
+    finally:
+        RefineHook.dispatch_batch, RefineHook.collect_batch = real_dispatch, real_collect
+    blur, sampler, lattices = run["blur"], run["sampler"], run["lattices"]
+    hook = sampler.refine_hook
+    sizes = [b["h"].shape[0] for b in blur]
+    faults = spanning_tree_faults(trees, sizes)
+    seconds = run["lattice_s"] + run["search_s"]
+    st = dict(hook.stats)
+    print(f"assemble, refine on: GEOM refine H={hook.model.hidden_size} x {hook.model.n_layers} "
+          f"layers per phase, {len(blur)} molecules: lattices {run['lattice_s']:.3f} s, search "
+          f"{run['search_s']:.3f} s, {len(blur) / seconds:.3f} trees/s; {st['score_calls']} "
+          f"fused checks (dispatch {st['dispatch_s']:.3f} s, collect {st['collect_s']:.3f} s, "
+          f"walk {st['walk_s']:.3f} s), {seen['swaps']} swaps committed; faults {faults}")
+    if faults:
+        fail(f"refine-on assemble gave trees that are missing or invalid: {faults}")
+    if st["score_calls"] < 1 or seen["swaps"] < 1:
+        fail("refine-on assemble ran no fused check or committed no swap")
+
+    def fused(h, fleet, nb, sp, margins=False, dtype=torch.float32):
+        base = [t.to(dtype) for t in h._pack_states(fleet, nb, sp)]
+        wids = torch.full((sp, nb), -1, dtype=torch.int64)
+        for i, s_ in enumerate(fleet):
+            wids[i, :s_.n] = torch.from_numpy(s_.wids)
+        return h._fused_check(base[0], wids.to(h.device), *base[1:], nb, margins)
+
+    by_bucket = {}
+    for i, n in enumerate(sizes):
+        by_bucket.setdefault(bucket_for(n, sampler.buckets), []).append(i)
+    cpu_model = init_weights(cli.build_refine_from_cfg(RefineConfig(), "cpu"),
+                             torch.Generator().manual_seed(0))
+    cpu_hook = RefineHook(cpu_model, hook.vocab_sizes, buckets=hook.buckets)
+    cpu64_hook = RefineHook(copy.deepcopy(cpu_model).double(), hook.vocab_sizes,
+                            buckets=hook.buckets)
+    static_hook = RefineHook(hook.model, hook.vocab_sizes, buckets=hook.buckets)
+    static_hook.model = hook.model.clone(dynamic_depth=False)
+    per_bucket, checks = [], {}
+    for nb, fleet in sorted(seen["fleets"].items()):
+        fleet = fleet[:hook.fleet_chunk_rows(nb)]
+        sp = hook.fleet_pad_rows(nb)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        card = fused(hook, fleet, nb, sp)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fused(hook, fleet, nb, sp)
+            torch.cuda.synchronize()
+        row = {"bucket": nb, "rows": len(fleet), "padded_rows": sp,
+               "K": max(1, int(nb * hook.check_frac)), "wall_ms": wall_ms,
+               "device_ms": profiled_device_ms(prof),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        per_bucket.append(row)
+        print(f"fused check, bucket {nb}: {len(fleet)} rows padded to {sp}, K={row['K']}: wall "
+              f"{wall_ms:.1f} ms, device {row['device_ms']:.1f} ms (torch.profiler), peak "
+              f"{row['peak_gib']:.2f} GiB")
+    fullest = sorted(seen["fleets"], key=lambda b: -len(by_bucket.get(b, [])))[:2]
+    for nb in fullest:
+        fleet = seen["fleets"][nb][:hook.fleet_chunk_rows(nb)]
+        sp, K, rows = hook.fleet_pad_rows(nb), max(1, int(nb * hook.check_frac)), len(fleet)
+        card = fused(hook, fleet, nb, sp).cpu().numpy()[:rows]
+        again = fused(hook, fleet, nb, sp).cpu().numpy()[:rows]
+        static = fused(static_hook, fleet, nb, sp)
+        cpu = fused(cpu_hook, fleet, nb, rows, margins=True).numpy()
+        cpu64 = fused(cpu64_hook, fleet, nb, rows, margins=True, dtype=torch.float64).numpy()
+        report = compare_fused(cpu, card, K, margin=1e-4, tol=1e-3, relative=True)
+        f64 = compare_fused(cpu64, cpu[:, :1 + 4 * K], K, margin=1e-4, tol=1e-3, relative=True)
+        check = {"rows": rows, "K": K, "slots_compared": report["slots_compared"],
+                 "cut": report["cut"], "failures": report["failures"][:5],
+                 "max_total_rel_err": report["max_total_rel_err"],
+                 "max_new_total_rel_err": report["max_new_total_rel_err"],
+                 "close_calls": report["close_calls"],
+                 "largest_total": float(np.abs(cpu[:, 0]).max()),
+                 "bitwise_repeat": bool(np.array_equal(card, again)),
+                 "bitwise_static_depth": bool(np.array_equal(card, static.cpu().numpy()[:rows])),
+                 "cpu_f32_against_f64": {k: f64[k] for k in (
+                     "slots_compared", "cut", "max_total_rel_err", "max_new_total_rel_err")}}
+        checks[f"bucket {nb}"] = check
+        print(f"fused check card against CPU, bucket {nb}: {json.dumps(check)}")
+        if not (report["ok"] and check["bitwise_repeat"] and check["bitwise_static_depth"]):
+            fail(f"the card's fused check disagrees with the CPU's or is not repeatable: {check}")
+
+    # the searches on one bucket's molecules, card against card
+    nb = fullest[0]
+    sub = [blur[i] for i in by_bucket[nb]]
+    sub_lat = {j: lattices[i] for j, i in enumerate(by_bucket[nb])}
+
+    def search(cap, merge=1, members=None):
+        h = RefineHook(hook.model, hook.vocab_sizes, buckets=hook.buckets)
+        blur_, lat_ = (sub, sub_lat) if members is None else (
+            [sub[j] for j in members], {k: sub_lat[j] for k, j in enumerate(members)})
+        s_ = lat.LatticeSampler(sampler.model, beam_size=sampler.beam_size,
+                                buckets=sampler.buckets, refine_hook=h,
+                                refine_group_cap=cap, refine_merge=merge)
+        t0 = time.perf_counter()
+        out_ = s_._search(blur_, lat_)
+        return out_, s_, h, time.perf_counter() - t0
+
+    pipelined, s_pipe, h_pipe, t_pipe = search(32)
+    second = search(32)[0]
+    seed_base = random.Random(2022).getrandbits(64)
+    h_seq = RefineHook(hook.model, hook.vocab_sizes, buckets=hook.buckets)
+    sequential = [None] * len(sub)
+    t0 = time.perf_counter()
+    for members, _ in s_pipe._refine_groups(sub):
+        res = PQBeamSearch(lat.LatticeExpander(sub_lat), beam_size=sampler.beam_size,
+                           refine_hook=h_seq,
+                           rng=random.Random(lat._group_seed(seed_base, members))).run(
+            lat.LatticeSampler._init_states(sub, members))
+        for i, r in zip(members, res):
+            sequential[i] = r
+    t_seq = time.perf_counter() - t0
+    lanes = list(range(min(16, len(sub))))
+    merged = {m: search(1, m, lanes) for m in (1, 4)}
+    searches = {"bucket": nb, "molecules": len(sub),
+                "groups": len(s_pipe._refine_groups(sub)),
+                "pipelined_s": t_pipe, "sequential_s": t_seq,
+                "checks_pipelined": h_pipe.stats["score_calls"],
+                "checks_sequential": h_seq.stats["score_calls"],
+                "pipelined_is_sequential": same_trees(pipelined, sequential),
+                "bitwise_second_run": same_trees(pipelined, second),
+                "merge_groups": len(lanes),
+                "merge_checks": {m: merged[m][2].stats["score_calls"] for m in merged},
+                "merge_s": {m: merged[m][3] for m in merged},
+                "merge4_is_merge1": same_trees(merged[4][0], merged[1][0])}
+    print(f"refine-on searches, card against card: {json.dumps(searches)}")
+    if not (searches["pipelined_is_sequential"] and searches["bitwise_second_run"]
+            and searches["merge4_is_merge1"]):
+        fail(f"refine-on searches are not bitwise equal: {searches}")
+    return {"molecules": len(blur), "lattice_s": run["lattice_s"], "search_s": run["search_s"],
+            "trees_per_s": len(blur) / seconds, "refine": st, "swaps": seen["swaps"],
+            "fused_check_by_bucket": per_bucket, "card_against_cpu": checks,
+            "searches": searches}
 
 
 def main() -> None:
@@ -1033,6 +1248,12 @@ def main() -> None:
     # ---- 4f. the pipeline from the histogram to junction trees
     generated, generate_launches = generate_phase(cli, ek)
 
+    # ---- 4g. the fine stage with the refine model's checks, on phase 4's point sets
+    refined = refine_assemble_phase(cli, coarse_pkl, device)
+
+    # ---- 4h. the pipeline with the refine model's checks
+    generated_refine, generate_refine_launches = generate_phase(cli, ek, refine=True)
+
     # ---- 5. kernel list
     bounds = {"fused_gcl": bound(gcl_flops, gcl_sfu, gcl_bytes, sm_clock_hz, n_sms),
               "fused_coord_update": bound(coord_flops, coord_sfu, coord_bytes, sm_clock_hz, n_sms),
@@ -1043,7 +1264,8 @@ def main() -> None:
                                    "hierdiff_tpu/ops/egnn_pallas.py:492"),
             "fused_gcl_bwd": ("hierdiff_torch/csrc/fused_gcl_bwd.cu",
                               "hierdiff_tpu/ops/egnn_pallas.py:346")}
-    paths = {"sample": launches, "train": train_launches, "generate": generate_launches}
+    paths = {"sample": launches, "train": train_launches, "generate": generate_launches,
+             "generate_refine": generate_refine_launches}
     kernels = []
     for name, runs in results.items():
         main_run = runs[0]   # random weights, attention on, f32: the main path's variant
@@ -1061,7 +1283,8 @@ def main() -> None:
     print(json.dumps({"kernels": kernels, "train": {
         k: train[k] for k in ("steps", "seconds", "steps_per_sec", "molecules_per_sec")},
         "cache_after_step": cache, "step_gradients": step_grads, "assemble": assembled,
-        "generate": generated}))
+        "generate": generated, "assemble_refine": refined,
+        "generate_refine": generated_refine}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,11 +1,13 @@
-"""Configuration: the coarse model, the fine stage's edge-denoise model,
-the optimizer and the training loop (the port's copy of
+"""Configuration: the coarse model, the fine stage's edge-denoise and refine
+models, the optimizer and the training loop (the port's copy of
 ``hierdiff_tpu/config.py``: ``CoarseModelConfig``, ``EdgeDenoiseConfig``,
-``OptimConfig``, ``TrainConfig`` and a ``Config`` holding them).
+``RefineConfig``, ``OptimConfig``, ``TrainConfig`` and a ``Config`` holding
+them).
 
 Defaults are the GEOM-Drugs models (reference
-endiffusion/conf/model/ddpmgblur.yaml and conf/model/edge_denoise.yaml, as
-``configs/coarse_geom.yaml`` and ``configs/denoise_geom.yaml``). A YAML file
+endiffusion/conf/model/ddpmgblur.yaml, conf/model/edge_denoise.yaml and
+conf/model/refine.yaml, as ``configs/coarse_geom.yaml``,
+``configs/denoise_geom.yaml`` and ``configs/refine_geom.yaml``). A YAML file
 in the JAX package's format can override them; PyYAML is imported only when
 a path is given. Dotted ``k=v`` overrides are parsed without it.
 """
@@ -105,6 +107,16 @@ class EdgeDenoiseConfig:
 
 
 @dataclass
+class RefineConfig:
+    """conf/model/refine.yaml equivalents (``models/refine.NodeRefine``)."""
+
+    vocab_size: int = 780
+    feature_size: int = 8
+    hidden_size: int = 256
+    n_layers: int = 2
+
+
+@dataclass
 class OptimConfig:
     """conf/optim + conf/scheduler equivalents (``build_optimizer``)."""
 
@@ -140,6 +152,7 @@ class Config:
     stage: str = "coarse"
     coarse: CoarseModelConfig = field(default_factory=CoarseModelConfig)
     denoise: EdgeDenoiseConfig = field(default_factory=EdgeDenoiseConfig)
+    refine: RefineConfig = field(default_factory=RefineConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
 
@@ -201,15 +214,15 @@ def _update_from_dict(cfg: Any, d: dict, prefix: str = "") -> None:
     for k, v in d.items():
         if isinstance(v, dict):
             _update_from_dict(cfg, v, f"{prefix}{k}.")
-        elif prefix.split(".")[0] in ("coarse", "denoise", "optim", "train") or (
+        elif prefix.split(".")[0] in ("coarse", "denoise", "refine", "optim", "train") or (
                 not prefix and k == "stage"):
             _apply(cfg, f"{prefix}{k}", v)
 
 
 def load_config(path: Optional[str] = None, overrides: Sequence[str] = ()) -> Config:
-    """Defaults, then the YAML file's ``coarse`` / ``denoise`` / ``optim`` /
-    ``train`` sections (the refine stage's section is not ported and is
-    skipped), then ``key=value`` overrides such as ``train.max_steps=20``."""
+    """Defaults, then the YAML file's ``coarse`` / ``denoise`` / ``refine`` /
+    ``optim`` / ``train`` sections, then ``key=value`` overrides such as
+    ``train.max_steps=20`` or ``refine.hidden_size=32``."""
     cfg = Config()
     if path:
         import yaml

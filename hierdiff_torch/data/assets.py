@@ -1,14 +1,14 @@
-"""Bundled data artifacts: node-count histograms, the fragment vocabulary and
-its fingerprint tables (the port's own copies of ``hierdiff_tpu/assets/``:
-``*_histogram.json``, ``vocab.txt``, ``vocab_prop_fps.csv``,
-``vocab_elem_fps.csv``)."""
+"""Bundled data artifacts: node-count histograms, the fragment vocabulary,
+its fingerprint tables and the heavy-atom size table (the port's own copies
+of ``hierdiff_tpu/assets/``: ``*_histogram.json``, ``vocab.txt``,
+``vocab_prop_fps.csv``, ``vocab_elem_fps.csv``, ``size_dict.json``)."""
 
 from __future__ import annotations
 
 import json
 from functools import lru_cache
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -43,3 +43,20 @@ def load_vocab_fps(mode: str = "prop") -> Dict[str, np.ndarray]:
             parts = line.rstrip("\n").split(",")
             out[parts[0]] = np.array([float(v) for v in parts[1:]], dtype=np.float64)
     return out
+
+
+@lru_cache(maxsize=None)
+def load_size_dict() -> Dict[int, List[int]]:
+    """heavy-atom count -> allowed vocab indices (refine head support)."""
+    with open(ASSET_DIR / "size_dict.json") as f:
+        raw = json.load(f)
+    return {int(k): v for k, v in raw.items()}
+
+
+@lru_cache(maxsize=None)
+def vocab_mol_sizes() -> Tuple[int, ...]:
+    """Heavy-atom count per vocab index: column 3 of the 'prop' fingerprint
+    table, rounded. This is what the JAX package's ``Vocab().mol_sizes``
+    gives without RDKit (``hierdiff_tpu/chem/mol_tree.py:27-36``)."""
+    fps = load_vocab_fps("prop")
+    return tuple(int(round(fps[s][3])) for s in load_vocab_smiles())

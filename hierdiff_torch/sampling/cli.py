@@ -12,12 +12,16 @@ the pipeline from a histogram to junction trees.
     # both stages: histogram -> trees
     python -m hierdiff_torch.sampling.cli generate --init-seed 0 \\
         --denoise-init-seed 0 --num 64 --sample-steps 100
+    # either, with the refine model checking the beam's trees
+    python -m hierdiff_torch.sampling.cli assemble --coarse-pkl samples.pkl \\
+        --denoise-init-seed 0 --refine-init-seed 0
 
 Weights come from a ``.pt`` or ``.npz`` state dict in the reference layout
 (``utils/weights.py``) or from a seed (``--init-seed`` for the coarse model,
-``--denoise-init-seed`` for the edge-denoise model). The JAX package's Orbax
-workdirs need JAX to read; convert them with ``state_dict_from_flax`` /
-``denoise_state_dict_from_flax`` first. The models are the GEOM
+``--denoise-init-seed`` for the edge-denoise model, ``--refine-init-seed``
+for the refine model). The JAX package's Orbax workdirs need JAX to read;
+convert them with ``state_dict_from_flax`` / ``denoise_state_dict_from_flax``
+/ ``refine_state_dict_from_flax`` first. The models are the GEOM
 configurations unless ``k=v`` overrides (``denoise.hidden_nf=32``) say
 otherwise; ``generate``'s coarse model runs f32 elementwise, as ``coarse``
 does by default. Runs on CUDA unless ``--device``
@@ -35,16 +39,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from hierdiff_torch.config import (CoarseModelConfig, EdgeDenoiseConfig, load_coarse_config,
-                                   load_config)
-from hierdiff_torch.data.assets import load_histogram
+from hierdiff_torch.config import (CoarseModelConfig, EdgeDenoiseConfig, RefineConfig,
+                                   load_coarse_config, load_config)
+from hierdiff_torch.data.assets import load_histogram, vocab_mol_sizes
 from hierdiff_torch.data.collate import DEFAULT_BUCKETS, SAMPLING_BUCKETS
 from hierdiff_torch.models.diffusion import CoarseDiffusion
 from hierdiff_torch.models.edge_denoise import EdgeDenoise
+from hierdiff_torch.models.refine import NodeRefine
 from hierdiff_torch.ops.distributions import DistributionNodes
 from hierdiff_torch.sampling.coarse import make_masks_for_counts, sample_coarse
 from hierdiff_torch.sampling.pipeline import (GenerationPipeline, build_fine_sampler,
                                               round_int_features)
+from hierdiff_torch.sampling.refine_hook import RefineHook
 from hierdiff_torch.utils.device import resolve_device
 from hierdiff_torch.utils.weights import init_weights
 
@@ -80,6 +86,14 @@ def build_denoise_from_cfg(cfg: EdgeDenoiseConfig, device=None) -> EdgeDenoise:
                        n_layers_full=cfg.n_layers_full, n_layers_focal=cfg.n_layers_focal,
                        vocab_conditioning=cfg.vocab_conditioning
                        ).to(resolve_device(device)).eval()
+
+
+def build_refine_from_cfg(cfg: RefineConfig, device=None) -> NodeRefine:
+    """The refine model of ``cfg`` on ``device`` (default CUDA), with
+    PyTorch's default initialisation."""
+    return NodeRefine(vocab_size=cfg.vocab_size, feature_size=cfg.feature_size,
+                      hidden_size=cfg.hidden_size, n_layers=cfg.n_layers
+                      ).to(resolve_device(device)).eval()
 
 
 def load_state(path: str) -> dict:
@@ -143,13 +157,29 @@ def _weights(model, path: str, seed: Optional[int], flags: str):
 
 def _fine_stage_setup(args, device):
     """Shared stage-2 setup of ``assemble`` and ``generate``: the
-    configuration, the edge-denoise model with its weights and the pad
-    buckets."""
+    configuration, the edge-denoise model with its weights, the pad buckets
+    and, with refine weights or a seed for them, the refine hook (its
+    fleets padded to the same buckets; heavy-atom sizes from the
+    fingerprint table, as the JAX CLI has them without RDKit)."""
     cfg = load_config(None, args.overrides)
     denoise = _weights(build_denoise_from_cfg(cfg.denoise, device), args.denoise_weights,
                        args.denoise_init_seed, "--denoise-weights or --denoise-init-seed")
     buckets = DEFAULT_BUCKETS if args.default_buckets else SAMPLING_BUCKETS
-    return cfg, denoise, buckets
+    hook = None
+    if args.refine_weights or args.refine_init_seed is not None:
+        refine = _weights(build_refine_from_cfg(cfg.refine, device), args.refine_weights,
+                          args.refine_init_seed, "--refine-weights or --refine-init-seed")
+        hook = RefineHook(refine, np.asarray(vocab_mol_sizes()), buckets=buckets)
+    return cfg, denoise, buckets, hook
+
+
+def _refine_line(hook) -> str:
+    """The refine hook's counters, for the rate lines."""
+    if hook is None:
+        return "refine off"
+    st = hook.stats
+    return (f"refine: {st['score_calls']} fused checks, dispatch {st['dispatch_s']:.3f} s, "
+            f"collect {st['collect_s']:.3f} s, walk {st['walk_s']:.3f} s")
 
 
 def _tree_to_dict(t):
@@ -177,9 +207,10 @@ def _flatten_blur_pkl(obj) -> list:
 def cmd_assemble(args) -> dict:
     """Stage 2 on its own: a coarse pickle's point sets -> junction trees,
     pickled as ``{"trees": [...]}``. Returns the blur sets, the trees, the
-    sampler and the seconds of the lattices and of the search."""
+    sampler, the lattices and the seconds of the lattices and of the search
+    (the refine hook's checks and its ``finalize`` included)."""
     device = resolve_device(args.device)
-    cfg, denoise, buckets = _fine_stage_setup(args, device)
+    cfg, denoise, buckets, hook = _fine_stage_setup(args, device)
     with open(args.coarse_pkl, "rb") as f:
         blur = _flatten_blur_pkl(pickle.load(f))
     if args.num:
@@ -192,21 +223,24 @@ def cmd_assemble(args) -> dict:
     int_nf = 5 if cfg.denoise.in_node_nf == 8 else 3
     blur = [{"x": np.asarray(b["x"], np.float32),
              "h": round_int_features(np.asarray(b["h"], np.float32), int_nf)} for b in blur]
-    sampler = build_fine_sampler(denoise, beam_size=args.beam, buckets=buckets)
+    sampler = build_fine_sampler(denoise, beam_size=args.beam, buckets=buckets,
+                                 refine_hook=hook)
     t0 = time.perf_counter()
     lattices = sampler.compute_lattices(blur)
     t1 = time.perf_counter()
     trees = sampler._search(blur, lattices)
+    if hook is not None:
+        trees = [hook.finalize(t) if t is not None else None for t in trees]
     t2 = time.perf_counter()
     ok = sum(t is not None for t in trees)
     print(f"assembled {ok}/{len(blur)} junction trees in {t2 - t0:.3f} s "
           f"({len(blur) / (t2 - t0):.3f} trees/s, device {device}): lattices {t1 - t0:.3f} s, "
-          f"host search {t2 - t1:.3f} s")
+          f"search {t2 - t1:.3f} s; {_refine_line(hook)}")
     with open(args.out, "wb") as f:
         pickle.dump({"trees": [_tree_to_dict(t) for t in trees]}, f)
     print(f"-> {args.out}")
-    return {"blur": blur, "trees": trees, "sampler": sampler, "lattice_s": t1 - t0,
-            "search_s": t2 - t1}
+    return {"blur": blur, "trees": trees, "sampler": sampler, "lattices": lattices,
+            "lattice_s": t1 - t0, "search_s": t2 - t1}
 
 
 def cmd_generate(args) -> dict:
@@ -214,20 +248,22 @@ def cmd_generate(args) -> dict:
     ``{"trees": [...], "molecules": None, "stats": {...}}``. Returns the
     pipeline's result and the wall seconds."""
     device = resolve_device(args.device)
-    cfg, denoise, buckets = _fine_stage_setup(args, device)
+    cfg, denoise, buckets, hook = _fine_stage_setup(args, device)
     coarse = _weights(build_coarse_from_cfg(cfg.coarse, "float32", device),
                       args.weights, args.init_seed, "--weights or --init-seed")
     pipe = GenerationPipeline(coarse, denoise, histogram=load_histogram(cfg.coarse.dataset),
                               beam_size=args.beam, int_nf=cfg.coarse.int_nf,
                               max_n_cap=args.max_nodes or None,
-                              sample_steps=args.steps or None, sample_buckets=buckets)
+                              sample_steps=args.steps or None, sample_buckets=buckets,
+                              refine_hook=hook)
     t0 = time.perf_counter()
     result = pipe.run(args.seed, args.num)
     seconds = time.perf_counter() - t0
     ok = sum(t is not None for t in result.trees)
     print(f"assembled {ok}/{args.num} junction trees in {seconds:.3f} s "
           f"({args.num / seconds:.3f} molecules/s, device {device}): t_coarse "
-          f"{result.stats['t_coarse']:.3f} s, t_fine {result.stats['t_fine']:.3f} s")
+          f"{result.stats['t_coarse']:.3f} s, t_fine {result.stats['t_fine']:.3f} s; "
+          f"{_refine_line(hook)}")
     print("reconstruction to molecules is not ported yet (it needs RDKit): "
           "the pickle holds junction trees")
     with open(args.out, "wb") as f:
@@ -265,13 +301,18 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--denoise-weights", default="", help=".pt or .npz state dict")
         sp.add_argument("--denoise-init-seed", type=int, default=None,
                         help="random edge-denoise weights from this seed")
+        sp.add_argument("--refine-weights", default="",
+                        help="refine .pt or .npz state dict: check the beam's trees with it")
+        sp.add_argument("--refine-init-seed", type=int, default=None,
+                        help="random refine weights from this seed")
         sp.add_argument("--beam", type=int, default=5)
         sp.add_argument("--default-buckets", action="store_true",
                         help="pad to the coarser DEFAULT_BUCKETS instead of SAMPLING_BUCKETS")
         sp.add_argument("--device", default=None, help="torch device (default cuda)")
         sp.add_argument("--out", default=out)
         sp.add_argument("overrides", nargs="*",
-                        help="dotted overrides, in one run: denoise.hidden_nf=32 coarse.n_layers=1")
+                        help="dotted overrides, in one run: denoise.hidden_nf=32 "
+                             "refine.hidden_size=32 coarse.n_layers=1")
 
     pa = sub.add_parser("assemble", help="stage 2: blur point sets -> junction trees "
                                          "(reference ar_sampling_nosize.py)")

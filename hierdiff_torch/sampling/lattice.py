@@ -14,15 +14,25 @@ each chunk's outputs are copied to the host once. Under ``gated=True`` a
 molecule's lattice does not depend on its chunk or pad, so chunking changes
 no result.
 
+With a refine hook (``sampling/refine_hook.py``) the search checks each
+fleet of beam candidates on the device every round. The molecules are then
+searched in groups of at most ``refine_group_cap`` per pad bucket, each
+group its own ``PQBeamSearch.run_rounds`` with its own tiebreak stream
+(``_group_seed``), advanced round-robin with every live group's fused check
+in flight (``_sample_refine_pipelined``); ``refine_group_cap=0`` keeps one
+lockstep search.
+
 Not ported yet (ROADMAP.md, Queue 1): the streamed driver
-(``sample_streamed``), the refine hook and its searches, the native search,
-the data mesh and the per-node vocab restriction (``allowed_fn``).
+(``sample_streamed``), the native searches, the data mesh and the per-node
+vocab restriction (``allowed_fn``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+import random
+from collections import deque
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -73,6 +83,14 @@ def _next_pow2(n: int) -> int:
     return p
 
 
+def _group_seed(base: int, members) -> int:
+    """Tiebreak seed of one refine-on group search: one master draw
+    (``base``) mixed with the group's first molecule index. Groups partition
+    the molecules, so the seed depends on the group, not on the order the
+    groups were made in (``hierdiff_tpu/sampling/lattice.py:78``)."""
+    return (base ^ ((int(members[0]) + 1) * 0x9E3779B97F4A7C15)) & (2**64 - 1)
+
+
 def pow2_chunks(n: int, cap: int, min_chunk: int = 4):
     """Greedy pow2 decomposition of a bucket population into chunk sizes:
     full ``cap``-sized chunks first, then the remainder in descending pow2
@@ -110,10 +128,21 @@ class LatticeSampler:
     """Stage 2: blur point sets -> junction trees, on the model's device."""
 
     def __init__(self, model: EdgeDenoise, beam_size: int = 5,
-                 buckets: Optional[Sequence[int]] = None):
+                 buckets: Optional[Sequence[int]] = None, refine_hook=None,
+                 can_assemble: Optional[Callable[[TreeState, int], bool]] = None,
+                 rng: Optional[random.Random] = None, refine_group_cap: int = 32,
+                 refine_merge: int = 1):
         """buckets: pad buckets (None: ``DEFAULT_BUCKETS``); the lattice's
-        work grows with the cube of the pad. The search's tiebreak stream is
-        ``random.Random(2022)``, as the reference's."""
+        work grows with the cube of the pad. refine_hook: a ``RefineHook``
+        or None. can_assemble: the search's assembly gate or None. rng: the
+        search's tiebreak stream (None: ``random.Random(2022)``, as the
+        reference's); the refine-on group searches draw their seeds from it.
+
+        refine_group_cap: molecules per refine-on group search (0: one
+        lockstep search). refine_merge: same-bucket groups bundled into one
+        fused check per round; the check is row-independent and a bundle
+        never spans two buckets, so it changes no result, only the number
+        of checks."""
         if model.gated and not model.dynamic_depth:
             # inference: bound the depth loops by the trees' actual depth
             # (exact under gated=True; see EdgeDenoise.depth_mp)
@@ -121,6 +150,11 @@ class LatticeSampler:
         self.model = model
         self.beam_size = beam_size
         self.buckets = tuple(buckets) if buckets else DEFAULT_BUCKETS
+        self.refine_hook = refine_hook
+        self.can_assemble = can_assemble
+        self.rng = rng
+        self.refine_group_cap = refine_group_cap
+        self.refine_merge = refine_merge
 
     # --- device side ---------------------------------------------------------
 
@@ -189,8 +223,15 @@ class LatticeSampler:
         return self._search(blur_sets, self.compute_lattices(blur_sets))
 
     def _search(self, blur_sets, lattices) -> List[Optional[TreeState]]:
-        """Host beam search over precomputed lattices."""
-        search = PQBeamSearch(LatticeExpander(lattices), beam_size=self.beam_size)
+        """Host beam search over precomputed lattices: refine-on with groups
+        goes to the pipelined group searches, anything else to one lockstep
+        search (the JAX package's routing where no native library is
+        built)."""
+        if self.refine_hook is not None and self.refine_group_cap:
+            return self._sample_refine_pipelined(blur_sets, lattices)
+        search = PQBeamSearch(LatticeExpander(lattices), beam_size=self.beam_size,
+                              can_assemble=self.can_assemble, refine_hook=self.refine_hook,
+                              rng=self.rng)
         return search.run(self._init_states(blur_sets, range(len(blur_sets))))
 
     @staticmethod
@@ -206,3 +247,84 @@ class LatticeSampler:
                 wids=np.full(n, -1, np.int64),
                 index=idx))
         return init
+
+    def _refine_groups(self, blur_sets) -> List[tuple]:
+        """(members, bucket) of the refine-on group searches: molecules
+        grouped by pad bucket, at most ``refine_group_cap`` per group."""
+        by_bucket: Dict[int, List[int]] = {}
+        for idx, jt in enumerate(blur_sets):
+            by_bucket.setdefault(bucket_for(jt["h"].shape[0], self.buckets), []).append(idx)
+        out: List[tuple] = []
+        for nb, idxs in sorted(by_bucket.items()):
+            for c0 in range(0, len(idxs), self.refine_group_cap):
+                out.append((idxs[c0: c0 + self.refine_group_cap], nb))
+        return out
+
+    def _sample_refine_pipelined(self, blur_sets, lattices) -> List[Optional[TreeState]]:
+        """Refine-on search as pipelined molecule-group searches.
+
+        Each group (``_refine_groups``) runs its own ``PQBeamSearch`` as a
+        generator (``run_rounds``), seeded by ``_group_seed``; every live
+        lane's fused check is enqueued, and the lanes are collected
+        round-robin, so one lane's check runs on the device while the host
+        walks another's. Within a group the order of work is that of a
+        search run alone, so the result equals the sequential group
+        searches with the same seeds, bit for bit."""
+        master = self.rng if self.rng is not None else random.Random(2022)
+        seed_base = master.getrandbits(64)
+        hook = self.refine_hook
+        expander = LatticeExpander(lattices)
+        results: List[Optional[TreeState]] = [None] * len(blur_sets)
+
+        def finish(members, values):
+            for i, r in zip(members, values):
+                results[i] = r
+
+        items = []   # live (bucket, generator, members, fleet) at their first yield
+        for members, gbucket in self._refine_groups(blur_sets):
+            search = PQBeamSearch(expander, beam_size=self.beam_size,
+                                  can_assemble=self.can_assemble, refine_hook=hook,
+                                  rng=random.Random(_group_seed(seed_base, members)))
+            gen = search.run_rounds(self._init_states(blur_sets, members))
+            try:
+                fleet = next(gen)
+            except StopIteration as e:
+                finish(members, e.value)
+                continue
+            items.append((gbucket, gen, members, fleet))
+
+        def dispatch_lane(lane):
+            # the fused check is row-independent: one check for the lane's
+            # concatenated same-bucket fleets gives each group its own result
+            return hook.dispatch_batch([s for (_b, _g, _m, fleet) in lane for s in fleet])
+
+        # keep at least 4 lanes in flight: a larger merge would collapse the
+        # pipeline back into one lockstep chain
+        merge = max(1, min(int(self.refine_merge or 1), len(items) // 4))
+        queue = deque()
+        lane: List[tuple] = []
+        for it in items:
+            if lane and (len(lane) >= merge or lane[0][0] != it[0]):
+                queue.append((lane, dispatch_lane(lane)))
+                lane = []
+            lane.append(it)
+        if lane:
+            queue.append((lane, dispatch_lane(lane)))
+
+        while queue:
+            lane, token = queue.popleft()
+            states = [s for (_b, _g, _m, fleet) in lane for s in fleet]
+            checked = hook.collect_batch(token, states)
+            nxt, off = [], 0
+            for gbucket, gen, members, fleet in lane:
+                part = checked[off: off + len(fleet)]
+                off += len(fleet)
+                try:
+                    fleet = gen.send(part)
+                except StopIteration as e:
+                    finish(members, e.value)
+                    continue
+                nxt.append((gbucket, gen, members, fleet))
+            if nxt:
+                queue.append((nxt, dispatch_lane(nxt)))
+        return results

@@ -7,11 +7,13 @@ lattice branch, ``round_int_features``):
 1. coarse: node counts from the histogram prior, grouped by pad bucket and
    chunked, each chunk a run of ``sample_coarse`` (the coarse kernels on the
    card);
-2. fine: the lattice sampler assembles a junction tree per molecule.
+2. fine: the lattice sampler assembles a junction tree per molecule, with
+   the refine hook's checks in its search when one is given, and the hook's
+   ``finalize`` repair after it.
 
 Integer blur features are rounded at the hand-off between the stages, as in
-the reference (ar_sampling_nosize.py:388). Reconstruction (RDKit), the
-refine hook and the streamed, overlapped driver are not ported yet.
+the reference (ar_sampling_nosize.py:388). Reconstruction (RDKit) and the
+streamed, overlapped driver are not ported yet.
 
 Random numbers differ from the JAX pipeline by design. ``run(seed, n)``
 draws the node counts from ``np.random.default_rng(seed)``, so a JAX run
@@ -42,13 +44,16 @@ from hierdiff_torch.sampling.lattice import LatticeSampler, _next_pow2, pow2_chu
 
 
 def build_fine_sampler(denoise_model: EdgeDenoise, *, beam_size: int = 5,
-                       buckets: Optional[Sequence[int]] = None) -> LatticeSampler:
-    """Stage-2 sampler for a denoise model: the lattice sampler."""
+                       buckets: Optional[Sequence[int]] = None,
+                       refine_hook=None) -> LatticeSampler:
+    """Stage-2 sampler for a denoise model: the lattice sampler, with the
+    refine hook's checks in its search when ``refine_hook`` is given."""
     if denoise_model.vocab_conditioning:
         raise NotImplementedError(
             "vocab_conditioning needs the round-based ARSampler (sampling/ar.py), which is "
             "not ported yet (ROADMAP.md, Queue 1)")
-    return LatticeSampler(denoise_model, beam_size=beam_size, buckets=buckets)
+    return LatticeSampler(denoise_model, beam_size=beam_size, buckets=buckets,
+                          refine_hook=refine_hook)
 
 
 def round_int_features(h: np.ndarray, int_nf: int) -> np.ndarray:
@@ -74,15 +79,20 @@ class GenerationPipeline:
     def __init__(self, coarse_model: CoarseDiffusion, denoise_model: EdgeDenoise,
                  histogram: Mapping[int, float], beam_size: int = 5, int_nf: int = 5,
                  max_n_cap: Optional[int] = None, sample_steps: Optional[int] = None,
-                 sample_buckets: Optional[Sequence[int]] = None):
+                 sample_buckets: Optional[Sequence[int]] = None, refine_hook=None):
         """sample_steps: strided reverse-chain length (None: the model's T).
-        sample_buckets: pad buckets of the coarse chunks and the lattices
-        (None: ``SAMPLING_BUCKETS``, the JAX pipeline's default)."""
+        sample_buckets: pad buckets of the coarse chunks, the lattices and
+        the refine hook's fleets (None: ``SAMPLING_BUCKETS``, the JAX
+        pipeline's default). refine_hook: a ``RefineHook`` or None."""
         self.coarse_model = coarse_model
         self.nodes_dist = DistributionNodes(histogram)
         self.sample_buckets = tuple(sample_buckets or SAMPLING_BUCKETS)
+        if refine_hook is not None:
+            # a group's fleets must pad to the group's own bucket, or merged
+            # lanes stop being equal to solo ones; align the hook's set
+            refine_hook.buckets = self.sample_buckets
         self.sampler = build_fine_sampler(denoise_model, beam_size=beam_size,
-                                          buckets=self.sample_buckets)
+                                          buckets=self.sample_buckets, refine_hook=refine_hook)
         self.int_nf = int_nf
         self.max_n_cap = max_n_cap
         self.sample_steps = sample_steps
@@ -145,11 +155,17 @@ class GenerationPipeline:
 
     def run(self, seed: int, n_molecules: int) -> PipelineResult:
         """Coarse then fine, one after the other. ``stats`` holds the wall
-        seconds of each (``t_coarse``, ``t_fine``)."""
+        seconds of each (``t_coarse``, ``t_fine``; the refine hook's
+        ``finalize`` counts in ``t_fine``)."""
         t0 = time.perf_counter()
         blur = self.sample_blur(seed, n_molecules)
         t1 = time.perf_counter()
         trees = self.sampler.sample(blur)
+        hook = self.sampler.refine_hook
+        if hook is not None:
+            # end-of-search repair of non-assemblable fragments
+            # (reference: model_refine.py:252-299 check_final_tree)
+            trees = [hook.finalize(t) if t is not None else None for t in trees]
         t2 = time.perf_counter()
         return PipelineResult(blur=blur, trees=trees, stats={"t_coarse": t1 - t0,
                                                              "t_fine": t2 - t1})

@@ -4,9 +4,10 @@ seeded random initialisation.
 ``state_dict_from_flax`` is the port's own copy of the egnn/gamma mapping of
 ``hierdiff_tpu/utils/torch_import.py:export_coarse`` (:398-479) and
 ``denoise_state_dict_from_flax`` that of ``export_denoise`` (:482, with
-``_exp_fine_egcl`` :424). The keys are the reference DiffusionQM9 and
-Edge_denoise layouts, so a real reference checkpoint and a JAX workdir's
-params (as numpy arrays) both load with ``strict=True``.
+``_exp_fine_egcl`` :424), ``refine_state_dict_from_flax`` that of
+``export_refine`` (:501). The keys are the reference DiffusionQM9,
+Edge_denoise and Node2Vec layouts, so a real reference checkpoint and a JAX
+workdir's params (as numpy arrays) both load with ``strict=True``.
 """
 
 from __future__ import annotations
@@ -131,6 +132,30 @@ def denoise_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """EdgeDenoise flax params (numpy leaves) -> the port's state dict."""
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in denoise_flax_to_numpy_state(params).items()}
+
+
+def refine_flax_to_numpy_state(params: Mapping) -> Dict[str, np.ndarray]:
+    """NodeRefine flax params (numpy leaves) -> reference Node2Vec
+    state-dict layout as numpy arrays. Accepts the params tree with or
+    without its top-level ``"params"`` key."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, np.ndarray] = {}
+    out["v_embedding.weight"] = np.asarray(params["v_embedding"]["embedding"])
+    out["size_embedding.weight"] = np.asarray(params["size_embedding"]["embedding"])
+    for name in ("f_embedding", "projection", "output"):
+        for layer, p in params[name].items():     # flax Sequential: layers_{i}
+            _linear(out, f"{name}.{layer.split('_')[1]}", p)
+    for name, p in params.items():
+        if name.startswith("gcl_"):
+            _fine_egcl(out, name, p)
+    return out
+
+
+def refine_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """NodeRefine flax params (numpy leaves) -> the port's state dict."""
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in refine_flax_to_numpy_state(params).items()}
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
