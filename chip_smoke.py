@@ -114,7 +114,31 @@ Phases, one output line each, any failure exits non-zero:
   4h. ``sampling.cli generate`` as 4f with ``--refine-init-seed 0``: a tree
      per molecule, the coarse launches exact per chunk; molecules/s,
      t_coarse, t_fine and the hook's counters;
-  5. the kernel list as JSON, then the result JSON as the last line.
+  4i. ``train.cli denoise --config configs/denoise_geom.yaml --init-seed 0``
+     (H=256, 3 + 3 layers, 780 types, batch 32, f32), a synthetic pool of
+     512 trees, 20 steps, two evaluations: every batch from the native
+     packer, every logged loss, term, accuracy and grad_norm finite, every
+     parameter moved but those of ``FINE_ZERO_GRAD`` (each with its reason),
+     no coarse kernel launched; steps/s and trees/s after the first step,
+     the first and last losses and accuracies, peak memory, and one step
+     per bucket profiled (wall and device ms, busy share, kernels, and a
+     synchronised split: forward, its depth passes, backward, update);
+  4j. the same for ``train.cli refine --config configs/refine_geom.yaml``
+     (H=256, 2 layers per phase, batch 16);
+  4k. one step's gradient of each model at GEOM width (8 trees of bucket
+     24), card against CPU, TF32 off: every parameter's gradient within
+     1e-3 of its largest |value| (floored at 1e-3 of the model's largest),
+     the loss terms within 1e-4; the CPU's f32 against its f64 printed
+     beside them, and whether two card runs repeat bitwise;
+  4l. the planted-signal check (tests/test_planted_learning.py's): hidden
+     64, one layer, planted_k=16, 250 AdamW steps at 2e-3: the denoise node
+     accuracy and the refine accuracy each above 0.6;
+  4m. the ema.pt files of 4i and 4j through ``sampling.cli assemble
+     --denoise-weights --refine-weights`` on phase 4's point sets: strict
+     loads and a spanning tree per molecule;
+  5. the kernel list as JSON (``launches_by_path`` counts every path above,
+     the two fine-stage training paths included), then the result JSON as
+     the last line.
 """
 
 from __future__ import annotations
@@ -738,6 +762,342 @@ def refine_assemble_phase(cli, coarse_pkl: bytes, device) -> dict:
             "searches": searches}
 
 
+# parameters of the fine stage's models whose gradient is zero by structure,
+# so that training may leave them unchanged (phases 4i, 4j)
+FINE_ZERO_GRAD = {
+    "denoise": {
+        **{f"gcl_focal_2.edge_mlp.{i}.{p}": "the last focal layer's edge update feeds nothing"
+           for i in (0, 2) for p in ("weight", "bias")},
+        "edge_predict.2.bias": "it shifts every candidate's logit, which the softmax cancels"},
+    "refine": {}}
+# 4k: a gradient tensor's error, card against CPU, over its largest |CPU value|
+# floored at 1e-3 of the model's largest (a structurally zero gradient is
+# rounding noise on both); loss terms over their |CPU value|
+FINE_GRAD_TOL, FINE_TERM_TOL, GRAD_FLOOR = 1e-3, 1e-4, 1e-3
+
+
+def fine_config(stage: str) -> str:
+    return str(Path(__file__).resolve().parent / "configs" / f"{stage}_geom.yaml")
+
+
+def step_split(state, loss_fn, batch, inner: str) -> dict:
+    """One training step with a synchronise between its parts: wall ms of
+    the forward, of the model's ``inner`` method within it (the depth
+    passes, or the refine flow), of the backward and of the update."""
+    model = state.model
+    spent = [0.0]
+    method = getattr(model, inner)
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = method(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t
+        return out
+
+    setattr(model, inner, timed)        # an instance attribute shadows the method
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(model, batch, None)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        state.apply_gradients()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    finally:
+        delattr(model, inner)
+    return {"forward_ms": (t1 - t0) * 1e3, f"forward_{inner}_ms": spent[0] * 1e3,
+            "backward_ms": (t2 - t1) * 1e3, "update_ms": (t3 - t2) * 1e3}
+
+
+def profile_fine_steps(train_cli, stage: str, trainer, device) -> list:
+    """One training step per bucket of the GEOM pool, after training: wall
+    ms (median of three), device ms of a profiled step and the device's
+    busy share of the wall (torch.profiler), the kernels the step ran, and
+    the step's split (``step_split``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hierdiff_torch.config import load_config
+    from hierdiff_torch.data.collate import bucket_for
+    from hierdiff_torch.parallel.train_step import train_step
+    from hierdiff_torch.train.data_iters import load_tree_pool, to_device
+
+    cfg = load_config(fine_config(stage), ["train.num_train_trees=512", f"train.seed={SEED}"])
+    _, loss_fn, make_iter, _ = train_cli.BUILDERS[stage]
+    pool = load_tree_pool(cfg, seed=SEED)
+    present = {bucket_for(t.feats.shape[0], cfg.train.buckets) for t in pool}
+    it = make_iter(cfg, pool, seed=SEED + 2)
+    by_bucket = {}
+    for _ in range(400):
+        batch = next(it)
+        by_bucket.setdefault(batch["feats"].shape[1], batch)
+        if set(by_bucket) == present:
+            break
+    inner = "depth_mp" if stage == "denoise" else "message"
+    rows = []
+    for nb, batch in sorted(by_bucket.items()):
+        batch = to_device(batch, device)
+        train_step(trainer.state, loss_fn, batch, None)   # first use of this shape
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(trainer.state, loss_fn, batch, None)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall_ms = float(np.median(walls))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            train_step(trainer.state, loss_fn, batch, None)
+            torch.cuda.synchronize()
+        kernels = sum(e.count for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and not e.key.startswith("Memcpy")
+                      and not e.key.startswith("Memset"))
+        row = {"bucket": nb, "batch": int(batch["feats"].shape[0]), "wall_ms": wall_ms,
+               "device_ms": profiled_device_ms(prof), "kernels": kernels,
+               **step_split(trainer.state, loss_fn, batch, inner)}
+        row["device_share"] = row["device_ms"] / wall_ms
+        rows.append(row)
+        print(f"{stage} training step, bucket {nb}, batch {row['batch']}: wall {wall_ms:.1f} ms "
+              f"(median of 3), "
+              f"device {row['device_ms']:.1f} ms (torch.profiler; {row['device_share']:.3f} of "
+              f"the wall), {kernels} kernels; synchronised split: forward "
+              f"{row['forward_ms']:.1f} ms ({inner} {row[f'forward_{inner}_ms']:.1f}), backward "
+              f"{row['backward_ms']:.1f}, update {row['update_ms']:.1f}")
+    return rows
+
+
+def fine_train_phase(train_cli, ek, stage: str, workdir: Path, device) -> dict:
+    """Phase 4i (denoise) / 4j (refine): ``train.cli <stage>`` at its GEOM
+    configuration from ``--init-seed 0``, a synthetic pool of 512 trees, 20
+    steps, two evaluations on the EMA weights: every logged loss, term,
+    accuracy and grad_norm finite, every parameter moved but the named
+    structurally-zero ones, no kernel of the coarse stage launched, and for
+    denoise every batch from the native packer. Then one step per bucket
+    profiled."""
+    from hierdiff_torch.config import load_config
+    from hierdiff_torch.utils.weights import init_weights
+
+    steps, evals = 20, 2
+    t_phase = time.perf_counter()
+    ek.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    run = train_cli.main([stage, "--config", fine_config(stage), "--init-seed", "0",
+                          f"train.workdir={workdir}", "train.num_train_trees=512",
+                          f"train.max_steps={steps}", "train.log_every=1",
+                          f"train.eval_every={steps // evals}", "train.checkpoint_every=1000",
+                          f"train.seed={SEED}"])
+    torch.cuda.synchronize()
+    launches = dict(ek.launch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(workdir / "metrics.csv") as f:
+        rows = list(csv.DictReader(f))
+    train_rows = [r for r in rows if r["split"] == "train"]
+    logged = [k for k in train_rows[0] if k not in ("step", "split")]
+    values = {k: [float(r[k]) for r in train_rows] for k in logged}
+    trainer = run["trainer"]
+    cfg = load_config(fine_config(stage))
+    start = init_weights(train_cli.BUILDERS[stage][0](cfg, device),
+                         torch.Generator().manual_seed(0)).state_dict()
+    unchanged = sorted(k for k, v in trainer.state.model.state_dict().items()
+                       if torch.equal(v, start[k]))
+    ends = {k: (v[0], v[-1]) for k, v in values.items() if "loss" in k or "accuracy" in k}
+    out = {"steps": run["steps"], "seconds": run["seconds"],
+           "steps_per_sec": run["steps_per_sec"], "trees_per_sec": run["trees_per_sec"],
+           "batch": cfg.train.batch_size, "first_last": ends, "grad_norm": values["grad_norm"],
+           "peak_gib": peak_gib, "launches": launches, "unchanged": unchanged,
+           "packers": run["packers"]}
+    print(f"{stage} training: train CLI {Path(fine_config(stage)).name}, batch "
+          f"{cfg.train.batch_size}, {steps} steps: {run['seconds']:.3f} s wall, "
+          f"{run['steps_per_sec']:.4f} steps/s and {run['trees_per_sec']:.3f} trees/s after the "
+          f"first step; first and last {ends}; grad_norm {min(values['grad_norm']):.4g} .. "
+          f"{max(values['grad_norm']):.4g}; peak {peak_gib:.2f} GiB; launches {launches}; "
+          f"unchanged parameters {unchanged}; packers {run['packers']}")
+    if len(train_rows) != steps or not all(math.isfinite(v) for vs in values.values() for v in vs):
+        fail(f"{stage} training logged a non-finite value or missed a step")
+    if any(launches.values()):
+        fail(f"{stage} training launched a coarse-stage kernel: {launches}")
+    untrained = sorted(set(unchanged) - set(FINE_ZERO_GRAD[stage]))
+    if untrained:
+        fail(f"{stage} parameters not trained: {untrained}")
+    if stage == "denoise" and not (run["packers"].get("native", 0) > 0
+                                   and set(run["packers"]) == {"native"}):
+        fail(f"denoise batches were not all packed natively: {run['packers']}")
+    out["by_bucket"] = profile_fine_steps(train_cli, stage, trainer, device)
+    if stage == "denoise":
+        out["packer_ms"] = packer_ms(cfg)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def packer_ms(cfg, batches: int = 20) -> dict:
+    """Host ms per denoise batch of the GEOM pool (batch 32, the bucket
+    drawn as training draws it), native packer against the Python
+    collator, on the same trees."""
+    import random
+
+    from hierdiff_torch.data.denoise import make_denoise_batch
+    from hierdiff_torch.train.data_iters import (_group_by_bucket, _sample_bucket_batch,
+                                                 load_tree_pool)
+
+    cfg.train.num_train_trees, cfg.train.seed = 512, SEED
+    groups = _group_by_bucket(load_tree_pool(cfg, seed=SEED), cfg.train.buckets)
+    rng = random.Random(SEED)
+    draws = [_sample_bucket_batch(groups, rng, cfg.train.batch_size) for _ in range(batches)]
+    out = {}
+    for kind, native in (("native", True), ("python", False)):
+        t0 = time.perf_counter()
+        for bkt, trees in draws:
+            make_denoise_batch(trees, rng, max_n=bkt, allow_native=native)
+        out[kind] = (time.perf_counter() - t0) * 1e3 / batches
+    print(f"denoise packer, batch {cfg.train.batch_size} of the GEOM pool: native "
+          f"{out['native']:.3f} ms, Python {out['python']:.3f} ms per batch (host)")
+    return out
+
+
+def fine_grad_check(train_cli, stage: str, device) -> dict:
+    """Phase 4k: one step's gradient of a GEOM-width model (seed-0 weights,
+    8 trees of bucket 24), card against CPU, TF32 off: every parameter's
+    gradient within FINE_GRAD_TOL of its (floored) largest |CPU value|, the
+    loss terms within FINE_TERM_TOL; the CPU's f32 against its f64 printed
+    beside them as the rounding scale, and whether two card runs repeat."""
+    import random
+
+    from hierdiff_torch.config import load_config
+    from hierdiff_torch.data.collate import bucket_for
+    from hierdiff_torch.data.denoise import make_denoise_batch
+    from hierdiff_torch.data.refine import make_refine_batch
+    from hierdiff_torch.data.synthetic import SyntheticTreeGenerator
+    from hierdiff_torch.utils.weights import init_weights
+
+    cfg = load_config(fine_config(stage))
+    build, loss_fn, _, _ = train_cli.BUILDERS[stage]
+    model = init_weights(build(cfg, device), torch.Generator().manual_seed(0)).train()
+    trees = [t for t in SyntheticTreeGenerator(seed=SEED).sample_trees(256)
+             if bucket_for(t.feats.shape[0]) == 24][:8]
+    make = make_denoise_batch if stage == "denoise" else make_refine_batch
+    batch = make(trees, random.Random(SEED), max_n=24)
+
+    def run(m, dev, dtype=torch.float32):
+        m.zero_grad(set_to_none=True)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        b = {k: v.to(dtype) if v.is_floating_point() else v for k, v in b.items()}
+        loss, metrics = loss_fn(m, b, None)
+        loss.backward()
+        terms = {"loss": loss.item(), **{k: v.item() for k, v in metrics.items()}}
+        grads = {k: (p.grad.detach().double().cpu() if p.grad is not None
+                     else torch.zeros(p.shape, dtype=torch.float64))
+                 for k, p in m.named_parameters()}
+        return terms, grads
+
+    card_terms, card = run(model, device)
+    _, card_again = run(model, device)
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_terms, cpu = run(cpu_model, torch.device("cpu"))
+    f64_terms, f64 = run(copy.deepcopy(cpu_model).double(), torch.device("cpu"), torch.float64)
+
+    def errors(got, ref):
+        top = max(float(v.abs().max()) for v in ref.values())
+        return {k: float((got[k] - ref[k]).abs().max()) / max(float(ref[k].abs().max()),
+                                                               GRAD_FLOOR * top) for k in ref}
+
+    card_err, rounding = errors(card, cpu), errors(cpu, f64)
+    terms = [k for k in cpu_terms if "accuracy" not in k]
+    term_err = {k: abs(card_terms[k] - cpu_terms[k]) / (abs(cpu_terms[k]) + 1e-30) for k in terms}
+    term_rounding = {k: abs(cpu_terms[k] - f64_terms[k]) / (abs(f64_terms[k]) + 1e-30)
+                     for k in terms}
+    worst = max(card_err, key=card_err.get)
+    worst_r = max(rounding, key=rounding.get)
+    out = {"batch": 8, "bucket": 24, "worst_tensor": worst, "worst_err": card_err[worst],
+           "worst_rounding_tensor": worst_r, "worst_rounding": rounding[worst_r],
+           "rounding_of_worst": rounding[worst], "term_err": term_err,
+           "term_rounding": term_rounding,
+           "accuracies": {k: (card_terms[k], cpu_terms[k]) for k in cpu_terms if "accuracy" in k},
+           "card_repeats_bitwise": all(torch.equal(card[k], card_again[k]) for k in card)}
+    out["ok"] = card_err[worst] < FINE_GRAD_TOL and max(term_err.values()) < FINE_TERM_TOL
+    print(f"{stage} step gradients, card against CPU (GEOM width, 8 trees of bucket 24, f32, TF32 "
+          f"off): worst tensor {worst} {card_err[worst]:.3e} of its largest |value| (bar "
+          f"{FINE_GRAD_TOL}; the CPU's f32 against f64 there {rounding[worst]:.3e}, worst "
+          f"{worst_r} {rounding[worst_r]:.3e}); loss terms {json.dumps(term_err)} (bar "
+          f"{FINE_TERM_TOL}; f32 against f64 {json.dumps(term_rounding)}); accuracies card/CPU "
+          f"{out['accuracies']}; two card runs bitwise equal: {out['card_repeats_bitwise']}")
+    return out
+
+
+def planted_phase(device, steps: int = 250) -> dict:
+    """Phase 4l: the planted-signal learning check on the card
+    (tests/test_planted_learning.py's): hidden 64, one layer of each kind,
+    planted_k=16, 16 trees of 6 nodes padded to 8 per batch, 250 steps of
+    AdamW at 2e-3 (optax's defaults, weight decay 1e-4; no clipping, no
+    EMA). The last step's node accuracy and refine accuracy must each
+    exceed 0.6."""
+    import random
+
+    from hierdiff_torch.config import OptimConfig
+    from hierdiff_torch.data.denoise import make_denoise_batch
+    from hierdiff_torch.data.refine import make_refine_batch
+    from hierdiff_torch.data.synthetic import SyntheticTreeGenerator
+    from hierdiff_torch.models.edge_denoise import EdgeDenoise
+    from hierdiff_torch.models.refine import NodeRefine
+    from hierdiff_torch.parallel.train_step import TrainState, train_step
+    from hierdiff_torch.train.cli import denoise_loss, refine_loss
+    from hierdiff_torch.train.data_iters import to_device
+    from hierdiff_torch.utils.weights import init_weights
+
+    optim = OptimConfig(lr=2e-3, weight_decay=1e-4, grad_clip=None, ema_decay=0.0)
+    out = {}
+    for name, model, make, loss_fn, key in (
+            ("denoise", EdgeDenoise(hidden_nf=64, n_layers_full=1, n_layers_focal=1),
+             make_denoise_batch, denoise_loss, "node_accuracy"),
+            ("refine", NodeRefine(hidden_size=64, n_layers=1), make_refine_batch, refine_loss,
+             "accuracy")):
+        gen = SyntheticTreeGenerator(seed=0, planted=True, planted_k=16)
+        rng = random.Random(0)
+        batches = [make(gen.sample_trees(16, n=6), rng, max_n=8) for _ in range(steps)]
+        state = TrainState(init_weights(model, torch.Generator().manual_seed(0)).to(device),
+                           optim)
+        t0 = time.perf_counter()
+        accs = [train_step(state, loss_fn, to_device(b, device), None)[key] for b in batches]
+        accs = [float(a) for a in accs]
+        out[name] = {key: accs[-1], "every_25": accs[::25], "seconds": time.perf_counter() - t0}
+        print(f"planted signal, {name}: {key} {accs[-1]:.4f} after {steps} steps (bar 0.6; "
+              f"every 25th step {[round(a, 3) for a in accs[::25]]}), "
+              f"{out[name]['seconds']:.2f} s")
+        if not accs[-1] > 0.6:
+            fail(f"the {name} head did not learn the planted signal: {key} {accs[-1]:.4f}")
+    return out
+
+
+def trained_assemble_phase(cli, coarse_pkl: bytes, ema: dict) -> dict:
+    """Phase 4m: the ema.pt files of 4i and 4j through ``sampling.cli
+    assemble --denoise-weights --refine-weights`` (strict loads) on phase
+    4's point sets: a spanning tree per molecule."""
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = Path(tmp) / "coarse.pkl", Path(tmp) / "trees.pkl"
+        src.write_bytes(coarse_pkl)
+        run = cli.main(["assemble", "--coarse-pkl", str(src), "--denoise-weights",
+                        str(ema["denoise"]), "--refine-weights", str(ema["refine"]),
+                        "--out", str(out)])
+        with open(out, "rb") as f:
+            trees = pickle.load(f)["trees"]
+    sizes = [b["h"].shape[0] for b in run["blur"]]
+    faults = spanning_tree_faults(trees, sizes)
+    seconds = run["lattice_s"] + run["search_s"]
+    print(f"assemble from the trained ema.pt files: {len(sizes)} molecules, lattices "
+          f"{run['lattice_s']:.3f} s, search {run['search_s']:.3f} s, "
+          f"{len(sizes) / seconds:.3f} trees/s; faults {faults}")
+    if faults:
+        fail(f"assemble from the trained weights gave trees that are missing or invalid: {faults}")
+    return {"molecules": len(sizes), "lattice_s": run["lattice_s"],
+            "search_s": run["search_s"], "trees_per_s": len(sizes) / seconds}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--parent", type=Path, default=None,
@@ -1254,6 +1614,21 @@ def main() -> None:
     # ---- 4h. the pipeline with the refine model's checks
     generated_refine, generate_refine_launches = generate_phase(cli, ek, refine=True)
 
+    with tempfile.TemporaryDirectory() as fine_tmp:
+        # ---- 4i, 4j. training of the fine stage's two models at GEOM width
+        fine_train = {stage: fine_train_phase(train_cli, ek, stage, Path(fine_tmp) / stage,
+                                              device) for stage in ("denoise", "refine")}
+        # ---- 4k. one step's gradient, card against CPU
+        fine_grads = {stage: fine_grad_check(train_cli, stage, device)
+                      for stage in ("denoise", "refine")}
+        if not all(g["ok"] for g in fine_grads.values()):
+            fail(f"fine-stage gradients, card against CPU, over the bar: {fine_grads}")
+        # ---- 4l. the planted-signal learning check
+        planted = planted_phase(device)
+        # ---- 4m. the trained weights feed the sampler
+        trained_assemble = trained_assemble_phase(
+            cli, coarse_pkl, {stage: Path(fine_tmp) / stage / "ema.pt" for stage in fine_train})
+
     # ---- 5. kernel list
     bounds = {"fused_gcl": bound(gcl_flops, gcl_sfu, gcl_bytes, sm_clock_hz, n_sms),
               "fused_coord_update": bound(coord_flops, coord_sfu, coord_bytes, sm_clock_hz, n_sms),
@@ -1265,7 +1640,9 @@ def main() -> None:
             "fused_gcl_bwd": ("hierdiff_torch/csrc/fused_gcl_bwd.cu",
                               "hierdiff_tpu/ops/egnn_pallas.py:346")}
     paths = {"sample": launches, "train": train_launches, "generate": generate_launches,
-             "generate_refine": generate_refine_launches}
+             "generate_refine": generate_refine_launches,
+             "train_denoise": fine_train["denoise"]["launches"],
+             "train_refine": fine_train["refine"]["launches"]}
     kernels = []
     for name, runs in results.items():
         main_run = runs[0]   # random weights, attention on, f32: the main path's variant
@@ -1284,7 +1661,9 @@ def main() -> None:
         k: train[k] for k in ("steps", "seconds", "steps_per_sec", "molecules_per_sec")},
         "cache_after_step": cache, "step_gradients": step_grads, "assemble": assembled,
         "generate": generated, "assemble_refine": refined,
-        "generate_refine": generated_refine}))
+        "generate_refine": generated_refine, "train_denoise": fine_train["denoise"],
+        "train_refine": fine_train["refine"], "fine_step_gradients": fine_grads,
+        "planted": planted, "assemble_trained": trained_assemble}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -8,8 +8,10 @@ Defaults are the GEOM-Drugs models (reference
 endiffusion/conf/model/ddpmgblur.yaml, conf/model/edge_denoise.yaml and
 conf/model/refine.yaml, as ``configs/coarse_geom.yaml``,
 ``configs/denoise_geom.yaml`` and ``configs/refine_geom.yaml``). A YAML file
-in the JAX package's format can override them; PyYAML is imported only when
-a path is given. Dotted ``k=v`` overrides are parsed without it.
+in the JAX package's format can override them, and dotted ``k=v`` overrides
+follow. Both are read without PyYAML (``read_yaml``: block mappings of
+scalars and flow lists, the subset the shipped configs use), which the
+card's machine does not have.
 """
 
 from __future__ import annotations
@@ -69,10 +71,7 @@ def load_coarse_config(path: Optional[str] = None) -> CoarseModelConfig:
     cfg = CoarseModelConfig()
     if not path:
         return cfg
-    import yaml
-
-    with open(path) as f:
-        section = (yaml.safe_load(f) or {}).get("coarse", {})
+    section = read_yaml(path).get("coarse") or {}
     names = {f.name: f for f in dataclasses.fields(cfg)}
     for key, value in section.items():
         if key not in names:
@@ -90,8 +89,10 @@ def load_coarse_config(path: Optional[str] = None) -> CoarseModelConfig:
 
 @dataclass
 class EdgeDenoiseConfig:
-    """conf/model/edge_denoise.yaml equivalents. The loss weights and
-    ``full_softmax`` serve training, which is not ported yet."""
+    """conf/model/edge_denoise.yaml equivalents. The loss weights are the
+    training loss's (``EdgeDenoise.forward``); ``full_softmax: false``
+    restricts the node head's support by the array dict in training
+    batches."""
 
     vocab_size: int = 781
     out_node_nf: int = 780
@@ -183,6 +184,54 @@ def parse_value(text: str) -> Any:
     return text
 
 
+def _strip_comment(line: str) -> str:
+    """The line without a ``#`` comment outside quotes."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def read_yaml(path: str) -> dict:
+    """A YAML file of nested block mappings whose leaves are scalars or flow
+    lists (``parse_value``), as ``yaml.safe_load`` reads it. Anything else
+    (block lists, anchors, multi-line values) raises ValueError."""
+    root: dict = {}
+    stack = [(-1, root)]            # (indent, mapping) of the open blocks
+    with open(path) as f:
+        lines = f.read().splitlines()
+    for lineno, raw in enumerate(lines, 1):
+        line = _strip_comment(raw).rstrip()
+        if not line.strip() or line.strip() == "---":
+            continue
+        indent = len(line) - len(line.lstrip(" "))
+        key, sep, value = line.strip().partition(":")
+        if not sep or key.startswith(("-", "&", "*", "!", "?")) or (value and value[0] != " "):
+            raise ValueError(f"{path}:{lineno}: not a 'key: value' line: {raw!r}")
+        while indent <= stack[-1][0]:
+            stack.pop()
+        parent = stack[-1][1]
+        if value.strip():
+            parent[key] = parse_value(value)
+        else:
+            # a nested block opens if the next content line is indented
+            # deeper; otherwise the key holds null
+            parent[key] = None
+            for nxt in lines[lineno:]:
+                nxt = _strip_comment(nxt).rstrip()
+                if nxt.strip():
+                    if len(nxt) - len(nxt.lstrip(" ")) > indent:
+                        parent[key] = {}
+                        stack.append((indent, parent[key]))
+                    break
+    return root
+
+
 def _apply(obj: Any, key: str, value: Any) -> None:
     """Set a dotted field, cast to the type of its current value
     (``hierdiff_tpu/config.py:_apply``)."""
@@ -225,10 +274,7 @@ def load_config(path: Optional[str] = None, overrides: Sequence[str] = ()) -> Co
     ``train.max_steps=20`` or ``refine.hidden_size=32``."""
     cfg = Config()
     if path:
-        import yaml
-
-        with open(path) as f:
-            raw = yaml.safe_load(f) or {}
+        raw = read_yaml(path)
         names = {f.name for f in dataclasses.fields(CoarseModelConfig)}
         raw["coarse"] = {k: v for k, v in (raw.get("coarse") or {}).items() if k in names}
         _update_from_dict(cfg, raw)

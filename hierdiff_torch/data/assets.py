@@ -1,7 +1,9 @@
 """Bundled data artifacts: node-count histograms, the fragment vocabulary,
-its fingerprint tables and the heavy-atom size table (the port's own copies
-of ``hierdiff_tpu/assets/``: ``*_histogram.json``, ``vocab.txt``,
-``vocab_prop_fps.csv``, ``vocab_elem_fps.csv``, ``size_dict.json``)."""
+its fingerprint tables, the heavy-atom size table and the feature-bucket
+supports of the edge-denoise node head (the port's own copies of
+``hierdiff_tpu/assets/``: ``*_histogram.json``, ``vocab.txt``,
+``vocab_prop_fps.csv``, ``vocab_elem_fps.csv``, ``size_dict.json``,
+``array_dict.json``)."""
 
 from __future__ import annotations
 
@@ -51,6 +53,17 @@ def load_size_dict() -> Dict[int, List[int]]:
     with open(ASSET_DIR / "size_dict.json") as f:
         raw = json.load(f)
     return {int(k): v for k, v in raw.items()}
+
+
+@lru_cache(maxsize=None)
+def load_array_dict() -> Tuple[List[np.ndarray], List[List[int]]]:
+    """(bucket feature arrays, allowed vocab indices per bucket): the
+    softmax-support restriction of the edge-denoise node head when
+    ``full_softmax`` is off. (hierdiff_tpu/data/assets.py:55)"""
+    with open(ASSET_DIR / "array_dict.json") as f:
+        raw = json.load(f)
+    arrays = [np.asarray(a, dtype=np.float64) for a in raw["arrays"]]
+    return arrays, raw["indices"]
 
 
 @lru_cache(maxsize=None)

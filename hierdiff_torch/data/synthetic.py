@@ -8,6 +8,8 @@ tree. With the same seed the trees are bit-identical to the JAX package's.
 
 from __future__ import annotations
 
+import warnings
+from collections import Counter
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -29,11 +31,17 @@ class SyntheticTree:
 
 class SyntheticTreeGenerator:
     """Random trees of a dataset's node-count histogram (``dataset``) in the
-    coarse feature ``mode`` ('prop' or 'elem'). The JAX package's
-    ``planted`` mode (a learnable feature -> type signal for the fine stage)
-    is not ported."""
+    coarse feature ``mode`` ('prop' or 'elem').
 
-    def __init__(self, seed: int = 0, mode: str = "prop", dataset: str = "geom"):
+    ``planted=True`` plants a learnable feature -> type signal: every tree
+    takes ONE vocab id, drawn from the first ``planted_k`` fragments whose
+    fingerprint row is unique, so the denoise node head can read the new
+    node's type from its visible fingerprint and the refine head a masked
+    node's type from its neighbours'. Accuracy far above chance then shows
+    that the heads, losses and gradients are wired."""
+
+    def __init__(self, seed: int = 0, mode: str = "prop", dataset: str = "geom",
+                 planted: bool = False, planted_k: int = 32):
         self.rng = np.random.default_rng(seed)
         hist = load_histogram(dataset)
         self.counts = np.array(sorted(hist.keys()))
@@ -43,6 +51,19 @@ class SyntheticTreeGenerator:
         fps = load_vocab_fps(mode)
         self.fp_table = np.stack([fps[s] for s in self.smiles])  # (V, 5) prop | (V, 3) elem
         self.mode = mode
+        self.planted = planted
+        if planted:
+            rows = [tuple(r) for r in self.fp_table]
+            counts_by_row = Counter(rows)
+            uniq = [i for i, r in enumerate(rows) if counts_by_row[r] == 1]
+            if not uniq:
+                raise ValueError("planted mode needs at least one unique fingerprint row "
+                                 f"(mode={mode!r} table has none)")
+            if len(uniq) < planted_k:
+                # 'elem' has 15 unique rows of 780: deliver what exists, and say so
+                warnings.warn(f"planted_k={planted_k} requested but only {len(uniq)} unique "
+                              f"fingerprint rows exist in mode={mode!r}; using {len(uniq)}")
+            self.planted_wids = np.array(uniq[:planted_k], np.int64)
 
     def sample_count(self) -> int:
         return int(self.rng.choice(self.counts, p=self.count_probs))
@@ -63,7 +84,10 @@ class SyntheticTreeGenerator:
             pos[i] = pos[p] + direction * dist
         pos -= pos.mean(axis=0, keepdims=True)
 
-        wids = rng.integers(0, len(self.smiles), size=n)
+        if self.planted:
+            wids = np.full(n, rng.choice(self.planted_wids), np.int64)
+        else:
+            wids = rng.integers(0, len(self.smiles), size=n)
         fp = self.fp_table[wids]
         if self.mode == "elem":
             # elem coarse features are the bare element-count fingerprint

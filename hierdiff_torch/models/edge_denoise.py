@@ -1,9 +1,9 @@
 """Edge-denoise model: the fine stage's autoregressive tree-assembly heads.
 
-Port of the inference half of ``hierdiff_tpu/models/edge_denoise.py``
-(``EdgeDenoise``: embeddings, the full and focal passes, the depth passes,
-the heads, ``_expand_core``, ``ar_step`` and ``ar_lattice``). The training
-loss is not ported yet. Module names are the reference ``Edge_denoise``'s
+Port of ``hierdiff_tpu/models/edge_denoise.py`` (``EdgeDenoise``:
+embeddings, the full and focal passes, the depth passes, the heads, the
+training loss ``forward`` and, for sampling, ``_expand_core``, ``ar_step``
+and ``ar_lattice``). Module names are the reference ``Edge_denoise``'s
 (models/edge_denoise.py:28-56), so its state dict and the JAX package's
 params (``utils/weights.denoise_state_dict_from_flax``) load with
 ``strict=True``.
@@ -16,6 +16,12 @@ undiscovered node attaches) and toward the new node (its fragment type).
 As in the reference's live configuration, the token embedded per node is
 its 0/1 discovered flag, not its fragment id (edge_denoise.py:88);
 ``vocab_conditioning=True`` embeds the ids.
+
+The focal loss keeps the JAX package's fix of a reference bug (PARITY.md,
+deliberate divergence #6): the reference's gate sums the focal BCE over
+(usually) the first sample of a batch only (edge_denoise.py:124-126 with
+split_edges :500-505); here it is summed over every sample that has
+discovered edges.
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ from torch import Tensor, nn
 
 from hierdiff_torch.ops.gcl import DenseEGCL, coord2radial_dense, compute_parents
 from hierdiff_torch.ops.graph import bfs_depths
-from hierdiff_torch.ops.masked import masked_log_softmax, take_rows
+from hierdiff_torch.ops.masked import (binary_cross_entropy, masked_cross_entropy,
+                                       masked_log_softmax, take_rows)
 
 # type candidates per expansion step that leave the device: the beam never
 # needs more (the reference expands the top beam_size types,
@@ -51,7 +58,9 @@ class EdgeDenoise(nn.Module):
 
     def __init__(self, vocab_size: int = 781, out_node_nf: int = 780, in_node_nf: int = 8,
                  hidden_nf: int = 256, n_layers_full: int = 3, n_layers_focal: int = 3,
+                 focal_weight: float = 5.0, edge_weight: float = 1.0, node_weight: float = 2.0,
                  vocab_conditioning: bool = False, gated: bool = True,
+                 max_depth: Optional[int] = None, max_depth_node: Optional[int] = None,
                  dynamic_depth: bool = False, compute_dtype: Optional[str] = None):
         super().__init__()
         if compute_dtype not in (None, "float32"):
@@ -61,7 +70,13 @@ class EdgeDenoise(nn.Module):
         h = hidden_nf
         self.vocab_size, self.out_node_nf, self.in_node_nf = vocab_size, out_node_nf, in_node_nf
         self.hidden_nf, self.n_layers_full, self.n_layers_focal = h, n_layers_full, n_layers_focal
+        self.focal_weight, self.edge_weight = focal_weight, edge_weight
+        self.node_weight = node_weight
         self.vocab_conditioning, self.gated = vocab_conditioning, gated
+        # depth-loop lengths (None: N). The node pass runs one step more than
+        # the edge pass in the reference (edge_denoise.py:227 against :151),
+        # which only ungated layers can observe; None: max_depth
+        self.max_depth, self.max_depth_node = max_depth, max_depth_node
         # inference: bound each depth loop by the batch's largest BFS depth
         # instead of N - 1 steps; exact under gated=True, where the steps past
         # a sample's depth are no-ops (no active node, so the gate is 0)
@@ -169,6 +184,79 @@ class EdgeDenoise(nn.Module):
         """(B, V) fragment-type logits at node ``idx``. (reference: edge_denoise.py:203-205)"""
         return self.node_predict(take_rows(h, idx))
 
+    # --- training loss -------------------------------------------------------
+
+    def forward(self, batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """The three losses of one training batch (``data/denoise.py``) and
+        their accuracies; ``total_loss`` is their weighted sum over the batch
+        size. (hierdiff_tpu/models/edge_denoise.py:235-307; reference:
+        edge_denoise.py:124-234)
+
+        focal: BCE of the focal score over the discovered nodes, averaged
+        over them and summed over the samples with discovered edges; edge:
+        CE of the attachment over the undiscovered nodes, at steps past the
+        root; node: CE of the new node's type over the whole vocabulary or
+        ``allowed_mask``. The depth passes run their static length."""
+        feats, discovered, x = batch["feats"], batch["discovered"], batch["pos"]
+        node_mask, edge_mask = batch["node_mask"], batch["edge_mask"]
+        search_adj = batch["search_adj"]             # discovered edges only
+        focal_label = batch["focal_label"]           # (B, N) 0/1
+        undiscovered = batch["undiscovered"]         # (B, N) 0/1
+        predict_idx = batch["predict_idx"].long()    # (B,)
+        last_ind = batch["last_ind"].long()          # (B,), -1 at the root step
+        label = batch["label"].long()                # (B,)
+        allowed = batch.get("allowed_mask")          # (B, V) or None
+        b, n = feats.shape[:2]
+        idx = torch.arange(n, device=feats.device)
+        neg_inf = torch.tensor(-float("inf"), device=feats.device)
+
+        h = self.embed_nodes(feats, discovered, batch["vocab_idx"]) * node_mask
+        val = search_adj.sum(-1)                     # degrees (B, N)
+        h, x, ef_full = self.full_mp(h, x, search_adj, node_mask, edge_mask)
+
+        # ---- focal
+        has_edges = search_adj.sum((1, 2)) > 0
+        hf, xf = self.focal_mp(h, x, ef_full, search_adj, node_mask)
+        scores = self.focal_scores(hf, val)
+        cand = discovered.to(scores.dtype)
+        bce = binary_cross_entropy(scores, focal_label.to(scores.dtype)) * cand
+        n_cand = torch.clamp(cand.sum(1), min=1.0)
+        focal_valid = has_edges.to(scores.dtype)
+        focal_loss = (bce.sum(1) / n_cand * focal_valid).sum()
+        top = torch.argmax(torch.where(cand > 0, scores, neg_inf), dim=1)
+        hit = torch.gather(focal_label, 1, top[:, None])[:, 0]
+        focal_acc = (hit * focal_valid).sum() / torch.clamp(focal_valid.sum(), min=1e-8)
+
+        # ---- edge: which undiscovered node attaches to the last one
+        last_onehot = (idx[None] == last_ind[:, None]).to(feats.dtype)
+        he, xe = self.depth_mp(self.gcl_edge, hf, xf, search_adj, last_onehot, node_mask,
+                               self.max_depth or n)
+        e_logits = self.edge_logits(he, xe, ef_full, last_ind)
+        edge_valid = ((predict_idx != 0) & (last_ind >= 0)).to(e_logits.dtype)
+        edge_loss = (masked_cross_entropy(e_logits, predict_idx, undiscovered) * edge_valid).sum()
+        e_pred = torch.argmax(torch.where(undiscovered > 0, e_logits, neg_inf), dim=1)
+        edge_acc = (((e_pred == predict_idx).to(e_logits.dtype) * edge_valid).sum()
+                    / torch.clamp(edge_valid.sum(), min=1e-8))
+
+        # ---- node type: a pass over search_adj plus the (last, predict) edge
+        add = last_onehot[:, :, None] * (idx[None, None, :] == predict_idx[:, None, None])
+        search_adj_pad = (search_adj + add + add.transpose(1, 2)).clamp(0, 1)
+        pred_onehot = (idx[None] == predict_idx[:, None]).to(feats.dtype)
+        hn, _ = self.depth_mp(self.gcl_denoise, he, xe, search_adj_pad, pred_onehot, node_mask,
+                              self.max_depth_node or self.max_depth or n)
+        n_logits = self.node_logits(hn, predict_idx)
+        support = allowed if allowed is not None else torch.ones_like(n_logits)
+        node_loss = masked_cross_entropy(n_logits, label, support).sum()
+        n_pred = torch.argmax(torch.where(support > 0, n_logits, neg_inf), dim=1)
+        node_acc = (n_pred == label).to(n_logits.dtype).mean()
+
+        total = (self.focal_weight * focal_loss + self.edge_weight * edge_loss
+                 + self.node_weight * node_loss) / b
+        return {"total_loss": total,
+                "focal_loss": focal_loss / b, "focal_accuracy": focal_acc,
+                "edge_loss": edge_loss / b, "edge_accuracy": edge_acc,
+                "node_loss": node_loss / b, "node_accuracy": node_acc}
+
     # --- autoregressive sampling ---------------------------------------------
 
     def _expand_core(self, feats: Tensor, disc_flag: Tensor, vocab_idx: Tensor, pos: Tensor,
@@ -203,7 +291,8 @@ class EdgeDenoise(nn.Module):
 
         # attach: depth pass toward the focal node, then argmax over the undiscovered
         focal_onehot = ((idx[None] == focal[:, None]) & any_disc[:, None]).to(feats.dtype)
-        he, xe = self.depth_mp(self.gcl_edge, hf, xf, adj_clean, focal_onehot, node_mask, n)
+        he, xe = self.depth_mp(self.gcl_edge, hf, xf, adj_clean, focal_onehot, node_mask,
+                               self.max_depth or n)
         e_logits = self.edge_logits(he, xe, ef_full, focal.clamp(min=0))
         target = torch.argmax(torch.where(is_undisc, e_logits, neg_inf), dim=1)
         do_attach = any_disc & is_undisc.any(1)
@@ -217,7 +306,7 @@ class EdgeDenoise(nn.Module):
 
         # type: depth pass toward the new node over the grown graph
         hn, _ = self.depth_mp(self.gcl_denoise, he, xe, new_adj, t_onehot.to(feats.dtype),
-                              node_mask, n)
+                              node_mask, self.max_depth or n)
         logits = self.node_logits(hn, target)
         logp = masked_log_softmax(logits, torch.ones_like(logits))
         # the k best, ties in index order as jax.lax.top_k (torch.topk does

@@ -1,8 +1,9 @@
 """Refine model: masked-node fragment-type re-scoring over junction trees.
 
-Port of the inference half of ``hierdiff_tpu/models/refine.py``
-(``NodeRefine``: ``encode``, ``message``, ``logits_at``, ``check_logits``,
-``check_logp``), the reference's ``Node2Vec`` (models/model_refine.py). One
+Port of ``hierdiff_tpu/models/refine.py`` (``NodeRefine``: ``encode``,
+``message``, ``logits_at``, the training loss ``forward``, and for sampling
+``check_logits`` and ``check_logp``), the reference's ``Node2Vec``
+(models/model_refine.py). One
 node's identity is masked (token 780, zeroed features) and predicted from a
 tri-directional, depth-ordered message flow over the tree:
 
@@ -13,14 +14,13 @@ tri-directional, depth-ordered message flow over the tree:
 Each phase applies its own stack of ``n_layers`` E_GCL layers at every depth
 (reference: model_refine.py:48-71), through ``DenseEGCL.tree_pass``. Module
 names are the JAX package's, so ``utils/weights.refine_state_dict_from_flax``
-(the layout of ``export_refine``) loads with ``strict=True``. The training
-loss is not ported yet.
+(the layout of ``export_refine``) loads with ``strict=True``.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import Tensor, nn
@@ -28,7 +28,7 @@ from torch import Tensor, nn
 from hierdiff_torch.data.refine import MASK_TOKEN
 from hierdiff_torch.ops.gcl import DenseEGCL, compute_parents
 from hierdiff_torch.ops.graph import bfs_depths
-from hierdiff_torch.ops.masked import masked_log_softmax, take_rows
+from hierdiff_torch.ops.masked import masked_cross_entropy, masked_log_softmax, take_rows
 
 __all__ = ["MASK_TOKEN", "NodeRefine"]
 
@@ -128,6 +128,27 @@ class NodeRefine(nn.Module):
         """Vocab logits at node idx given its degree ``val``.
         (reference: model_refine.py:98-100)"""
         return self.output(torch.cat([take_rows(h, idx), val[:, None]], dim=-1))
+
+    def forward(self, batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """Training loss: the masked node's type CE over its size-restricted
+        support, averaged over the batch, its accuracy and the logits.
+        Batch (``data/refine.make_refine_batch``): feats (B, N, F) with the
+        masked node zeroed, vocab (B, N) with it MASK_TOKEN, size, pos, adj
+        (B, N, N), node_mask (B, N, 1), predict_idx, label, val (B,),
+        size_support (B, V). (hierdiff_tpu/models/refine.py:158-173;
+        reference: model_refine.py:73-111)"""
+        h = self.encode(batch["feats"], batch["vocab"], batch["size"], batch["node_mask"])
+        predict_idx = batch["predict_idx"].long()
+        label = batch["label"].long()
+        center = torch.arange(h.shape[1], device=h.device)[None, :] == predict_idx[:, None]
+        h, _ = self.message(h, batch["pos"], batch["adj"], center.to(h.dtype), batch["node_mask"])
+        logits = self.logits_at(h, predict_idx, batch["val"])
+        support = batch["size_support"]
+        ce = masked_cross_entropy(logits, label, support)
+        pred = torch.argmax(torch.where(support > 0, logits,
+                                        torch.full_like(logits, -float("inf"))), dim=1)
+        return {"loss": ce.mean(), "accuracy": (pred == label).to(logits.dtype).mean(),
+                "logits": logits}
 
     @torch.no_grad()
     def check_logits(self, feats: Tensor, vocab: Tensor, size: Tensor, pos: Tensor, adj: Tensor,

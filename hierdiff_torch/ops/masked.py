@@ -97,3 +97,24 @@ def take_rows(t: Tensor, idx: Tensor) -> Tensor:
     one-hot contraction (``onehot_take``)."""
     b, n = t.shape[:2]
     return t[torch.arange(b, device=t.device), idx.clamp(0, n - 1)]
+
+
+def masked_cross_entropy(logits: Tensor, target: Tensor, support: Tensor) -> Tensor:
+    """CE over a restricted support: -log softmax(logits | support)[target].
+    logits (B, K), target (B,) int, support (B, K). A row whose support is
+    empty gives a finite value (every entry NEG_INF), which callers weight
+    by 0. (hierdiff_tpu/ops/masked.py:139; reference: the per-sample
+    CrossEntropyLoss over a candidate list, edge_denoise.py:176-224)"""
+    return -take_rows(masked_log_softmax(logits, support), target)
+
+
+def binary_cross_entropy(p: Tensor, label: Tensor, eps: float = 1e-7) -> Tensor:
+    """Elementwise BCE on probabilities (the reference's nn.BCELoss on a
+    sigmoid head, edge_denoise.py:132). The clip is jnp.clip's
+    maximum-then-minimum, whose gradient is halved at an exact tie with a
+    bound, as JAX's is; ``torch.clamp`` would pass all of it.
+    (hierdiff_tpu/ops/masked.py:150)"""
+    lo = torch.full_like(p, eps)
+    hi = torch.full_like(p, 1.0 - eps)
+    p = torch.minimum(torch.maximum(p, lo), hi)
+    return -(label * torch.log(p) + (1.0 - label) * torch.log(1.0 - p))

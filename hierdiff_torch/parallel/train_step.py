@@ -1,21 +1,23 @@
-"""One coarse training step on one device: optimizer, clipping, EMA.
+"""One training step on one device: loss, optimizer, clipping, EMA.
 
 Port of ``hierdiff_tpu/parallel/train_step.py`` (``TrainState``,
-``make_train_step``) and of ``hierdiff_tpu/train/trainer.py:build_optimizer``:
-gradients from ``loss.backward()``; ``grad_norm`` is the global L2 norm
-before clipping; clipping follows ``optax.clip_by_global_norm`` exactly
-(``g / norm * max_norm`` only when ``norm >= max_norm``; torch's
-``clip_grad_norm_`` would add 1e-6 to the norm); then AdamW with optax's
-defaults and decoupled weight decay on every parameter, the learning rate taken from optax's schedules at the
-update's count; then the EMA, in the model's own ``deepcopy``, after the
-update. The JAX package's data-parallel mesh is not ported.
+``make_train_step``, ``make_eval_step``) and of
+``hierdiff_tpu/train/trainer.py:build_optimizer``, for any of the three
+stages' loss functions: gradients from ``loss.backward()``; ``grad_norm``
+is the global L2 norm before clipping; clipping follows
+``optax.clip_by_global_norm`` exactly (``g / norm * max_norm`` only when
+``norm >= max_norm``; torch's ``clip_grad_norm_`` would add 1e-6 to the
+norm); then AdamW with optax's defaults and decoupled weight decay on every
+parameter, the learning rate taken from optax's schedules at the update's
+count; then the EMA, in the model's own ``deepcopy``, after the update. The
+JAX package's data-parallel mesh is not ported.
 """
 
 from __future__ import annotations
 
 import copy
 import math
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import Tensor, nn
@@ -137,22 +139,30 @@ class TrainState:
             self.ema.load_state_dict(state["ema"], strict=True)
 
 
-def train_step(state: TrainState, batch: Dict[str, Tensor],
-               generator: torch.Generator) -> Dict[str, Tensor]:
-    """Loss, gradients and one update. Returns device scalars: loss, the
-    batch-mean eps error and grad_norm (not synchronised)."""
-    out = state.model(batch, generator, train=True)
+# loss_fn(model, batch, generator) -> (loss, metrics): a scalar to minimise
+# and device scalars to report, as the JAX package's
+# loss_fn(params, batch, rng) (hierdiff_tpu/parallel/train_step.py:66)
+LossFn = Callable[[nn.Module, Dict[str, Tensor], Optional[torch.Generator]],
+                  Tuple[Tensor, Dict[str, Tensor]]]
+
+
+def train_step(state: TrainState, loss_fn: LossFn, batch: Dict[str, Tensor],
+               generator: Optional[torch.Generator]) -> Dict[str, Tensor]:
+    """Loss, gradients and one update (``make_train_step``). Returns device
+    scalars, not synchronised: ``loss``, the loss function's metrics and
+    ``grad_norm``."""
+    loss, metrics = loss_fn(state.model, batch, generator)
     state.optimizer.zero_grad(set_to_none=True)
-    out["loss"].backward()
+    loss.backward()
     grad_norm = state.apply_gradients()
-    return {"loss": out["loss"].detach(), "error": out["error"].detach().mean(),
+    return {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()},
             "grad_norm": grad_norm}
 
 
-def eval_step(model: nn.Module, batch: Dict[str, Tensor],
-              generator: torch.Generator) -> Dict[str, Tensor]:
-    """The training loss of ``model`` on a batch, without gradients (the
-    JAX package's eval step runs its loss_fn with train=True as well)."""
+def eval_step(model: nn.Module, loss_fn: LossFn, batch: Dict[str, Tensor],
+              generator: Optional[torch.Generator]) -> Dict[str, Tensor]:
+    """``loss`` and the metrics of ``model`` on a batch, without gradients
+    (``make_eval_step``; the coarse loss runs with train=True there too)."""
     with torch.no_grad():
-        out = model(batch, generator, train=True)
-    return {"loss": out["loss"], "error": out["error"].mean()}
+        loss, metrics = loss_fn(model, batch, generator)
+    return {"loss": loss, **metrics}

@@ -84,7 +84,8 @@ def build_denoise_from_cfg(cfg: EdgeDenoiseConfig, device=None) -> EdgeDenoise:
     return EdgeDenoise(vocab_size=cfg.vocab_size, out_node_nf=cfg.out_node_nf,
                        in_node_nf=cfg.in_node_nf, hidden_nf=cfg.hidden_nf,
                        n_layers_full=cfg.n_layers_full, n_layers_focal=cfg.n_layers_focal,
-                       vocab_conditioning=cfg.vocab_conditioning
+                       focal_weight=cfg.focal_loss, edge_weight=cfg.edge_loss,
+                       node_weight=cfg.node_loss, vocab_conditioning=cfg.vocab_conditioning
                        ).to(resolve_device(device)).eval()
 
 

@@ -1,12 +1,15 @@
-"""Batch iterators of the coarse training stage.
+"""Batch iterators of the three training stages.
 
-Port of the coarse half of ``hierdiff_tpu/train/data_iters.py``: the
+Port of ``hierdiff_tpu/train/data_iters.py`` (pocket batches left out): the
 synthetic GEOM-like pool or a directory of preprocessed ``.npz`` trees
 (``load_tree_pool``), batches of one bucket each, the bucket drawn in
-proportion to its population (``coarse_iter``; the same Python and numpy
-draws as the JAX package, so the same seed gives the same batches), and a
-prefetcher that collates on a thread and copies pinned host tensors to the
-device with ``non_blocking=True``.
+proportion to its population and the trees within it with replacement
+(``_sample_bucket_batch``), collated for the coarse stage (``coarse_iter``),
+the edge-denoise stage (``denoise_iter``) or the refine stage
+(``refine_iter``). They take the JAX package's Python and numpy draws in its
+order, so the same seed gives the same batches. A prefetcher collates on a
+thread and copies pinned host tensors to the device with
+``non_blocking=True``.
 """
 
 from __future__ import annotations
@@ -15,14 +18,17 @@ import json
 import queue
 import random
 import threading
+from collections import Counter
 from pathlib import Path
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
 from hierdiff_torch.config import Config
 from hierdiff_torch.data.collate import bucket_for, collate_coarse
+from hierdiff_torch.data.denoise import make_denoise_batch
+from hierdiff_torch.data.refine import make_refine_batch
 from hierdiff_torch.data.synthetic import SyntheticTree, SyntheticTreeGenerator
 
 
@@ -63,19 +69,47 @@ def _group_by_bucket(pool, buckets) -> Dict[int, List]:
     return groups
 
 
+def _sample_bucket_batch(groups: Dict[int, List], rng: random.Random, batch_size: int):
+    """A bucket drawn in proportion to its trees, then ``batch_size`` of
+    its trees with replacement."""
+    keys = list(groups.keys())
+    weights = [len(groups[k]) for k in keys]
+    bkt = rng.choices(keys, weights=weights)[0]
+    return bkt, rng.choices(groups[bkt], k=batch_size)
+
+
 def coarse_iter(cfg: Config, pool, seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
-    """Endless numpy batches: a bucket drawn in proportion to its trees,
-    then ``train.batch_size`` trees of it with replacement."""
+    """Endless numpy batches of the coarse stage."""
     if cfg.coarse.pocket:
         raise NotImplementedError("pocket-conditioned training is not ported")
     rng = random.Random(seed)
     groups = _group_by_bucket(pool, cfg.train.buckets)
-    keys = list(groups.keys())
-    weights = [len(groups[k]) for k in keys]
     while True:
-        bkt = rng.choices(keys, weights=weights)[0]
-        trees = rng.choices(groups[bkt], k=cfg.train.batch_size)
+        bkt, trees = _sample_bucket_batch(groups, rng, cfg.train.batch_size)
         yield collate_coarse(trees, max_n=bkt)
+
+
+def denoise_iter(cfg: Config, pool, seed: int = 0,
+                 packers: Optional[Counter] = None) -> Iterator[Dict[str, np.ndarray]]:
+    """Endless numpy batches of the edge-denoise stage; the node head's
+    support is restricted by the array dict when ``denoise.full_softmax``
+    is off. ``packers`` counts the batches each packer made."""
+    rng = random.Random(seed)
+    groups = _group_by_bucket(pool, cfg.train.buckets)
+    use_array = not cfg.denoise.full_softmax
+    while True:
+        bkt, trees = _sample_bucket_batch(groups, rng, cfg.train.batch_size)
+        yield make_denoise_batch(trees, rng, max_n=bkt, use_array_dict=use_array,
+                                 packers=packers)
+
+
+def refine_iter(cfg: Config, pool, seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """Endless numpy batches of the refine stage."""
+    rng = random.Random(seed)
+    groups = _group_by_bucket(pool, cfg.train.buckets)
+    while True:
+        bkt, trees = _sample_bucket_batch(groups, rng, cfg.train.batch_size)
+        yield make_refine_batch(trees, rng, max_n=bkt, vocab_size=cfg.refine.vocab_size)
 
 
 def finite(it: Iterator, n: int) -> Iterator:

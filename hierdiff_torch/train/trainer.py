@@ -1,17 +1,21 @@
-"""Training loop of the coarse stage: steps, evaluation, checkpoints, metrics.
+"""Training loop of the three stages: steps, evaluation, checkpoints, metrics.
 
-Port of ``hierdiff_tpu/train/trainer.py`` (``Trainer``): ``fit`` runs
+Port of ``hierdiff_tpu/train/trainer.py`` (``Trainer``), over a loss function
+``loss_fn(model, batch, generator) -> (loss, metrics)`` (``train/cli.py``
+has one per stage): ``fit`` runs
 ``train.max_steps`` steps, evaluates on the EMA weights every
 ``train.eval_every`` steps (under ``torch.no_grad()``), keeps the last 3
 checkpoints under ``checkpoints/`` and the best-eval one under
 ``checkpoints_best/`` (the reference's save_last + top-1 policy), writes the
-EMA weights to ``ema.pt`` at every save (a state dict that
-``python -m hierdiff_torch.sampling.cli coarse --weights`` loads with
-``strict=True``), appends every logged row to ``metrics.csv`` and prints it
-with ``steps_per_sec`` and ``molecules_per_sec``. ``try_resume`` continues
-from the latest checkpoint; ``find_lr`` is the exponential learning-rate
-sweep. Checkpoints are ``torch.save`` files; TensorBoard and W&B logging are
-not ported.
+EMA weights to ``ema.pt`` at every save (a state dict that the sampling
+CLI's ``--weights``, ``--denoise-weights`` or ``--refine-weights`` loads with
+``strict=True``), appends every logged row to ``metrics.csv`` (its header
+from the first row's keys, as the JAX package writes it) and prints it with
+``steps_per_sec`` and the rate of the stage's unit (``molecules_per_sec``
+for the coarse stage, ``trees_per_sec`` for the fine stage's two models).
+``try_resume`` continues from the latest checkpoint; ``find_lr`` is the
+exponential learning-rate sweep. Checkpoints are ``torch.save`` files;
+TensorBoard and W&B logging are not ported.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import math
 import os
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -32,10 +36,8 @@ from torch import nn
 
 from hierdiff_torch.config import Config
 from hierdiff_torch.ops.egnn import drop_kernel_caches
-from hierdiff_torch.parallel.train_step import TrainState, eval_step, train_step
+from hierdiff_torch.parallel.train_step import LossFn, TrainState, eval_step, train_step
 
-CSV_FIELDS = ("step", "split", "loss", "error", "grad_norm", "steps_per_sec",
-              "molecules_per_sec")
 KEEP_LAST = 3
 
 
@@ -45,13 +47,15 @@ def _sync(device: torch.device) -> None:
 
 
 class Trainer:
-    """Loop over a model whose ``forward(batch, generator, train=True)``
-    returns ``{"loss", "error", ...}`` (``models/diffusion.py``)."""
+    """Loop over ``model`` trained on ``loss_fn``; ``unit`` names what a
+    batch holds ('molecules' or 'trees') in the rates."""
 
-    def __init__(self, cfg: Config, model: nn.Module, device: torch.device,
-                 monitor: str = "loss"):
+    def __init__(self, cfg: Config, model: nn.Module, loss_fn: LossFn, device: torch.device,
+                 unit: str = "molecules", monitor: str = "loss"):
         self.cfg = cfg
+        self.loss_fn = loss_fn
         self.device = device
+        self.rate_key = f"{unit}_per_sec"
         self.workdir = Path(cfg.train.workdir)
         self.workdir.mkdir(parents=True, exist_ok=True)
         (self.workdir / "config.json").write_text(json.dumps(dataclasses.asdict(cfg), indent=2))
@@ -62,6 +66,7 @@ class Trainer:
         self.ckpt_dir = self.workdir / "checkpoints"
         self.best_dir = self.workdir / "checkpoints_best"
         self.metrics_file = self.workdir / "metrics.csv"
+        self._fields: Optional[List[str]] = None
 
     # --- checkpointing -----------------------------------------------------
 
@@ -100,10 +105,18 @@ class Trainer:
     # --- logging -----------------------------------------------------------
 
     def log(self, step: int, metrics: Dict[str, float], split: str = "train") -> None:
+        """Append a row to ``metrics.csv``. The columns are the first row's
+        keys (a resumed run keeps the file's header); a later row leaves
+        out what they lack and leaves blank what it lacks."""
         row = {"step": step, "split": split, **metrics}
-        new = not self.metrics_file.exists()
+        if self._fields is None and self.metrics_file.exists():
+            with open(self.metrics_file, newline="") as f:
+                self._fields = next(csv.reader(f), None)
+        new = self._fields is None
+        if new:
+            self._fields = list(row)
         with open(self.metrics_file, "a", newline="") as f:
-            writer = csv.DictWriter(f, fieldnames=CSV_FIELDS, extrasaction="ignore")
+            writer = csv.DictWriter(f, fieldnames=self._fields, extrasaction="ignore")
             if new:
                 writer.writeheader()
             writer.writerow(row)
@@ -115,7 +128,7 @@ class Trainer:
     def fit(self, train_iter: Iterator[Dict[str, torch.Tensor]],
             eval_iter: Optional[Callable[[], Iterator]] = None) -> Dict[str, float]:
         """Train to ``train.max_steps``. Returns the run's step count, wall
-        seconds, and steps/s and molecules/s over the training steps after
+        seconds, and steps/s and the unit's rate over the training steps after
         the first (which pays for the kernel build and first-use set-up);
         evaluations and checkpoint writes are left out of those rates."""
         cfg = self.cfg.train
@@ -124,7 +137,7 @@ class Trainer:
         t_after_first, side = None, 0.0
         for step in range(start, cfg.max_steps):
             batch = next(train_iter)
-            metrics = train_step(self.state, batch, self.generator)
+            metrics = train_step(self.state, self.loss_fn, batch, self.generator)
             if step == start:
                 _sync(self.device)
                 t_after_first = time.perf_counter()
@@ -132,7 +145,7 @@ class Trainer:
                 m = {k: float(v) for k, v in metrics.items()}
                 now = time.perf_counter()
                 m["steps_per_sec"] = cfg.log_every / max(now - t_log, 1e-9)
-                m["molecules_per_sec"] = m["steps_per_sec"] * cfg.batch_size
+                m[self.rate_key] = m["steps_per_sec"] * cfg.batch_size
                 t_log = now
                 self.log(step + 1, m)
             evaluate = eval_iter is not None and (step + 1) % cfg.eval_every == 0
@@ -158,15 +171,15 @@ class Trainer:
         busy = end - t_after_first - side if t_after_first is not None else 0.0
         rate = timed / busy if timed and busy > 0 else float("nan")
         return {"steps": steps, "seconds": end - t_start, "steps_per_sec": rate,
-                "molecules_per_sec": rate * cfg.batch_size}
+                self.rate_key: rate * cfg.batch_size}
 
     def evaluate(self, it: Iterator) -> Dict[str, float]:
-        """Mean loss and error on the EMA weights (the weights sampling
+        """Mean loss and metrics on the EMA weights (the weights sampling
         uses), or on the model's own when EMA is off."""
         model = self.state.ema if self.state.ema is not None else self.state.model
         acc: Dict[str, list] = {}
         for batch in it:
-            for k, v in eval_step(model, batch, self.generator).items():
+            for k, v in eval_step(model, self.loss_fn, batch, self.generator).items():
                 acc.setdefault(k, []).append(float(v))
         return {k: float(np.mean(v)) for k, v in acc.items()}
 
@@ -185,7 +198,7 @@ class Trainer:
         losses = []
         best = float("inf")
         for _ in range(n_steps):
-            loss = float(train_step(state, next(train_iter), self.generator)["loss"])
+            loss = float(train_step(state, self.loss_fn, next(train_iter), self.generator)["loss"])
             losses.append(loss)
             best = min(best, loss)
             if not math.isfinite(loss) or loss > 10 * abs(best) + 1e3:

@@ -179,7 +179,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "train.cli", "parallel.train_step", "ops.graph", "ops.gcl",
                  "models.edge_denoise", "sampling.beam", "sampling.lattice",
                  "sampling.pipeline", "tools.lattice_check", "data.refine", "models.refine",
-                 "sampling.refine_hook", "tools.refine_check"):
+                 "sampling.refine_hook", "tools.refine_check", "runtime", "data.denoise",
+                 "data.orders"):
         assert f"hierdiff_torch.{name}" in report["modules"], name
 
 

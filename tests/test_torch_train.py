@@ -373,7 +373,14 @@ def test_train_cli_on_cpu_resumes_and_feeds_the_sampler(tmp_path):
         assert len(pickle.load(f)[0]) == 3 == run["molecules"]
 
 
-def test_find_lr_writes_the_sweep(tmp_path):
+def test_find_lr_writes_the_sweep(tmp_path, monkeypatch):
+    # the CLI's route with a 40-step sweep, the size of the JAX package's
+    # test (tests/test_trainer.py:86); the CLI's own sweep has 100
+    from hierdiff_torch.train.trainer import Trainer
+
+    sweep = Trainer.find_lr
+    monkeypatch.setattr(Trainer, "find_lr",
+                        lambda self, it, **kw: sweep(self, it, **{"n_steps": 40, **kw}))
     workdir = tmp_path / "lr"
     train_cli.main(["coarse", "--config", _small_config(tmp_path), "--device", "cpu",
                     "--find-lr", f"train.workdir={workdir}", "train.batch_size=2",
