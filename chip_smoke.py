@@ -129,7 +129,10 @@ Phases, one output line each, any failure exits non-zero:
      24), card against CPU, TF32 off: every parameter's gradient within
      1e-3 of its largest |value| (floored at 1e-3 of the model's largest),
      the loss terms within 1e-4; the CPU's f32 against its f64 printed
-     beside them, and whether two card runs repeat bitwise;
+     beside them; three card runs must repeat bitwise (a gate for both
+     models), and the ops that deterministic-algorithms mode names are
+     printed, with and without the fixed-order backward of the parent
+     gathers;
   4l. the planted-signal check (tests/test_planted_learning.py's): hidden
      64, one layer, planted_k=16, 250 AdamW steps at 2e-3: the denoise node
      accuracy and the refine accuracy each above 0.6;
@@ -774,6 +777,8 @@ FINE_ZERO_GRAD = {
 # floored at 1e-3 of the model's largest (a structurally zero gradient is
 # rounding noise on both); loss terms over their |CPU value|
 FINE_GRAD_TOL, FINE_TERM_TOL, GRAD_FLOOR = 1e-3, 1e-4, 1e-3
+# 4k: card runs of one step that must give the same gradients bit for bit
+REPEATS = 3
 
 
 def fine_config(stage: str) -> str:
@@ -966,7 +971,11 @@ def fine_grad_check(train_cli, stage: str, device) -> dict:
     8 trees of bucket 24), card against CPU, TF32 off: every parameter's
     gradient within FINE_GRAD_TOL of its (floored) largest |CPU value|, the
     loss terms within FINE_TERM_TOL; the CPU's f32 against its f64 printed
-    beside them as the rounding scale, and whether two card runs repeat."""
+    beside them as the rounding scale; REPEATS card runs must repeat bit
+    for bit. Beside it, the ops that deterministic-algorithms mode names in one
+    run, and the same with autograd's own backward of the parent gathers
+    (the suspect of unrepeatable refine gradients), with whether that
+    repeats."""
     import random
 
     from hierdiff_torch.config import load_config
@@ -996,8 +1005,45 @@ def fine_grad_check(train_cli, stage: str, device) -> dict:
                  for k, p in m.named_parameters()}
         return terms, grads
 
+    def warned_ops(m) -> dict:
+        """The warnings of one card run under deterministic-algorithms mode
+        (warn only): each names an op with no deterministic CUDA path. A
+        ``torch.histc`` on the card (none) is the control that the warnings
+        are caught at all."""
+        import warnings
+
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                run(m, device)
+                torch.histc(torch.ones(4, device=device))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        msgs = sorted({str(w.message).split("\n")[0][:160] for w in caught})
+        return {"ops": [w for w in msgs if "histc" not in w],
+                "control_caught": any("histc" in w for w in msgs)}
+
+    def differing(runs_) -> list:
+        """The tensors whose gradient is not bitwise the same in every run."""
+        return sorted(k for k in runs_[0] if any(not torch.equal(runs_[0][k], r[k])
+                                                 for r in runs_[1:]))
+
+    # the culprit: the same step with autograd's own backward of the parent
+    # gathers (torch.gather's, a scatter_add) in place of the fixed-order one
+    from hierdiff_torch.ops import gcl
+
+    fixed_gather = gcl.parent_gather
+    gcl.parent_gather = lambda t, parent: torch.gather(
+        t, 1, parent[..., None].expand(-1, -1, t.shape[-1]))
+    try:
+        plain_ops = warned_ops(model)
+        plain = [run(model, device)[1] for _ in range(REPEATS)]
+    finally:
+        gcl.parent_gather = fixed_gather
+    ops = warned_ops(model)
     card_terms, card = run(model, device)
-    _, card_again = run(model, device)
+    again = [card] + [run(model, device)[1] for _ in range(REPEATS - 1)]
     cpu_model = copy.deepcopy(model).cpu()
     cpu_terms, cpu = run(cpu_model, torch.device("cpu"))
     f64_terms, f64 = run(copy.deepcopy(cpu_model).double(), torch.device("cpu"), torch.float64)
@@ -1019,14 +1065,22 @@ def fine_grad_check(train_cli, stage: str, device) -> dict:
            "rounding_of_worst": rounding[worst], "term_err": term_err,
            "term_rounding": term_rounding,
            "accuracies": {k: (card_terms[k], cpu_terms[k]) for k in cpu_terms if "accuracy" in k},
-           "card_repeats_bitwise": all(torch.equal(card[k], card_again[k]) for k in card)}
-    out["ok"] = card_err[worst] < FINE_GRAD_TOL and max(term_err.values()) < FINE_TERM_TOL
+           "repeats": REPEATS, "card_repeats_bitwise": not differing(again),
+           "tensors_differing": differing(again)[:8], "deterministic_mode": ops,
+           "with_plain_gather": {"deterministic_mode": plain_ops,
+                                 "repeats_bitwise": not differing(plain),
+                                 "tensors_differing": differing(plain)[:8]}}
+    out["ok"] = (card_err[worst] < FINE_GRAD_TOL and max(term_err.values()) < FINE_TERM_TOL
+                 and out["card_repeats_bitwise"])
     print(f"{stage} step gradients, card against CPU (GEOM width, 8 trees of bucket 24, f32, TF32 "
           f"off): worst tensor {worst} {card_err[worst]:.3e} of its largest |value| (bar "
           f"{FINE_GRAD_TOL}; the CPU's f32 against f64 there {rounding[worst]:.3e}, worst "
           f"{worst_r} {rounding[worst_r]:.3e}); loss terms {json.dumps(term_err)} (bar "
           f"{FINE_TERM_TOL}; f32 against f64 {json.dumps(term_rounding)}); accuracies card/CPU "
-          f"{out['accuracies']}; two card runs bitwise equal: {out['card_repeats_bitwise']}")
+          f"{out['accuracies']}; {REPEATS} card runs bitwise equal: "
+          f"{out['card_repeats_bitwise']} (differing {out['tensors_differing']}; under "
+          f"deterministic-algorithms mode {json.dumps(ops)}); with torch.gather's own backward "
+          f"of the parent gathers: {json.dumps(out['with_plain_gather'])}")
     return out
 
 
@@ -1622,7 +1676,8 @@ def main() -> None:
         fine_grads = {stage: fine_grad_check(train_cli, stage, device)
                       for stage in ("denoise", "refine")}
         if not all(g["ok"] for g in fine_grads.values()):
-            fail(f"fine-stage gradients, card against CPU, over the bar: {fine_grads}")
+            fail(f"fine-stage gradients, card against CPU, over the bar or not repeatable: "
+                 f"{fine_grads}")
         # ---- 4l. the planted-signal learning check
         planted = planted_phase(device)
         # ---- 4m. the trained weights feed the sampler

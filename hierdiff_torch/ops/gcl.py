@@ -17,7 +17,8 @@ Messages flow along the edge direction i -> j and are summed at the target j
   parent gather is ``torch.gather``; the sum of children into their parent is
   a batched product with the (B, N, N) parent one-hot, whose order is fixed
   (a float ``index_add_`` on CUDA sums in atomics' order, run to run
-  different).
+  different). The gather's backward is that sum too (``parent_gather``):
+  autograd's own is a ``scatter_add``, atomics again.
 """
 
 from __future__ import annotations
@@ -50,6 +51,37 @@ def compute_parents(adj: Tensor, depth: Tensor) -> Tensor:
     parent = torch.argmax(ok, dim=2)     # the first maximum, as jnp.argmax
     self_idx = torch.arange(n, device=adj.device).expand_as(parent)
     return torch.where(has, parent, self_idx)
+
+
+def parent_onehot(parent: Tensor, n: int, dtype: torch.dtype) -> Tensor:
+    """(B, N, N) one-hot of the parent pointers: [b, i, j] = (parent[b, i] == j).
+    F.one_hot would check its input's range on the host."""
+    return (parent[..., None] == torch.arange(n, device=parent.device)).to(dtype)
+
+
+class _ParentGather(torch.autograd.Function):
+    """out[b, i] = t[b, parent[b, i]], whose backward sums each parent's
+    children by a batched product with the parent one-hot: a fixed order,
+    so a gradient repeats bit for bit on CUDA, where the backward of
+    ``torch.gather`` (a ``scatter_add``) sums in the order of its atomics."""
+
+    @staticmethod
+    def forward(ctx, t: Tensor, parent: Tensor) -> Tensor:
+        ctx.save_for_backward(parent)
+        ctx.n = t.shape[1]
+        return torch.gather(t, 1, parent[..., None].expand(-1, -1, t.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, grad: Tensor):
+        (parent,) = ctx.saved_tensors
+        from_child = parent_onehot(parent, ctx.n, grad.dtype).transpose(1, 2)
+        return torch.bmm(from_child, grad), None
+
+
+def parent_gather(t: Tensor, parent: Tensor) -> Tensor:
+    """Rows of t (B, N, F) at the parent pointers (B, N) -> (B, N, F); the
+    backward sums in a fixed order (``_ParentGather``)."""
+    return _ParentGather.apply(t, parent)
 
 
 class DenseEGCL(nn.Module):
@@ -162,10 +194,9 @@ class DenseEGCL(nn.Module):
         parent -> active. The math is the dense pass's restricted to those
         edges; with edges_in_d = 1 the squared distance is also the edge
         attribute (reference: edge_denoise.py:155)."""
-        hd = h.shape[-1]
         act = active.to(h.dtype)[..., None]                        # (B, N, 1)
-        h_par = torch.gather(h, 1, parent[..., None].expand(-1, -1, hd))
-        x_par = torch.gather(x, 1, parent[..., None].expand(-1, -1, x.shape[-1]))
+        h_par = parent_gather(h, parent)
+        x_par = parent_gather(x, parent)
         if reverse:
             src_h, dst_h, diff = h_par, h, x_par - x
         else:
@@ -182,9 +213,7 @@ class DenseEGCL(nn.Module):
             h = self.node_update(h, m, act if self.gated else None)
         else:
             # the receivers are the parents: children summed in a fixed order
-            # (B, N, N); F.one_hot would check its input's range on the host
-            to_parent = (parent[..., None] == torch.arange(h.shape[1], device=h.device)
-                         ).to(h.dtype) * act
+            to_parent = parent_onehot(parent, h.shape[1], h.dtype) * act
             from_child = to_parent.transpose(1, 2)
             if self.coord_update:
                 x = x + torch.bmm(from_child, coord_diff * self.coord_scalar(m) * act)

@@ -433,3 +433,40 @@ def test_denoise_and_refine_cli_need_cuda_unless_told_otherwise(monkeypatch, tmp
     for stage in ("denoise", "refine"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             train_cli.main([stage, "--init-seed", "0", f"train.workdir={tmp_path / stage}"])
+
+
+# --- 6. repairs: the parent gathers' backward, the CLI's first batch --------------
+
+
+@pytest.mark.parametrize("case", ["star", "random", "chain"])
+def test_parent_gather_backward_is_the_plain_gathers(case):
+    """The fixed-order backward of ``parent_gather`` (a one-hot product)
+    against autograd of ``torch.gather`` on the same pointers: the forward
+    bit for bit, the gradient within 1e-6 of its largest |value|, the f32
+    rounding of a sum of up to N = 16 terms taken in another order. The
+    "star" case gives 11 children one parent."""
+    from hierdiff_torch.ops.gcl import parent_gather
+
+    rng = np.random.default_rng(4)
+    b, n, f = 3, 16, 5
+    if case == "star":
+        parent = np.zeros((b, n), np.int64)
+        parent[:, 11:] = np.arange(11, n)            # padded rows point at themselves
+    elif case == "random":
+        parent = rng.integers(0, n, size=(b, n))
+    else:
+        parent = np.maximum(np.arange(n) - 1, 0)[None].repeat(b, 0)
+    t = torch.from_numpy(rng.standard_normal((b, n, f)).astype(np.float32))
+    up = torch.from_numpy(rng.standard_normal((b, n, f)).astype(np.float32))
+    p = torch.from_numpy(parent)
+    a, ref = t.clone().requires_grad_(True), t.clone().requires_grad_(True)
+    out = parent_gather(a, p)
+    plain = torch.gather(ref, 1, p[..., None].expand(-1, -1, f))
+    assert torch.equal(out, plain)
+    (out * up).sum().backward()
+    (plain * up).sum().backward()
+    g, g_ref = a.grad.numpy(), ref.grad.numpy()
+    assert np.abs(g - g_ref).max() <= 1e-6 * np.abs(g_ref).max()
+    if case == "star":
+        assert np.count_nonzero(parent[0] == 0) >= 8
+        np.testing.assert_allclose(g[:, 0], up[:, :11].sum(1).numpy(), rtol=1e-6, atol=1e-6)
