@@ -11,7 +11,9 @@ GEOM default (``config.py``), a YAML file in the JAX package's format, and
 dotted overrides such as ``train.max_steps=20``. Weights start from the JAX
 package's initialisers with ``--init-seed`` (default ``train.seed``) or from
 a state dict (``--weights``, ``.pt`` or ``.npz``). Runs on CUDA unless
-``--device`` says otherwise; resumes from the workdir's latest checkpoint;
+``--device`` says otherwise; trains from the stream's second batch, as the
+JAX CLI does (it spends the first on ``model.init``); resumes from the
+workdir's latest checkpoint;
 evaluates on ``EVAL_BATCHES`` batches drawn from ``train.seed + 1``; prints
 steps/s and molecules/s (coarse) or trees/s (denoise, refine) at the end,
 and for ``denoise`` the packer that made its batches. The ``ema.pt`` it
@@ -103,6 +105,9 @@ def main(argv: Optional[list] = None) -> dict:
     packers: Counter = Counter()
     extra = {"packers": packers} if args.stage == "denoise" else {}
     train_it = prefetch_to_device(make_iter(cfg, pool, seed=cfg.train.seed, **extra), device)
+    # the JAX CLI spends the stream's first batch on model.init; skip it, so
+    # find_lr and fit see the same batches as there, from the second on
+    next(train_it)
     trainer = Trainer(cfg, model, loss_fn, device, unit=unit)
     if args.find_lr:
         return {"lr": trainer.find_lr(train_it), "trainer": trainer}
