@@ -139,9 +139,32 @@ Phases, one output line each, any failure exits non-zero:
   4m. the ema.pt files of 4i and 4j through ``sampling.cli assemble
      --denoise-weights --refine-weights`` on phase 4's point sets: strict
      loads and a spanning tree per molecule;
+  4n-4p run under the fake-RDKit harness (``tests/fake_rdkit.py``, numpy
+     only, installed after 4m): its chemistry is a deterministic stand-in,
+     so valid, unique and the panel's numbers are not chemistry, and its
+     pure-Python sanitization costs up to seconds per gate verdict on
+     GEOM-width random trees, hence the cuts below;
+  4n. ``sampling.cli assemble --denoise-init-seed 0 --gate-budget 50`` with
+     the assembly gate, refine off, on phase 4's point sets of at most 8
+     nodes, and the same sets ungated beside it: every returned tree a
+     spanning tree whose every node passes the gate, the gate queried;
+     trees/s gated, ungated and 4e's, the gate's hits, misses, hit rate and
+     queries refused over budget;
+  4o. ``sampling.cli generate --num 16 --sample-steps 100 --max-nodes 3
+     --refine-init-seed 0 --gate-budget 50`` with 0 and then 2
+     reconstruction workers: the coarse launches exact, every assembled
+     tree reconstructed (attempts = trees - max9, valid = molecules /
+     attempts), the same molecules and stats from both worker counts,
+     molecules and stats in the pickle; t_coarse, t_fine, t_reconstruct and
+     its share of the wall, valid, unique, avg_atoms, the gate's counters;
+  4p. ``sampling.cli reconstruct`` on 4o's pickle (2 workers) gives 4o's
+     molecules and stats; ``eval.cli`` on them writes every key of the JAX
+     panel; the six test molecules of ``hierdiff_torch/tools/chem_check.py``
+     reconstruct to the SMILES that the CPU tests pin against the JAX
+     package;
   5. the kernel list as JSON (``launches_by_path`` counts every path above,
-     the two fine-stage training paths included), then the result JSON as
-     the last line.
+     the two fine-stage training paths and both gated generate runs
+     included), then the result JSON as the last line.
 """
 
 from __future__ import annotations
@@ -1152,6 +1175,226 @@ def trained_assemble_phase(cli, coarse_pkl: bytes, ema: dict) -> dict:
             "search_s": run["search_s"], "trees_per_s": len(sizes) / seconds}
 
 
+# ---- 4n-4p: the assembly gate, reconstruction and evaluation under the harness
+
+# the fake-RDKit harness's chemistry is pure Python: one gate verdict on
+# GEOM-width random trees costs up to seconds, one reconstruction minutes
+# (PERF.md). 4n takes phase 4's point sets of at most GATED_MAX_NODES
+# nodes, 4o caps its molecules at GEN_MAX_NODES fragments, and a verdict
+# sanitizes at most GATE_BUDGET candidates (the rest are refused, counted)
+GATED_MAX_NODES, GEN_MAX_NODES, GEN_NUM, GATE_BUDGET = 8, 3, 16, 50
+HARNESS = "fake-RDKit harness"
+# the keys of the JAX package's panel (hierdiff_tpu/eval/cli.py evaluate, with --ref)
+PANEL_KEYS = {"n_molecules", "filter_pass_rate", "mw_mean", "logp_mean", "rot_bonds_mean",
+              "scaffold_entropy", "sas_mean", "qed_mean", "ro5_mean", "hetero_ratio_mean",
+              "ring_size_mean", "ring_count_mean", "max_fp_similarity_mean"}
+
+
+def install_harness():
+    """``tests/fake_rdkit.py`` (numpy only) as the ``rdkit`` modules: the
+    stand-in chemistry of these phases, not chemistry."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import fake_rdkit
+
+    fake_rdkit.install()
+    return fake_rdkit
+
+
+def canonical(molecules) -> list:
+    from rdkit import Chem
+
+    return [Chem.MolToSmiles(m[2]) for m in molecules]
+
+
+def gated_assemble_phase(cli, coarse_pkl: bytes, ungated_rate: float) -> dict:
+    """Phase 4n: ``sampling.cli assemble`` with the assembly gate (refine
+    off) on phase 4's point sets of at most GATED_MAX_NODES nodes, and the
+    same without the gate beside it. Every returned tree a spanning tree
+    whose every node passes the gate; the gate fired."""
+    from hierdiff_torch.chem import has_rdkit
+    from hierdiff_torch.sampling.beam import TreeState
+
+    blur = [b for b in cli._flatten_blur_pkl(pickle.loads(coarse_pkl))
+            if b["h"].shape[0] <= GATED_MAX_NODES]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "coarse.pkl"
+        with open(src, "wb") as f:
+            pickle.dump([blur], f)
+        for gated in (False, True):
+            if gated != has_rdkit():
+                fail(f"4n: the harness is {'missing' if gated else 'installed'}")
+            out = Path(tmp) / f"trees_{gated}.pkl"
+            run = cli.main(["assemble", "--coarse-pkl", str(src), "--denoise-init-seed", "0",
+                            "--gate-budget", str(GATE_BUDGET), "--out", str(out)])
+            with open(out, "rb") as f:
+                run["pickled"] = pickle.load(f)["trees"]
+            runs[gated] = run
+            if not gated:
+                install_harness()
+    run = runs[True]
+    gate = run["gate"]
+    sizes = [b["h"].shape[0] for b in blur]
+    kept = [(d, n) for d, n in zip(run["pickled"], sizes) if d is not None]
+    faults = spanning_tree_faults([d for d, _ in kept], [n for _, n in kept])
+    info = gate.cache_info()           # the search's own queries, before the check below
+    refused = [(i, j) for i, t in enumerate(run["trees"]) if t is not None
+               for j in range(t.n) if not gate(t, j)]
+    rate = {g: len(blur) / (r["lattice_s"] + r["search_s"]) for g, r in runs.items()}
+    out = {"molecules": len(blur), "max_nodes": GATED_MAX_NODES, "gate_budget": GATE_BUDGET,
+           "trees": len(kept), "trees_ungated": sum(t is not None for t in runs[False]["trees"]),
+           "trees_per_s": rate[True], "trees_per_s_ungated": rate[False],
+           "trees_per_s_4e": ungated_rate, "lattice_s": run["lattice_s"],
+           "search_s": run["search_s"], "search_s_ungated": runs[False]["search_s"],
+           "gate_hits": info.hits, "gate_misses": info.misses,
+           "gate_hit_rate": info.hits / max(info.hits + info.misses, 1),
+           "gate_over_budget": len(gate.over_budget), "faults": faults,
+           "nodes_refused": refused[:5]}
+    print(f"gated assemble ({HARNESS}): GEOM denoise, phase 4's {len(blur)} point sets of at "
+          f"most {GATED_MAX_NODES} nodes, gate budget {GATE_BUDGET}: {len(kept)}/{len(blur)} "
+          f"trees, {rate[True]:.3f} trees/s (search {run['search_s']:.3f} s) against "
+          f"{rate[False]:.3f} trees/s ungated on the same sets (search "
+          f"{runs[False]['search_s']:.3f} s) and {ungated_rate:.3f} in 4e; gate {info.hits} "
+          f"hits, {info.misses} misses ({out['gate_hit_rate']:.3f} hit rate), "
+          f"{len(gate.over_budget)} over budget; faults {faults}; nodes refused {refused[:5]}")
+    if faults or refused or info.misses == 0:
+        fail(f"4n ({HARNESS}): gated trees invalid, a node refused, or the gate never fired")
+    return out
+
+
+def gated_generate_phase(cli, ek) -> dict:
+    """Phase 4o: ``sampling.cli generate`` with the gate, refine on and
+    reconstruction, GEN_NUM molecules of at most GEN_MAX_NODES fragments, 100
+    coarse steps, with 0 and then 2 reconstruction workers: the coarse
+    launches exact; every tree that was assembled reconstructed (its output
+    counted as an attempt unless 'max9'); the same molecules and stats from
+    both worker counts; molecules and stats in the pickle."""
+    from hierdiff_torch.chem import reconstruct as rec_mod
+
+    steps, runs = 100, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for workers in (0, 2):
+            out = Path(tmp) / f"generated_{workers}.pkl"
+            seen = []
+            summarize = rec_mod.summarize_outputs
+
+            def spy(outputs):
+                seen.append(list(outputs))
+                return summarize(outputs)
+
+            rec_mod.summarize_outputs = spy
+            ek.reset_launch_counts()
+            try:
+                run = cli.main(["generate", "--init-seed", "0", "--denoise-init-seed", "0",
+                                "--refine-init-seed", "0", "--num", str(GEN_NUM),
+                                "--sample-steps", str(steps), "--max-nodes", str(GEN_MAX_NODES),
+                                "--gate-budget", str(GATE_BUDGET), "--workers", str(workers),
+                                "--seed", str(SEED), "--out", str(out)])
+            finally:
+                rec_mod.summarize_outputs = summarize
+            torch.cuda.synchronize()
+            run["launches"] = dict(ek.launch_counts)
+            run["outputs"] = seen[0]
+            run["path"] = out
+            with open(out, "rb") as f:
+                run["payload"] = pickle.load(f)
+            runs[workers] = run
+        pkl = runs[0]["path"].read_bytes()
+    result, pipe = runs[0]["result"], runs[0]["pipeline"]
+    sizes = [b["h"].shape[0] for b in result.blur]
+    n_chunks = len(pipe._plan_chunks(np.asarray(sizes)))
+    expect = {"fused_gcl": n_chunks * (steps + 1) * 12,
+              "fused_coord_update": n_chunks * (steps + 1) * 6,
+              "fused_gcl_bwd": 0, "coord_update_autograd": 0}
+    done = [t for t in result.trees if t is not None]
+    outputs = runs[0]["outputs"]
+    max9 = sum(isinstance(o, str) and o == "max9" for o in outputs)
+    attempted = len(outputs) - max9
+    st = result.stats
+    keys = ("valid", "unique", "avg_atoms")
+    same = (canonical(runs[0]["result"].molecules) == canonical(runs[2]["result"].molecules)
+            and {k: runs[0]["result"].stats[k] for k in keys}
+            == {k: runs[2]["result"].stats[k] for k in keys})
+    payload = runs[0]["payload"]
+    gate, hook = pipe.sampler.can_assemble, pipe.sampler.refine_hook
+    info = gate.cache_info()
+    out = {"molecules": GEN_NUM, "max_nodes": GEN_MAX_NODES, "gate_budget": GATE_BUDGET,
+           "seconds": runs[0]["seconds"], "seconds_workers_2": runs[2]["seconds"],
+           "trees": len(done), "reconstructed": len(result.molecules), "max9": max9,
+           "attempted": attempted, **{k: st[k] for k in ("t_coarse", "t_fine", "t_reconstruct",
+                                                          *keys)},
+           "t_reconstruct_workers_2": runs[2]["result"].stats["t_reconstruct"],
+           "reconstruct_share": st["t_reconstruct"] / runs[0]["seconds"],
+           "gate_hits": info.hits, "gate_misses": info.misses,
+           "gate_hit_rate": info.hits / max(info.hits + info.misses, 1),
+           "gate_over_budget": len(gate.over_budget), "refine": dict(hook.stats),
+           "coarse_chunks": n_chunks, "launches": runs[0]["launches"],
+           "launches_workers_2": runs[2]["launches"], "same_across_workers": same}
+    print(f"gated generate ({HARNESS}): {GEN_NUM} molecules of at most {GEN_MAX_NODES} "
+          f"fragments, {steps} coarse steps, refine on, gate budget {GATE_BUDGET}: "
+          f"{runs[0]['seconds']:.3f} s (workers 0; workers 2: {runs[2]['seconds']:.3f} s), "
+          f"t_coarse {st['t_coarse']:.3f} s, t_fine {st['t_fine']:.3f} s, t_reconstruct "
+          f"{st['t_reconstruct']:.3f} s ({out['reconstruct_share']:.3f} of the wall; workers 2: "
+          f"{out['t_reconstruct_workers_2']:.3f} s); {len(done)} trees, {attempted} attempted, "
+          f"{max9} max9, {len(result.molecules)} molecules; valid {st['valid']:.4f}, unique "
+          f"{st['unique']:.4f}, avg_atoms {st['avg_atoms']:.4f}; gate {info.hits} hits, "
+          f"{info.misses} misses ({out['gate_hit_rate']:.3f}), {len(gate.over_budget)} over "
+          f"budget; refine {hook.stats['score_calls']} fused checks; launches "
+          f"{runs[0]['launches']} (expected {expect}); workers 0 and 2 equal: {same}")
+    if runs[0]["launches"] != expect or runs[2]["launches"] != expect:
+        fail(f"4o ({HARNESS}): kernel launch counts {runs[0]['launches']}, "
+             f"{runs[2]['launches']} != {expect}")
+    if len(outputs) != len(done) or not same:
+        fail(f"4o ({HARNESS}): {len(outputs)} reconstructions of {len(done)} trees, or the "
+             f"worker counts disagree")
+    if attempted and abs(st["valid"] - len(result.molecules) / attempted) > 1e-12:
+        fail(f"4o ({HARNESS}): valid {st['valid']} is not molecules / attempts")
+    if (set(payload) != {"trees", "molecules", "stats"} or payload["molecules"] is None
+            or not set(keys) <= set(payload["stats"])):
+        fail(f"4o ({HARNESS}): the pickle lacks molecules or stats: {sorted(payload)}")
+    return {"stats": out, "pickle": pkl, "molecules": runs[0]["result"].molecules}
+
+
+def reconstruct_eval_phase(cli, generated: dict) -> dict:
+    """Phase 4p: ``sampling.cli reconstruct`` on 4o's pickle gives 4o's
+    molecules and stats; ``eval.cli`` on them writes every key of the JAX
+    panel; the six test molecules of ``tools/chem_check.py`` reconstruct to
+    the SMILES the CPU tests pin against the JAX package."""
+    from hierdiff_torch.eval import cli as eval_cli
+    from hierdiff_torch.tools import chem_check
+
+    keys = ("valid", "unique", "avg_atoms")
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out, js = Path(tmp) / "gen.pkl", Path(tmp) / "rec.pkl", Path(tmp) / "m.json"
+        src.write_bytes(generated["pickle"])
+        rec = cli.main(["reconstruct", "--trees-pkl", str(src), "--workers", "2",
+                        "--out", str(out)])
+        same = (canonical(rec["molecules"]) == canonical(generated["molecules"])
+                and {k: rec["stats"][k] for k in keys}
+                == {k: generated["stats"][k] for k in keys})
+        metrics = None
+        if rec["molecules"]:
+            eval_cli.main([str(out), "--ref", str(out), "--out", str(js)])
+            metrics = json.loads(js.read_text())
+    t0 = time.perf_counter()
+    smiles = chem_check.reconstructed_smiles()
+    pinned = smiles == list(chem_check.RECONSTRUCTED_FAKE)
+    res = {"reconstruct_seconds": rec["seconds"], "same_as_generate": same, "panel": metrics,
+           "test_smiles": smiles, "test_smiles_pinned": pinned,
+           "test_smiles_seconds": time.perf_counter() - t0}
+    print(f"reconstruct and eval ({HARNESS}): reconstruct on 4o's pickle {rec['seconds']:.3f} s "
+          f"(2 workers), {len(rec['molecules'])} molecules, same as generate: {same}; panel "
+          f"{json.dumps(metrics)}; the six test molecules reconstruct to the pinned SMILES: "
+          f"{pinned} ({res['test_smiles_seconds']:.3f} s)")
+    if not same or not pinned:
+        fail(f"4p ({HARNESS}): reconstruct differs from generate, or the test molecules do not "
+             f"reconstruct to the pinned SMILES: {smiles}")
+    if metrics is None or set(metrics) != PANEL_KEYS:
+        fail(f"4p ({HARNESS}): no molecules to evaluate, or the panel's keys "
+             f"{None if metrics is None else sorted(metrics)} are not the JAX panel's")
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--parent", type=Path, default=None,
@@ -1684,6 +1927,11 @@ def main() -> None:
         trained_assemble = trained_assemble_phase(
             cli, coarse_pkl, {stage: Path(fine_tmp) / stage / "ema.pt" for stage in fine_train})
 
+    # ---- 4n-4p. the assembly gate, reconstruction and evaluation (fake-RDKit harness)
+    gated = gated_assemble_phase(cli, coarse_pkl, assembled["trees_per_s"])
+    generated_gated = gated_generate_phase(cli, ek)
+    reconstructed = reconstruct_eval_phase(cli, generated_gated)
+
     # ---- 5. kernel list
     bounds = {"fused_gcl": bound(gcl_flops, gcl_sfu, gcl_bytes, sm_clock_hz, n_sms),
               "fused_coord_update": bound(coord_flops, coord_sfu, coord_bytes, sm_clock_hz, n_sms),
@@ -1697,7 +1945,9 @@ def main() -> None:
     paths = {"sample": launches, "train": train_launches, "generate": generate_launches,
              "generate_refine": generate_refine_launches,
              "train_denoise": fine_train["denoise"]["launches"],
-             "train_refine": fine_train["refine"]["launches"]}
+             "train_refine": fine_train["refine"]["launches"],
+             "generate_gated": generated_gated["stats"]["launches"],
+             "generate_gated_workers_2": generated_gated["stats"]["launches_workers_2"]}
     kernels = []
     for name, runs in results.items():
         main_run = runs[0]   # random weights, attention on, f32: the main path's variant
@@ -1718,7 +1968,8 @@ def main() -> None:
         "generate": generated, "assemble_refine": refined,
         "generate_refine": generated_refine, "train_denoise": fine_train["denoise"],
         "train_refine": fine_train["refine"], "fine_step_gradients": fine_grads,
-        "planted": planted, "assemble_trained": trained_assemble}))
+        "planted": planted, "assemble_trained": trained_assemble, "assemble_gated": gated,
+        "generate_gated": generated_gated["stats"], "reconstruct_eval": reconstructed}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""Sampling CLI of the port: coarse point sets, junction-tree assembly and
-the pipeline from a histogram to junction trees.
+"""Sampling CLI of the port: coarse point sets, junction-tree assembly,
+reconstruction to molecules and the pipeline from a histogram to molecules.
 
     # stage 1 (sampler.py equivalent): pickle blurred point sets
     python -m hierdiff_torch.sampling.cli coarse --weights coarse.pt \\
@@ -9,9 +9,12 @@ the pipeline from a histogram to junction trees.
     # stage 2 (ar_sampling_nosize.py equivalent): point sets -> trees
     python -m hierdiff_torch.sampling.cli assemble --coarse-pkl samples.pkl \\
         --denoise-weights denoise.pt --out trees.pkl
-    # both stages: histogram -> trees
+    # all stages: histogram -> trees -> molecules (with RDKit)
     python -m hierdiff_torch.sampling.cli generate --init-seed 0 \\
-        --denoise-init-seed 0 --num 64 --sample-steps 100
+        --denoise-init-seed 0 --num 64 --sample-steps 100 [--workers 4]
+    # stage 3 (reconstruct.py equivalent): trees -> molecules, needs RDKit
+    python -m hierdiff_torch.sampling.cli reconstruct --trees-pkl trees.pkl \\
+        --out reconstructed.pkl
     # either, with the refine model checking the beam's trees
     python -m hierdiff_torch.sampling.cli assemble --coarse-pkl samples.pkl \\
         --denoise-init-seed 0 --refine-init-seed 0
@@ -25,8 +28,13 @@ convert them with ``state_dict_from_flax`` / ``denoise_state_dict_from_flax``
 configurations unless ``k=v`` overrides (``denoise.hidden_nf=32``) say
 otherwise; ``generate``'s coarse model runs f32 elementwise, as ``coarse``
 does by default. Runs on CUDA unless ``--device``
-names another device. Reconstruction to molecules (RDKit) is not ported: the
-trees pickle is the end of the port's pipeline.
+names another device.
+
+With RDKit present, ``assemble`` and ``generate`` gate the search (and the
+refine hook's swaps and its final repair) with ``chem.assemble_gate``, and
+``generate`` reconstructs each tree into a molecule, as the JAX CLI does.
+Without RDKit the search runs ungated and ``generate`` stops at junction
+trees (``"molecules": None``); ``reconstruct`` raises ``RDKitUnavailable``.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from hierdiff_torch.chem import has_rdkit, require_rdkit
 from hierdiff_torch.config import (CoarseModelConfig, EdgeDenoiseConfig, RefineConfig,
                                    load_coarse_config, load_config)
 from hierdiff_torch.data.assets import load_histogram, vocab_mol_sizes
@@ -158,29 +167,44 @@ def _weights(model, path: str, seed: Optional[int], flags: str):
 
 def _fine_stage_setup(args, device):
     """Shared stage-2 setup of ``assemble`` and ``generate``: the
-    configuration, the edge-denoise model with its weights, the pad buckets
+    configuration, the edge-denoise model with its weights, the pad buckets,
+    with RDKit the vocabulary and the assembly gate (memoized per fragment
+    and neighbour set; reference ar_sampling_nosize.py:199-200, 396-403),
     and, with refine weights or a seed for them, the refine hook (its
-    fleets padded to the same buckets; heavy-atom sizes from the
-    fingerprint table, as the JAX CLI has them without RDKit)."""
+    fleets padded to the same buckets, its swaps and final repair gated)."""
     cfg = load_config(None, args.overrides)
     denoise = _weights(build_denoise_from_cfg(cfg.denoise, device), args.denoise_weights,
                        args.denoise_init_seed, "--denoise-weights or --denoise-init-seed")
     buckets = DEFAULT_BUCKETS if args.default_buckets else SAMPLING_BUCKETS
+    vocab, gate = None, None
+    if has_rdkit():
+        from hierdiff_torch.chem.assemble_gate import make_assembly_gate
+        from hierdiff_torch.chem.mol_tree import Vocab
+        vocab = Vocab()
+        gate = make_assembly_gate(vocab, budget=args.gate_budget or None)
     hook = None
     if args.refine_weights or args.refine_init_seed is not None:
         refine = _weights(build_refine_from_cfg(cfg.refine, device), args.refine_weights,
                           args.refine_init_seed, "--refine-weights or --refine-init-seed")
-        hook = RefineHook(refine, np.asarray(vocab_mol_sizes()), buckets=buckets)
-    return cfg, denoise, buckets, hook
+        sizes = vocab.mol_sizes if vocab is not None else vocab_mol_sizes()
+        hook = RefineHook(refine, np.asarray(sizes), can_assemble=gate, buckets=buckets)
+    return cfg, denoise, buckets, hook, vocab, gate
 
 
-def _refine_line(hook) -> str:
-    """The refine hook's counters, for the rate lines."""
+def _search_line(hook, gate) -> str:
+    """The refine hook's and the assembly gate's counters, for the rate
+    lines."""
     if hook is None:
-        return "refine off"
-    st = hook.stats
-    return (f"refine: {st['score_calls']} fused checks, dispatch {st['dispatch_s']:.3f} s, "
-            f"collect {st['collect_s']:.3f} s, walk {st['walk_s']:.3f} s")
+        line = "refine off"
+    else:
+        st = hook.stats
+        line = (f"refine: {st['score_calls']} fused checks, dispatch {st['dispatch_s']:.3f} s, "
+                f"collect {st['collect_s']:.3f} s, walk {st['walk_s']:.3f} s")
+    if gate is None:
+        return f"{line}; assembly gate off (no RDKit)"
+    info = gate.cache_info()
+    return (f"{line}; assembly gate: {info.hits} hits, {info.misses} misses, "
+            f"{len(gate.over_budget)} over budget")
 
 
 def _tree_to_dict(t):
@@ -211,7 +235,7 @@ def cmd_assemble(args) -> dict:
     sampler, the lattices and the seconds of the lattices and of the search
     (the refine hook's checks and its ``finalize`` included)."""
     device = resolve_device(args.device)
-    cfg, denoise, buckets, hook = _fine_stage_setup(args, device)
+    cfg, denoise, buckets, hook, _vocab, gate = _fine_stage_setup(args, device)
     with open(args.coarse_pkl, "rb") as f:
         blur = _flatten_blur_pkl(pickle.load(f))
     if args.num:
@@ -225,7 +249,7 @@ def cmd_assemble(args) -> dict:
     blur = [{"x": np.asarray(b["x"], np.float32),
              "h": round_int_features(np.asarray(b["h"], np.float32), int_nf)} for b in blur]
     sampler = build_fine_sampler(denoise, beam_size=args.beam, buckets=buckets,
-                                 refine_hook=hook)
+                                 can_assemble=gate, refine_hook=hook)
     t0 = time.perf_counter()
     lattices = sampler.compute_lattices(blur)
     t1 = time.perf_counter()
@@ -236,42 +260,73 @@ def cmd_assemble(args) -> dict:
     ok = sum(t is not None for t in trees)
     print(f"assembled {ok}/{len(blur)} junction trees in {t2 - t0:.3f} s "
           f"({len(blur) / (t2 - t0):.3f} trees/s, device {device}): lattices {t1 - t0:.3f} s, "
-          f"search {t2 - t1:.3f} s; {_refine_line(hook)}")
+          f"search {t2 - t1:.3f} s; {_search_line(hook, gate)}")
     with open(args.out, "wb") as f:
         pickle.dump({"trees": [_tree_to_dict(t) for t in trees]}, f)
     print(f"-> {args.out}")
     return {"blur": blur, "trees": trees, "sampler": sampler, "lattices": lattices,
-            "lattice_s": t1 - t0, "search_s": t2 - t1}
+            "lattice_s": t1 - t0, "search_s": t2 - t1, "gate": gate}
 
 
 def cmd_generate(args) -> dict:
-    """Histogram -> coarse point sets -> junction trees, pickled as
-    ``{"trees": [...], "molecules": None, "stats": {...}}``. Returns the
-    pipeline's result and the wall seconds."""
+    """Histogram -> coarse point sets -> junction trees -> molecules,
+    pickled as ``{"trees": [...], "molecules": [...], "stats": {...}}``
+    (``"molecules": None`` without RDKit). Returns the pipeline's result,
+    the pipeline and the wall seconds."""
     device = resolve_device(args.device)
-    cfg, denoise, buckets, hook = _fine_stage_setup(args, device)
+    cfg, denoise, buckets, hook, vocab, gate = _fine_stage_setup(args, device)
     coarse = _weights(build_coarse_from_cfg(cfg.coarse, "float32", device),
                       args.weights, args.init_seed, "--weights or --init-seed")
     pipe = GenerationPipeline(coarse, denoise, histogram=load_histogram(cfg.coarse.dataset),
                               beam_size=args.beam, int_nf=cfg.coarse.int_nf,
                               max_n_cap=args.max_nodes or None,
                               sample_steps=args.steps or None, sample_buckets=buckets,
-                              refine_hook=hook)
+                              refine_hook=hook, vocab=vocab, can_assemble=gate)
     t0 = time.perf_counter()
-    result = pipe.run(args.seed, args.num)
+    result = pipe.run(args.seed, args.num, reconstruct=has_rdkit(), n_workers=args.workers)
     seconds = time.perf_counter() - t0
     ok = sum(t is not None for t in result.trees)
+    t_rec = result.stats.get("t_reconstruct")
     print(f"assembled {ok}/{args.num} junction trees in {seconds:.3f} s "
           f"({args.num / seconds:.3f} molecules/s, device {device}): t_coarse "
-          f"{result.stats['t_coarse']:.3f} s, t_fine {result.stats['t_fine']:.3f} s; "
-          f"{_refine_line(hook)}")
-    print("reconstruction to molecules is not ported yet (it needs RDKit): "
-          "the pickle holds junction trees")
+          f"{result.stats['t_coarse']:.3f} s, t_fine {result.stats['t_fine']:.3f} s"
+          + ("" if t_rec is None else f", t_reconstruct {t_rec:.3f} s")
+          + f"; {_search_line(hook, gate)}")
+    if result.molecules is None:
+        print("reconstruction skipped: RDKit is not installed (the pickle holds junction trees)")
+    else:
+        print("reconstruction:", result.stats)
     with open(args.out, "wb") as f:
-        pickle.dump({"trees": [_tree_to_dict(t) for t in result.trees], "molecules": None,
-                     "stats": result.stats}, f)
+        pickle.dump({"trees": [_tree_to_dict(t) for t in result.trees],
+                     "molecules": result.molecules, "stats": result.stats}, f)
     print(f"-> {args.out}")
     return {"result": result, "pipeline": pipe, "seconds": seconds}
+
+
+def cmd_reconstruct(args) -> dict:
+    """Stage 3 on its own: a trees pickle (``assemble`` or ``generate``)
+    -> RDKit molecules, pickled as ``{"molecules": [...], "stats": {...}}``
+    with the reference's valid / unique / avg_atoms
+    (generation/reconstruct.py:54-106). Returns both."""
+    require_rdkit("reconstruction")
+    from hierdiff_torch.chem.mol_tree import Vocab
+    from hierdiff_torch.chem.reconstruct import reconstruct_batch
+    from hierdiff_torch.sampling.pipeline import tree_dict_to_moltree
+
+    with open(args.trees_pkl, "rb") as f:
+        payload = pickle.load(f)
+    tree_dicts = payload["trees"] if isinstance(payload, dict) else payload
+    vocab = Vocab()
+    jt = [tree_dict_to_moltree(d, vocab) for d in tree_dicts if d is not None]
+    print(f"{len(jt)} trees loaded from {args.trees_pkl}")
+    t0 = time.perf_counter()
+    molecules, stats = reconstruct_batch(jt, vocab, args.workers)
+    seconds = time.perf_counter() - t0
+    print(f"reconstruction: {stats} in {seconds:.3f} s ({args.workers} workers)")
+    with open(args.out, "wb") as f:
+        pickle.dump({"molecules": molecules, "stats": stats}, f)
+    print(f"-> {args.out}")
+    return {"molecules": molecules, "stats": stats, "seconds": seconds}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -307,6 +362,9 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--refine-init-seed", type=int, default=None,
                         help="random refine weights from this seed")
         sp.add_argument("--beam", type=int, default=5)
+        sp.add_argument("--gate-budget", type=int, default=0,
+                        help="candidates one assembly-gate verdict may sanitize before the "
+                             "query is refused (0: no bound, the reference's verdicts)")
         sp.add_argument("--default-buckets", action="store_true",
                         help="pad to the coarser DEFAULT_BUCKETS instead of SAMPLING_BUCKETS")
         sp.add_argument("--device", default=None, help="torch device (default cuda)")
@@ -323,7 +381,8 @@ def build_parser() -> argparse.ArgumentParser:
     fine_args(pa, "assembled_trees.pkl")
     pa.set_defaults(fn=cmd_assemble)
 
-    pg = sub.add_parser("generate", help="histogram -> coarse point sets -> junction trees")
+    pg = sub.add_parser("generate", help="histogram -> coarse point sets -> junction trees "
+                                         "-> molecules (with RDKit)")
     pg.add_argument("--weights", default="", help="coarse .pt or .npz state dict")
     pg.add_argument("--init-seed", type=int, default=None,
                     help="random coarse weights from this seed")
@@ -332,8 +391,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="strided reverse-chain steps (0 = the model's full T)")
     pg.add_argument("--seed", type=int, default=2022)
     pg.add_argument("--max-nodes", type=int, default=0)
+    pg.add_argument("--workers", type=int, default=0,
+                    help="reconstruction processes (0 or 1: in this process)")
     fine_args(pg, "generated.pkl")
     pg.set_defaults(fn=cmd_generate)
+
+    pr = sub.add_parser("reconstruct", help="stage 3: trees -> RDKit molecules "
+                                            "(reference generation/reconstruct.py)")
+    pr.add_argument("--trees-pkl", required=True, help="pickle from `assemble` or `generate`")
+    pr.add_argument("--workers", type=int, default=0)
+    pr.add_argument("--out", default="reconstructed.pkl")
+    pr.set_defaults(fn=cmd_reconstruct)
     return p
 
 

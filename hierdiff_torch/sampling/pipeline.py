@@ -1,4 +1,4 @@
-"""Generation pipeline: coarse point sets -> junction trees.
+"""Generation pipeline: coarse point sets -> junction trees -> molecules.
 
 Port of the serial path of ``hierdiff_tpu/sampling/pipeline.py``
 (``GenerationPipeline.run`` without overlap, ``build_fine_sampler``'s
@@ -8,12 +8,14 @@ lattice branch, ``round_int_features``):
    chunked, each chunk a run of ``sample_coarse`` (the coarse kernels on the
    card);
 2. fine: the lattice sampler assembles a junction tree per molecule, with
-   the refine hook's checks in its search when one is given, and the hook's
-   ``finalize`` repair after it.
+   the refine hook's checks and the assembly gate in its search when they
+   are given, and the hook's ``finalize`` repair after it;
+3. reconstruct: host RDKit assembly of each tree into a molecule
+   (``chem/reconstruct.py``), when RDKit is present and a vocabulary is set.
 
 Integer blur features are rounded at the hand-off between the stages, as in
-the reference (ar_sampling_nosize.py:388). Reconstruction (RDKit) and the
-streamed, overlapped driver are not ported yet.
+the reference (ar_sampling_nosize.py:388). The streamed, overlapped driver
+(``run_streamed``) is not ported yet.
 
 Random numbers differ from the JAX pipeline by design. ``run(seed, n)``
 draws the node counts from ``np.random.default_rng(seed)``, so a JAX run
@@ -34,6 +36,7 @@ from typing import Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from hierdiff_torch.chem import has_rdkit
 from hierdiff_torch.data.collate import SAMPLING_BUCKETS, bucket_for
 from hierdiff_torch.models.diffusion import CoarseDiffusion
 from hierdiff_torch.models.edge_denoise import EdgeDenoise
@@ -44,16 +47,17 @@ from hierdiff_torch.sampling.lattice import LatticeSampler, _next_pow2, pow2_chu
 
 
 def build_fine_sampler(denoise_model: EdgeDenoise, *, beam_size: int = 5,
-                       buckets: Optional[Sequence[int]] = None,
+                       buckets: Optional[Sequence[int]] = None, can_assemble=None,
                        refine_hook=None) -> LatticeSampler:
     """Stage-2 sampler for a denoise model: the lattice sampler, with the
-    refine hook's checks in its search when ``refine_hook`` is given."""
+    assembly gate ``can_assemble`` and the refine hook's checks in its search
+    when they are given."""
     if denoise_model.vocab_conditioning:
         raise NotImplementedError(
             "vocab_conditioning needs the round-based ARSampler (sampling/ar.py), which is "
             "not ported yet (ROADMAP.md, Queue 1)")
     return LatticeSampler(denoise_model, beam_size=beam_size, buckets=buckets,
-                          refine_hook=refine_hook)
+                          can_assemble=can_assemble, refine_hook=refine_hook)
 
 
 def round_int_features(h: np.ndarray, int_nf: int) -> np.ndarray:
@@ -73,17 +77,21 @@ class PipelineResult:
     blur: List[Dict[str, np.ndarray]]
     trees: List[Optional[TreeState]]
     stats: Optional[dict] = None
+    molecules: Optional[list] = None       # [(mol, amap, smiles)] with RDKit
 
 
 class GenerationPipeline:
     def __init__(self, coarse_model: CoarseDiffusion, denoise_model: EdgeDenoise,
                  histogram: Mapping[int, float], beam_size: int = 5, int_nf: int = 5,
                  max_n_cap: Optional[int] = None, sample_steps: Optional[int] = None,
-                 sample_buckets: Optional[Sequence[int]] = None, refine_hook=None):
+                 sample_buckets: Optional[Sequence[int]] = None, refine_hook=None,
+                 vocab=None, can_assemble=None):
         """sample_steps: strided reverse-chain length (None: the model's T).
         sample_buckets: pad buckets of the coarse chunks, the lattices and
         the refine hook's fleets (None: ``SAMPLING_BUCKETS``, the JAX
-        pipeline's default). refine_hook: a ``RefineHook`` or None."""
+        pipeline's default). refine_hook: a ``RefineHook`` or None. vocab: the
+        ``chem.mol_tree.Vocab`` that reconstruction reads (None: no
+        reconstruction). can_assemble: the search's assembly gate or None."""
         self.coarse_model = coarse_model
         self.nodes_dist = DistributionNodes(histogram)
         self.sample_buckets = tuple(sample_buckets or SAMPLING_BUCKETS)
@@ -92,7 +100,9 @@ class GenerationPipeline:
             # lanes stop being equal to solo ones; align the hook's set
             refine_hook.buckets = self.sample_buckets
         self.sampler = build_fine_sampler(denoise_model, beam_size=beam_size,
-                                          buckets=self.sample_buckets, refine_hook=refine_hook)
+                                          buckets=self.sample_buckets, can_assemble=can_assemble,
+                                          refine_hook=refine_hook)
+        self.vocab = vocab
         self.int_nf = int_nf
         self.max_n_cap = max_n_cap
         self.sample_steps = sample_steps
@@ -153,10 +163,14 @@ class GenerationPipeline:
             self._absorb_coarse(chunk, xh.cpu().numpy(), counts, out)
         return out  # type: ignore[return-value]
 
-    def run(self, seed: int, n_molecules: int) -> PipelineResult:
-        """Coarse then fine, one after the other. ``stats`` holds the wall
-        seconds of each (``t_coarse``, ``t_fine``; the refine hook's
-        ``finalize`` counts in ``t_fine``)."""
+    def run(self, seed: int, n_molecules: int, reconstruct: bool = True,
+            n_workers: int = 0) -> PipelineResult:
+        """Coarse, fine, then reconstruction, one after the other. ``stats``
+        holds the wall seconds of each (``t_coarse``, ``t_fine``; the refine
+        hook's ``finalize`` counts in ``t_fine``). With ``reconstruct``, RDKit
+        present and a vocabulary set, the trees that were assembled become
+        molecules (``n_workers`` > 1: a process pool), and ``stats`` gains
+        the reconstruction's valid, unique, avg_atoms and ``t_reconstruct``."""
         t0 = time.perf_counter()
         blur = self.sample_blur(seed, n_molecules)
         t1 = time.perf_counter()
@@ -167,5 +181,34 @@ class GenerationPipeline:
             # (reference: model_refine.py:252-299 check_final_tree)
             trees = [hook.finalize(t) if t is not None else None for t in trees]
         t2 = time.perf_counter()
-        return PipelineResult(blur=blur, trees=trees, stats={"t_coarse": t1 - t0,
-                                                             "t_fine": t2 - t1})
+        result = PipelineResult(blur=blur, trees=trees,
+                                stats={"t_coarse": t1 - t0, "t_fine": t2 - t1})
+        if reconstruct and has_rdkit() and self.vocab is not None:
+            from hierdiff_torch.chem.reconstruct import reconstruct_batch
+            jt = [tree_state_to_moltree(t, self.vocab) for t in trees if t is not None]
+            result.molecules, stats = reconstruct_batch(jt, self.vocab, n_workers)
+            result.stats.update(stats)
+            result.stats["t_reconstruct"] = time.perf_counter() - t2
+        return result
+
+
+def tree_state_to_moltree(state: TreeState, vocab):
+    """A beam-search TreeState -> a ``chem.mol_tree.MolTree`` for
+    reconstruction."""
+    return tree_dict_to_moltree({"wids": state.wids, "adj": state.adj, "pos": state.pos,
+                                 "feats": state.feats}, vocab)
+
+
+def tree_dict_to_moltree(d: Dict[str, np.ndarray], vocab):
+    """The portable tree dict ({wids, adj, pos, feats}: the sampling CLI's
+    pickle payload) -> a ``chem.mol_tree.MolTree`` for reconstruction."""
+    from hierdiff_torch.chem.mol_tree import MolTree, MolTreeNode
+
+    wids = np.asarray(d["wids"])
+    pos = np.asarray(d["pos"])
+    feats = np.asarray(d["feats"])
+    nodes = [MolTreeNode(vocab.get_smiles(int(wids[i])), pos[i], vocab=vocab,
+                         hbd=float(feats[i, 0])) for i in range(len(wids))]
+    adj = np.asarray(d["adj"]).copy()
+    np.fill_diagonal(adj, 0)
+    return MolTree(nodes=nodes, edge_index=np.nonzero(adj))

@@ -168,7 +168,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',"
-        " 'orbax', 'hierdiff_tpu', 'yaml')]\n"
+        " 'orbax', 'hierdiff_tpu', 'yaml', 'pandas', 'rdkit')]\n"
         "print(json.dumps({'modules': names, 'bad': bad}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, check=True, timeout=120)
@@ -180,7 +180,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "models.edge_denoise", "sampling.beam", "sampling.lattice",
                  "sampling.pipeline", "tools.lattice_check", "data.refine", "models.refine",
                  "sampling.refine_hook", "tools.refine_check", "runtime", "data.denoise",
-                 "data.orders"):
+                 "data.orders", "chem", "chem.geometry", "chem.chemutils", "chem.mol_tree",
+                 "chem.assemble_gate", "chem.reconstruct", "eval.metrics", "eval.cli",
+                 "tools.chem_check"):
         assert f"hierdiff_torch.{name}" in report["modules"], name
 
 
