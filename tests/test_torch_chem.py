@@ -267,15 +267,18 @@ def test_reconstructor_equals_jax(world, memoize):
         assert chem_check.reconstructed_smiles() == list(chem_check.RECONSTRUCTED_FAKE)
 
 
-@pytest.mark.parametrize("workers,fail_embed", [(0, False), (2, False), (0, True)])
-def test_reconstruct_batch_equals_jax(world, fake, workers, fail_embed):
+@pytest.mark.parametrize("workers,memoize,fail_embed", [(0, False, False), (2, False, False),
+                                                         (2, True, False), (0, False, True)])
+def test_reconstruct_batch_equals_jax(world, fake, workers, memoize, fail_embed):
     from hierdiff_torch.chem.reconstruct import reconstruct_batch
     from hierdiff_tpu.chem.reconstruct import reconstruct_batch as jax_reconstruct_batch
 
     fake.FAIL_EMBED = fail_embed
     try:
-        got, stats = reconstruct_batch(_port_trees(world)[:4], world["port"]["vocab"], workers)
-        want, jstats = jax_reconstruct_batch(_jax_trees(world)[:4], world["jax_vocab"], workers)
+        got, stats = reconstruct_batch(_port_trees(world)[:4], world["port"]["vocab"], workers,
+                                       memoize=memoize)
+        want, jstats = jax_reconstruct_batch(_jax_trees(world)[:4], world["jax_vocab"], workers,
+                                             memoize=memoize)
     finally:
         fake.FAIL_EMBED = False
     assert stats == jstats
