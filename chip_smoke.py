@@ -140,7 +140,8 @@ Phases, one output line each, any failure exits non-zero:
      --denoise-weights --refine-weights`` on phase 4's point sets: strict
      loads and a spanning tree per molecule;
   4n-4p run under the fake-RDKit harness (``tests/fake_rdkit.py``, numpy
-     only, installed after 4m): its chemistry is a deterministic stand-in,
+     only, installed after 4m; every line they print, the CLIs' own too,
+     is marked as the harness's): its chemistry is a deterministic stand-in,
      so valid, unique and the panel's numbers are not chemistry, and its
      pure-Python sanitization costs up to seconds per gate verdict on
      GEOM-width random trees, hence the cuts below;
@@ -171,6 +172,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import copy
 import csv
 import ctypes
@@ -1200,6 +1202,26 @@ def install_harness():
     return fake_rdkit
 
 
+class HarnessLines:
+    """A stdout that marks every line printed under the harness (the CLIs'
+    own lines included) as the harness's, as it passes it on."""
+
+    def __init__(self, out):
+        self.out, self.pending = out, ""
+
+    def write(self, text: str) -> int:
+        self.pending += text
+        while "\n" in self.pending:
+            line, self.pending = self.pending.split("\n", 1)
+            self.out.write(f"{line}\n" if HARNESS in line else f"[{HARNESS}] {line}\n")
+        return len(text)
+
+    def flush(self) -> None:
+        if self.pending:
+            self.write("\n")
+        self.out.flush()
+
+
 def canonical(molecules) -> list:
     from rdkit import Chem
 
@@ -1928,9 +1950,14 @@ def main() -> None:
             cli, coarse_pkl, {stage: Path(fine_tmp) / stage / "ema.pt" for stage in fine_train})
 
     # ---- 4n-4p. the assembly gate, reconstruction and evaluation (fake-RDKit harness)
-    gated = gated_assemble_phase(cli, coarse_pkl, assembled["trees_per_s"])
-    generated_gated = gated_generate_phase(cli, ek)
-    reconstructed = reconstruct_eval_phase(cli, generated_gated)
+    tagged = HarnessLines(sys.stdout)
+    try:
+        with contextlib.redirect_stdout(tagged):
+            gated = gated_assemble_phase(cli, coarse_pkl, assembled["trees_per_s"])
+            generated_gated = gated_generate_phase(cli, ek)
+            reconstructed = reconstruct_eval_phase(cli, generated_gated)
+    finally:
+        tagged.flush()
 
     # ---- 5. kernel list
     bounds = {"fused_gcl": bound(gcl_flops, gcl_sfu, gcl_bytes, sm_clock_hz, n_sms),
