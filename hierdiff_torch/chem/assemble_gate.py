@@ -12,39 +12,27 @@ caching as the lever that keeps the device from idling on host chemistry.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import List, Optional
-
 import numpy as np
 
 from hierdiff_torch.chem import require_rdkit
 
 
-def make_assembly_gate(vocab, max_cache: int = 200_000, budget: Optional[int] = None):
+def make_assembly_gate(vocab, max_cache: int = 200_000):
     """Returns ``gate(state, i) -> bool`` for sampling.beam.PQBeamSearch.
 
     Untyped (blur) nodes pass trivially — the reference only checks a node
     once it and its neighborhood carry fragment ids.
-
-    ``budget`` (None: no bound, the reference's verdicts) caps the
-    candidates one verdict may sanitize (``chemutils.has_assembly``); a
-    query that reaches it is refused and counted in ``gate.over_budget``.
     """
     require_rdkit("assembly gate")
-    from hierdiff_torch.chem.chemutils import AssemblyBudgetExceeded, can_assemble
+    from hierdiff_torch.chem.chemutils import can_assemble
     from hierdiff_torch.chem.mol_tree import MolTreeNode
-
-    over_budget: List[tuple] = []
 
     @lru_cache(maxsize=max_cache)
     def _verdict(wid: int, nei_wids: tuple) -> bool:
         node = MolTreeNode(vocab.get_smiles(wid), None, vocab=vocab)
         node.neighbors = [MolTreeNode(vocab.get_smiles(w), None, vocab=vocab)
                           for w in nei_wids]
-        try:
-            return can_assemble(node, budget=budget)
-        except AssemblyBudgetExceeded:
-            over_budget.append((wid, nei_wids))
-            return False
+        return can_assemble(node)
 
     def gate(state, i: int) -> bool:
         wid = int(state.wids[i])
@@ -62,5 +50,4 @@ def make_assembly_gate(vocab, max_cache: int = 200_000, budget: Optional[int] = 
     # (runtime.beam_search_lattice_native) gather neighbors in C++ and call
     # back only for the lru-cached verdict
     gate.verdict = _verdict  # type: ignore[attr-defined]
-    gate.over_budget = over_budget  # type: ignore[attr-defined]
     return gate

@@ -19,7 +19,7 @@ All functions import RDKit lazily and raise ``RDKitUnavailable`` otherwise.
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 from hierdiff_torch.chem import require_rdkit
 
@@ -312,26 +312,31 @@ def enum_attach(ctr_mol, nei_node, amap, singletons):
     return att_confs
 
 
-def enum_assemble(node, neighbors, prev_nodes=(), prev_amap=()):
+def enum_assemble(node, neighbors, prev_nodes=(), prev_amap=(), max_ncand: int = MAX_NCAND):
     """Enumerate all valid assemblies of ``node`` with its neighbors,
     depth-first with SMILES dedup per level. Returns
-    [(smiles, kekulized mol, amap)]. (chemutils.py:293-338)"""
+    [(smiles, kekulized mol, amap)]. (chemutils.py:293-338)
+
+    The search stops once it holds more than ``max_ncand`` complete
+    attachments (the reference's ``MAX_NCAND``). Each level's candidates
+    are sanitized and deduplicated in the reference's order, one at a time,
+    and a candidate is searched as soon as it passes, so the attachments
+    found, and their order, are the reference's, whatever the bound; a
+    small bound saves the rest of the tree. ``max_ncand=0`` gives the first
+    attachment only: ``can_assemble``'s verdict."""
     Chem = _rd()
     prev_nodes = list(prev_nodes)
     all_attach_confs: List[list] = []
     singletons = [n.nid for n in list(neighbors) + prev_nodes if n.mol.GetNumAtoms() == 1]
 
     def search(cur_amap, depth):
-        if len(all_attach_confs) > MAX_NCAND:
-            return
         if depth == len(neighbors):
             all_attach_confs.append(cur_amap)
             return
-        nei_node = neighbors[depth]
-        cand_amap = enum_attach(node.mol, nei_node, cur_amap, singletons)
         seen = set()
-        candidates = []
-        for amap in cand_amap:
+        for amap in enum_attach(node.mol, neighbors[depth], cur_amap, singletons):
+            if len(all_attach_confs) > max_ncand:
+                return
             cand_mol = local_attach(node.mol, list(neighbors[: depth + 1]), prev_nodes, amap)
             cand_mol = sanitize(cand_mol)
             if cand_mol is None:
@@ -340,9 +345,7 @@ def enum_assemble(node, neighbors, prev_nodes=(), prev_amap=()):
             if smiles in seen:
                 continue
             seen.add(smiles)
-            candidates.append(amap)
-        for new_amap in candidates:
-            search(new_amap, depth + 1)
+            search(amap, depth + 1)
 
     search(list(prev_amap), 0)
     seen = set()
@@ -359,10 +362,17 @@ def enum_assemble(node, neighbors, prev_nodes=(), prev_amap=()):
     return out
 
 
-def can_assemble(node_x, node_y=None, budget: Optional[int] = None) -> bool:
+def can_assemble(node_x, node_y=None) -> bool:
     """Is there at least one valid assembly of a node with its neighbors?
-    (generation/jtnn/jtnn_dec.py:312-326 — the beam-search validity gate).
-    ``budget``: see ``has_assembly``."""
+    (generation/jtnn/jtnn_dec.py:312-326 — the beam-search validity gate)
+
+    The reference enumerates up to ``MAX_NCAND`` attachments and asks
+    whether any survives; this stops at the first (``max_ncand=0``), which
+    survives unless its re-parse or ``Kekulize`` raises. So the verdict is
+    the reference's, except where the reference would raise on a later
+    attachment: there this answers True. A negative verdict still exhausts
+    the search, whose size is the product of the levels' candidate
+    counts."""
     neis = node_x.neighbors
     if node_y is not None and node_y not in neis:
         neis.append(node_y)
@@ -372,46 +382,4 @@ def can_assemble(node_x, node_y=None, budget: Optional[int] = None) -> bool:
     neighbors = sorted(neighbors, key=lambda x: x.mol.GetNumAtoms(), reverse=True)
     singletons = [nei for nei in neis if nei.mol.GetNumAtoms() == 1]
     neighbors = singletons + neighbors
-    return has_assembly(node_x, neighbors, budget)
-
-
-def has_assembly(node, neighbors, budget: Optional[int] = None) -> bool:
-    """``len(enum_assemble(node, neighbors)) > 0``, without enumerating.
-
-    The same depth-first search over the same candidates, each level's
-    deduplicated by SMILES in the same order, but it stops at the first
-    complete attachment instead of collecting up to ``MAX_NCAND`` of them.
-    Every complete attachment becomes an entry of ``enum_assemble``'s list,
-    so the verdict is the same; a positive one costs one candidate list per
-    level instead of the whole tree of them. A negative one still exhausts
-    the tree, whose size is the product of the levels' candidate counts:
-    ``budget`` (None: no bound) caps the candidates it sanitizes, and a
-    search that reaches the cap raises ``AssemblyBudgetExceeded``."""
-    neighbors = list(neighbors)
-    singletons = [n.nid for n in neighbors if n.mol.GetNumAtoms() == 1]
-    tried = [0]
-
-    def search(cur_amap, depth) -> bool:
-        if depth == len(neighbors):
-            return True
-        seen = set()
-        for amap in enum_attach(node.mol, neighbors[depth], cur_amap, singletons):
-            tried[0] += 1
-            if budget is not None and tried[0] > budget:
-                raise AssemblyBudgetExceeded(budget)
-            cand_mol = sanitize(local_attach(node.mol, neighbors[: depth + 1], [], amap))
-            if cand_mol is None:
-                continue
-            smiles = get_smiles(cand_mol)
-            if smiles in seen:
-                continue
-            seen.add(smiles)
-            if search(amap, depth + 1):
-                return True
-        return False
-
-    return search([], 0)
-
-
-class AssemblyBudgetExceeded(RuntimeError):
-    """``has_assembly`` sanitized its budget of candidates without a verdict."""
+    return len(enum_assemble(node_x, neighbors, max_ncand=0)) > 0

@@ -181,7 +181,7 @@ def _fine_stage_setup(args, device):
         from hierdiff_torch.chem.assemble_gate import make_assembly_gate
         from hierdiff_torch.chem.mol_tree import Vocab
         vocab = Vocab()
-        gate = make_assembly_gate(vocab, budget=args.gate_budget or None)
+        gate = make_assembly_gate(vocab)
     hook = None
     if args.refine_weights or args.refine_init_seed is not None:
         refine = _weights(build_refine_from_cfg(cfg.refine, device), args.refine_weights,
@@ -203,8 +203,7 @@ def _search_line(hook, gate) -> str:
     if gate is None:
         return f"{line}; assembly gate off (no RDKit)"
     info = gate.cache_info()
-    return (f"{line}; assembly gate: {info.hits} hits, {info.misses} misses, "
-            f"{len(gate.over_budget)} over budget")
+    return f"{line}; assembly gate: {info.hits} hits, {info.misses} misses"
 
 
 def _tree_to_dict(t):
@@ -362,9 +361,6 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--refine-init-seed", type=int, default=None,
                         help="random refine weights from this seed")
         sp.add_argument("--beam", type=int, default=5)
-        sp.add_argument("--gate-budget", type=int, default=0,
-                        help="candidates one assembly-gate verdict may sanitize before the "
-                             "query is refused (0: no bound, the reference's verdicts)")
         sp.add_argument("--default-buckets", action="store_true",
                         help="pad to the coarser DEFAULT_BUCKETS instead of SAMPLING_BUCKETS")
         sp.add_argument("--device", default=None, help="torch device (default cuda)")

@@ -51,9 +51,6 @@ from hierdiff_tpu.sampling.refine_hook import RefineHook as JaxHook  # noqa: E40
 REPO = Path(__file__).resolve().parent.parent
 NB, K_TOP = 8, 16
 SEARCH_SIZES = (6, 5, 7, 4, 6)
-# random tiny models type nodes with any fragment, large rings too: a gate
-# verdict's candidates are bounded so that a query costs at most ~1 s here
-GATE_BUDGET = 60
 TINY = ["denoise.hidden_nf=16", "denoise.n_layers_full=1", "denoise.n_layers_focal=1",
         "refine.hidden_size=16", "refine.n_layers=1", "coarse.hidden_nf=16", "coarse.n_layers=1"]
 
@@ -214,21 +211,51 @@ def test_gate_verdicts_equal_jax():
     for s in states:
         for i in range(s.n):
             gate(s, i)
-    assert gate.cache_info().misses == misses and gate.over_budget == []
+    assert gate.cache_info().misses == misses
 
 
-def test_gate_budget_refuses_and_counts():
-    """A verdict that needs more candidates than its budget is refused and
-    counted; the same query without a budget is the reference's."""
-    from hierdiff_torch.chem.assemble_gate import make_assembly_gate
-    from hierdiff_torch.chem.mol_tree import Vocab
+# ring fragments of five and six atoms around a ring centre: the verdict and
+# the attachment list against the reference's, positive and negative (a
+# negative one exhausts the search on both sides)
+RING_QUERIES = [
+    ("C1=CSCCO1", ["C1NN=NS1"]),
+    ("C1=NCNCC1", ["C1=C[NH+]=CCC1"]),
+    ("C1=NCNN=C1", ["C1CSN=N1", "C1=C[N-]C=NC1"]),
+    ("C1=CN=C[NH2+]C1", ["C1CC[SH+]C1", "C1=CSC[N-]1"]),
+    ("C1=CNCN1", ["C1COCOC1", "C1=NSCC1", "C1=C[N-]CC1"]),
+    ("C1=NNNN1", ["C1=CNCC1", "C1=CC[NH+]=C1", "C1=NC[NH2+]CN1", "C1CSCSC1"]),
+    ("C1=CNPC=C1", ["C1CN=NC1", "C1=CC[NH2+]C1", "C1=CSSC1"]),
+    ("C1=NCNC=[NH+]1", ["C1=CCN=CC1", "C1=NCN=CO1", "C1=CNSCC1", "C1=NC[NH2+]CC1"]),
+]
 
-    v = Vocab()
-    wid = v.get_index(next(s for s in v.vocab if v.mol_sizes[v.get_index(s)] >= 6))
-    neis = tuple(sorted([v.get_index("CC")] * 3))
-    tight, free = make_assembly_gate(v, budget=1), make_assembly_gate(v)
-    assert free.verdict(wid, neis) is True and free.over_budget == []
-    assert tight.verdict(wid, neis) is False and tight.over_budget == [(wid, neis)]
+
+@pytest.mark.parametrize("centre,neis", RING_QUERIES)
+def test_ring_neighbour_assembly_equals_jax(centre, neis):
+    """``can_assemble`` against the reference's on ring neighbours, and
+    ``enum_assemble``: its full list is the reference's, and its bounded
+    search (``max_ncand=0``, the verdict's) finds that list's first entry."""
+    from hierdiff_torch.chem.chemutils import can_assemble, enum_assemble
+    from hierdiff_torch.chem.mol_tree import MolTreeNode
+    from hierdiff_tpu.chem.chemutils import can_assemble as jax_can_assemble
+    from hierdiff_tpu.chem.chemutils import enum_assemble as jax_enum_assemble
+    from hierdiff_tpu.chem.mol_tree import MolTreeNode as JaxNode
+
+    def query(cls):
+        node = cls(centre, None)
+        node.neighbors = [cls(s, None) for s in neis]
+        return node
+
+    verdict = can_assemble(query(MolTreeNode))
+    assert verdict == jax_can_assemble(query(JaxNode))
+    node, jnode = query(MolTreeNode), query(JaxNode)
+    for i, (n, j) in enumerate(zip(node.neighbors, jnode.neighbors)):
+        n.nid = j.nid = i
+    got = enum_assemble(node, node.neighbors)
+    want = jax_enum_assemble(jnode, jnode.neighbors)
+    assert [(s, a) for s, _, a in got] == [(s, a) for s, _, a in want]
+    assert bool(got) == verdict
+    first = enum_assemble(node, node.neighbors, max_ncand=0)
+    assert [(s, a) for s, _, a in first] == [(s, a) for s, _, a in got[:1]]
 
 
 # --- 2. reconstruction ------------------------------------------------------------
@@ -421,7 +448,7 @@ def test_pipeline_reconstructs_the_trees_it_assembled(fake):
                                                     n_layers_focal=1),
                                         torch.Generator().manual_seed(1)).eval()
     vocab = Vocab()
-    gate = make_assembly_gate(vocab, budget=GATE_BUDGET)
+    gate = make_assembly_gate(vocab)
     pipe = port_pipeline.GenerationPipeline(coarse, denoise, {2: 1}, beam_size=2,
                                             sample_steps=3, vocab=vocab, can_assemble=gate)
     result = pipe.run(5, 4, reconstruct=True)
@@ -501,7 +528,6 @@ def test_generate_cli_writes_molecules_in_the_jax_layout(tmp_path, capsys, worke
     run = port_cli.main(["generate", "--init-seed", "0", "--denoise-init-seed", "0",
                          "--refine-init-seed", "0", "--device", "cpu", "--num", "4",
                          "--sample-steps", "3", "--max-nodes", "2", "--beam", "2",
-                         "--gate-budget", str(GATE_BUDGET),
                          "--workers", str(workers), "--out", str(out), *TINY])
     with open(out, "rb") as f:
         payload = pickle.load(f)
