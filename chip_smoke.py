@@ -139,30 +139,44 @@ Phases, one output line each, any failure exits non-zero:
   4m. the ema.pt files of 4i and 4j through ``sampling.cli assemble
      --denoise-weights --refine-weights`` on phase 4's point sets: strict
      loads and a spanning tree per molecule;
-  4n-4p run under the fake-RDKit harness (``tests/fake_rdkit.py``, numpy
-     only, installed after 4m; every line they print, the CLIs' own too,
-     is marked as the harness's): its chemistry is a deterministic stand-in,
-     so valid, unique and the panel's numbers are not chemistry, and its
-     pure-Python sanitization costs up to seconds per gate verdict on
-     GEOM-width random trees, hence the cuts below;
-  4n. ``sampling.cli assemble --denoise-init-seed 0 --gate-budget 50`` with
-     the assembly gate, refine off, on phase 4's point sets of at most 8
-     nodes, and the same sets ungated beside it: every returned tree a
-     spanning tree whose every node passes the gate, the gate queried;
-     trees/s gated, ungated and 4e's, the gate's hits, misses, hit rate and
-     queries refused over budget;
+  4n-4q run under the fake-RDKit harness (``tests/fake_rdkit.py``, numpy
+     only, installed after 4m; the run first checks that the machine has no
+     RDKit, so that 4e-4m run ungated; every line these phases print, the
+     CLIs' own too, is marked as the harness's): its chemistry is a
+     deterministic stand-in, so valid, unique and the panel's numbers are
+     not chemistry. Its pure-Python sanitization makes one reference gate
+     verdict on a GEOM-width random tree cost up to minutes, so here one
+     verdict may sanitize at most 50 candidates: a verdict over that is
+     refused and counted (the port's gate has no bound), and every node of
+     every returned tree is re-checked by an uncapped gate, which must
+     accept it. Each run of 4n, 4o and 4q fails past 240 s;
+  4n. ``sampling.cli assemble --denoise-init-seed 0`` with the assembly
+     gate, refine off, on phase 4's point sets of at most 8 nodes, and the
+     same sets ungated beside it: every returned tree a spanning tree whose
+     every node passes the uncapped gate, the gate queried; trees/s gated,
+     ungated and 4e's, the gate's hits, misses, hit rate and refusals at
+     the cap;
   4o. ``sampling.cli generate --num 16 --sample-steps 100 --max-nodes 3
-     --refine-init-seed 0 --gate-budget 50`` with 0 and then 2
-     reconstruction workers: the coarse launches exact, every assembled
-     tree reconstructed (attempts = trees - max9, valid = molecules /
-     attempts), the same molecules and stats from both worker counts,
-     molecules and stats in the pickle; t_coarse, t_fine, t_reconstruct and
-     its share of the wall, valid, unique, avg_atoms, the gate's counters;
+     --refine-init-seed 0`` with 0 and then 2 reconstruction workers: the
+     coarse launches exact, every assembled tree reconstructed (attempts =
+     trees - max9, valid = molecules / attempts), the same molecules and
+     stats from both worker counts, molecules and stats in the pickle, every
+     node passes the uncapped gate; t_coarse, t_fine, t_reconstruct and its
+     share of the wall, valid, unique, avg_atoms, the gate's counters;
   4p. ``sampling.cli reconstruct`` on 4o's pickle (2 workers) gives 4o's
      molecules and stats; ``eval.cli`` on them writes every key of the JAX
      panel; the six test molecules of ``hierdiff_torch/tools/chem_check.py``
      reconstruct to the SMILES that the CPU tests pin against the JAX
      package;
+  4q. ``sampling.cli assemble --denoise-init-seed 1 --refine-init-seed 0``
+     with the gate on phase 4's 6 smallest point sets of at least 12 nodes
+     (a fused check needs an unfinished tree of more than 10 typed nodes;
+     seed 0's random types, rings of up to 16 atoms, end every such gated
+     search before that, seed 1's are mostly single atoms): the hook's
+     fused checks
+     ran and a swap passed the gate and was committed (counted around the
+     hook), every returned tree a spanning tree whose every node passes the
+     uncapped gate; trees/s, checks, swaps and the gate's counters;
   5. the kernel list as JSON (``launches_by_path`` counts every path above,
      the two fine-stage training paths and both gated generate runs
      included), then the result JSON as the last line.
@@ -180,6 +194,7 @@ import json
 import math
 import pickle
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1177,14 +1192,28 @@ def trained_assemble_phase(cli, coarse_pkl: bytes, ema: dict) -> dict:
             "search_s": run["search_s"], "trees_per_s": len(sizes) / seconds}
 
 
-# ---- 4n-4p: the assembly gate, reconstruction and evaluation under the harness
+# ---- 4n-4q: the assembly gate, reconstruction and evaluation under the harness
 
-# the fake-RDKit harness's chemistry is pure Python: one gate verdict on
-# GEOM-width random trees costs up to seconds, one reconstruction minutes
-# (PERF.md). 4n takes phase 4's point sets of at most GATED_MAX_NODES
-# nodes, 4o caps its molecules at GEN_MAX_NODES fragments, and a verdict
-# sanitizes at most GATE_BUDGET candidates (the rest are refused, counted)
-GATED_MAX_NODES, GEN_MAX_NODES, GEN_NUM, GATE_BUDGET = 8, 3, 16, 50
+# The fake-RDKit harness sanitizes in pure Python (milliseconds a candidate
+# on a GEOM-width random tree, whose random types include large rings), and
+# the reference's gate enumerates attachments exponentially in a node's
+# degree: one verdict can take minutes. So under the harness the smoke lets
+# one verdict sanitize at most VERDICT_CAP candidates (``harness_cap``); a
+# verdict that reaches the cap is refused and counted, a stand-in's refusal,
+# not chemistry's. The port's gate has no such bound. A verdict under the cap
+# is the reference's whenever it is positive, so every node of every
+# returned tree is re-checked with an uncapped gate, which must accept it.
+VERDICT_CAP = 50
+GATED_MAX_NODES = 8                   # 4n: phase 4's point sets of at most 8 nodes
+# 4q: phase 4's REFINE_SETS smallest point sets of at least 12 nodes: a fused
+# check needs more than 10 typed nodes at check_frac 0.1, and a tree not yet
+# finished. Its denoise weights come from seed 1, not 0: seed 0's random
+# model types most nodes as rings of up to 16 atoms, and on these sets its
+# gated search ends before any tree holds 11 typed nodes; seed 1's types
+# are mostly single atoms, so the search reaches the hook's checks (PERF.md)
+REFINE_MIN_NODES, REFINE_SETS, REFINE_DENOISE_SEED = 12, 6, 1
+GEN_MAX_NODES, GEN_NUM = 3, 16        # 4o
+PHASE_CAP_S = 240.0                   # the wall of one run of 4n, 4o or 4q
 HARNESS = "fake-RDKit harness"
 # the keys of the JAX package's panel (hierdiff_tpu/eval/cli.py evaluate, with --ref)
 PANEL_KEYS = {"n_molecules", "filter_pass_rate", "mw_mean", "logp_mean", "rot_bonds_mean",
@@ -1222,23 +1251,103 @@ class HarnessLines:
         self.out.flush()
 
 
+class CapReached(Exception):
+    """One verdict sanitized VERDICT_CAP candidates."""
+
+
+@contextlib.contextmanager
+def harness_cap(refused: list):
+    """While open, a ``can_assemble`` verdict that sanitizes more than
+    VERDICT_CAP candidates is refused and its (fragment, neighbours) query
+    appended to ``refused``. Gates built while it is open bind the capped
+    verdict; other chemistry (reconstruction) is not bounded."""
+    from hierdiff_torch.chem import chemutils
+
+    real_can, real_sanitize = chemutils.can_assemble, chemutils.sanitize
+    count = [None]    # candidates of the open verdict; None outside a verdict
+
+    def sanitize(mol):
+        if count[0] is not None:
+            count[0] += 1
+            if count[0] > VERDICT_CAP:
+                raise CapReached()
+        return real_sanitize(mol)
+
+    def can_assemble(node, node_y=None):
+        count[0] = 0
+        try:
+            return real_can(node, node_y)
+        except CapReached:
+            refused.append((node.smiles, tuple(n.smiles for n in node.neighbors)))
+            return False
+        finally:
+            count[0] = None
+
+    chemutils.can_assemble, chemutils.sanitize = can_assemble, sanitize
+    try:
+        yield
+    finally:
+        chemutils.can_assemble, chemutils.sanitize = real_can, real_sanitize
+
+
+class OverCap(BaseException):
+    """A run reached its wall cap. A BaseException, so that no ``except
+    Exception`` on the way (the harness's sanitization has one) takes it."""
+
+
+@contextlib.contextmanager
+def wall_cap(seconds: float, what: str):
+    """Fail the smoke if the block runs longer than ``seconds`` of wall."""
+    def alarm(signum, frame):
+        raise OverCap()
+
+    old = signal.signal(signal.SIGALRM, alarm)
+    signal.setitimer(signal.ITIMER_REAL, seconds)
+    try:
+        yield
+    except OverCap:
+        fail(f"{what} ({HARNESS}) ran over its {seconds:.0f} s cap")
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, old)
+
+
 def canonical(molecules) -> list:
     from rdkit import Chem
 
     return [Chem.MolToSmiles(m[2]) for m in molecules]
 
 
+def type_atoms(lattices, beam: int = 5) -> float:
+    """Mean heavy atoms of the fragments a lattice offers the search (its
+    top ``beam`` types at every step)."""
+    from hierdiff_torch.data.assets import vocab_mol_sizes
+
+    wids = np.concatenate([lat.top_wid[:, :beam].ravel() for lat in lattices.values()])
+    return float(np.asarray(vocab_mol_sizes())[wids].mean())
+
+
+def nodes_refused(trees) -> list:
+    """(tree, node) pairs of the returned trees that an uncapped gate, the
+    reference's verdicts, refuses."""
+    from hierdiff_torch.chem.assemble_gate import make_assembly_gate
+    from hierdiff_torch.chem.mol_tree import Vocab
+
+    gate = make_assembly_gate(Vocab())
+    return [(i, j) for i, t in enumerate(trees) if t is not None
+            for j in range(t.n) if not gate(t, j)]
+
+
 def gated_assemble_phase(cli, coarse_pkl: bytes, ungated_rate: float) -> dict:
     """Phase 4n: ``sampling.cli assemble`` with the assembly gate (refine
     off) on phase 4's point sets of at most GATED_MAX_NODES nodes, and the
     same without the gate beside it. Every returned tree a spanning tree
-    whose every node passes the gate; the gate fired."""
+    whose every node passes the uncapped gate; the gate fired."""
     from hierdiff_torch.chem import has_rdkit
-    from hierdiff_torch.sampling.beam import TreeState
 
     blur = [b for b in cli._flatten_blur_pkl(pickle.loads(coarse_pkl))
             if b["h"].shape[0] <= GATED_MAX_NODES]
-    runs = {}
+    runs, refused = {}, []
     with tempfile.TemporaryDirectory() as tmp:
         src = Path(tmp) / "coarse.pkl"
         with open(src, "wb") as f:
@@ -1247,40 +1356,113 @@ def gated_assemble_phase(cli, coarse_pkl: bytes, ungated_rate: float) -> dict:
             if gated != has_rdkit():
                 fail(f"4n: the harness is {'missing' if gated else 'installed'}")
             out = Path(tmp) / f"trees_{gated}.pkl"
-            run = cli.main(["assemble", "--coarse-pkl", str(src), "--denoise-init-seed", "0",
-                            "--gate-budget", str(GATE_BUDGET), "--out", str(out)])
+            with harness_cap(refused), wall_cap(PHASE_CAP_S, "4n"):
+                run = cli.main(["assemble", "--coarse-pkl", str(src), "--denoise-init-seed",
+                                "0", "--out", str(out)])
             with open(out, "rb") as f:
                 run["pickled"] = pickle.load(f)["trees"]
             runs[gated] = run
             if not gated:
                 install_harness()
     run = runs[True]
-    gate = run["gate"]
     sizes = [b["h"].shape[0] for b in blur]
     kept = [(d, n) for d, n in zip(run["pickled"], sizes) if d is not None]
     faults = spanning_tree_faults([d for d, _ in kept], [n for _, n in kept])
-    info = gate.cache_info()           # the search's own queries, before the check below
-    refused = [(i, j) for i, t in enumerate(run["trees"]) if t is not None
-               for j in range(t.n) if not gate(t, j)]
+    info = run["gate"].cache_info()
+    refused_nodes = nodes_refused(run["trees"])
     rate = {g: len(blur) / (r["lattice_s"] + r["search_s"]) for g, r in runs.items()}
-    out = {"molecules": len(blur), "max_nodes": GATED_MAX_NODES, "gate_budget": GATE_BUDGET,
+    atoms = type_atoms(run["lattices"])
+    out = {"molecules": len(blur), "max_nodes": GATED_MAX_NODES, "verdict_cap": VERDICT_CAP,
+           "type_atoms": atoms,
            "trees": len(kept), "trees_ungated": sum(t is not None for t in runs[False]["trees"]),
            "trees_per_s": rate[True], "trees_per_s_ungated": rate[False],
            "trees_per_s_4e": ungated_rate, "lattice_s": run["lattice_s"],
            "search_s": run["search_s"], "search_s_ungated": runs[False]["search_s"],
            "gate_hits": info.hits, "gate_misses": info.misses,
            "gate_hit_rate": info.hits / max(info.hits + info.misses, 1),
-           "gate_over_budget": len(gate.over_budget), "faults": faults,
-           "nodes_refused": refused[:5]}
+           "refused_at_cap": len(refused), "faults": faults,
+           "nodes_refused": refused_nodes[:5]}
     print(f"gated assemble ({HARNESS}): GEOM denoise, phase 4's {len(blur)} point sets of at "
-          f"most {GATED_MAX_NODES} nodes, gate budget {GATE_BUDGET}: {len(kept)}/{len(blur)} "
-          f"trees, {rate[True]:.3f} trees/s (search {run['search_s']:.3f} s) against "
-          f"{rate[False]:.3f} trees/s ungated on the same sets (search "
-          f"{runs[False]['search_s']:.3f} s) and {ungated_rate:.3f} in 4e; gate {info.hits} "
-          f"hits, {info.misses} misses ({out['gate_hit_rate']:.3f} hit rate), "
-          f"{len(gate.over_budget)} over budget; faults {faults}; nodes refused {refused[:5]}")
-    if faults or refused or info.misses == 0:
+          f"most {GATED_MAX_NODES} nodes (the lattice's top types {atoms:.2f} heavy atoms on "
+          f"average): {len(kept)}/{len(blur)} trees, {rate[True]:.3f} trees/s (search "
+          f"{run['search_s']:.3f} s) against {rate[False]:.3f} trees/s ungated "
+          f"on the same sets (search {runs[False]['search_s']:.3f} s) and {ungated_rate:.3f} "
+          f"in 4e; gate {info.hits} hits, {info.misses} misses ({out['gate_hit_rate']:.3f} "
+          f"hit rate), {len(refused)} refused at the harness's cap of {VERDICT_CAP} "
+          f"candidates; faults {faults}; nodes the uncapped gate refuses {refused_nodes[:5]}")
+    if faults or refused_nodes or info.misses == 0:
         fail(f"4n ({HARNESS}): gated trees invalid, a node refused, or the gate never fired")
+    return out
+
+
+def gated_refine_phase(cli, coarse_pkl: bytes) -> dict:
+    """Phase 4q: ``sampling.cli assemble --denoise-init-seed
+    REFINE_DENOISE_SEED --refine-init-seed 0`` with the assembly gate on
+    phase 4's REFINE_SETS smallest point sets of at least REFINE_MIN_NODES
+    nodes. The hook's fused checks ran, a swap passed the gate and was
+    committed (counted around the hook), every returned tree is a spanning
+    tree whose every node passes the uncapped gate."""
+    from hierdiff_torch.sampling.refine_hook import RefineHook
+
+    blur = cli._flatten_blur_pkl(pickle.loads(coarse_pkl))
+    order = sorted((i for i, b in enumerate(blur) if b["h"].shape[0] >= REFINE_MIN_NODES),
+                   key=lambda i: (blur[i]["h"].shape[0], i))[:REFINE_SETS]
+    blur = [blur[i] for i in order]
+    swaps, refused = [0], []
+    real_collect = RefineHook.collect_batch
+
+    def collect(self, token, states):
+        res = real_collect(self, token, states)
+        swaps[0] += sum(changed for _, _, changed in res)
+        return res
+
+    RefineHook.collect_batch = collect
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            src, out = Path(tmp) / "coarse.pkl", Path(tmp) / "trees.pkl"
+            with open(src, "wb") as f:
+                pickle.dump([blur], f)
+            with harness_cap(refused), wall_cap(PHASE_CAP_S, "4q"):
+                run = cli.main(["assemble", "--coarse-pkl", str(src), "--denoise-init-seed",
+                                str(REFINE_DENOISE_SEED), "--refine-init-seed", "0",
+                                "--out", str(out)])
+            with open(out, "rb") as f:
+                pickled = pickle.load(f)["trees"]
+    finally:
+        RefineHook.collect_batch = real_collect
+    hook = run["sampler"].refine_hook
+    st = dict(hook.stats)
+    sizes = [b["h"].shape[0] for b in blur]
+    kept = [(d, n) for d, n in zip(pickled, sizes) if d is not None]
+    faults = spanning_tree_faults([d for d, _ in kept], [n for _, n in kept])
+    info = run["gate"].cache_info()
+    refused_nodes = nodes_refused(run["trees"])
+    seconds = run["lattice_s"] + run["search_s"]
+    atoms = type_atoms(run["lattices"])
+    out = {"molecules": len(blur), "point_sets": order, "nodes": sizes,
+           "denoise_seed": REFINE_DENOISE_SEED, "type_atoms": atoms,
+           "verdict_cap": VERDICT_CAP, "trees": len(kept), "trees_per_s": len(blur) / seconds,
+           "lattice_s": run["lattice_s"], "search_s": run["search_s"],
+           "fused_checks": st["score_calls"], "swaps_committed": swaps[0],
+           "gate_hits": info.hits, "gate_misses": info.misses,
+           "gate_hit_rate": info.hits / max(info.hits + info.misses, 1),
+           "refused_at_cap": len(refused), "refine": st, "faults": faults,
+           "nodes_refused": refused_nodes[:5]}
+    print(f"gated assemble, refine on ({HARNESS}): GEOM denoise (seed "
+          f"{REFINE_DENOISE_SEED}) and refine, phase 4's {len(blur)} smallest point sets of at "
+          f"least {REFINE_MIN_NODES} nodes ({sizes} nodes; the lattice's top types {atoms:.2f} "
+          f"heavy atoms on average): {len(kept)}/{len(blur)} trees, {out['trees_per_s']:.3f} "
+          f"trees/s (lattices {run['lattice_s']:.3f} s, search {run['search_s']:.3f} s); "
+          f"{st['score_calls']} "
+          f"fused checks (dispatch {st['dispatch_s']:.3f} s, collect {st['collect_s']:.3f} s, "
+          f"walk {st['walk_s']:.3f} s), {swaps[0]} swaps passed the gate and were committed; "
+          f"gate {info.hits} hits, {info.misses} misses ({out['gate_hit_rate']:.3f} hit rate), "
+          f"{len(refused)} refused at the harness's cap; faults {faults}; nodes the uncapped "
+          f"gate refuses {refused_nodes[:5]}")
+    if st["score_calls"] == 0 or swaps[0] == 0:
+        fail(f"4q ({HARNESS}): no gated fused check ran, or no swap passed the gate")
+    if faults or refused_nodes:
+        fail(f"4q ({HARNESS}): gated refine-on trees invalid, or a node refused")
     return out
 
 
@@ -1290,10 +1472,11 @@ def gated_generate_phase(cli, ek) -> dict:
     coarse steps, with 0 and then 2 reconstruction workers: the coarse
     launches exact; every tree that was assembled reconstructed (its output
     counted as an attempt unless 'max9'); the same molecules and stats from
-    both worker counts; molecules and stats in the pickle."""
+    both worker counts; molecules and stats in the pickle; every node of
+    every tree passes the uncapped gate."""
     from hierdiff_torch.chem import reconstruct as rec_mod
 
-    steps, runs = 100, {}
+    steps, runs, refused = 100, {}, {0: [], 2: []}
     with tempfile.TemporaryDirectory() as tmp:
         for workers in (0, 2):
             out = Path(tmp) / f"generated_{workers}.pkl"
@@ -1307,11 +1490,12 @@ def gated_generate_phase(cli, ek) -> dict:
             rec_mod.summarize_outputs = spy
             ek.reset_launch_counts()
             try:
-                run = cli.main(["generate", "--init-seed", "0", "--denoise-init-seed", "0",
-                                "--refine-init-seed", "0", "--num", str(GEN_NUM),
-                                "--sample-steps", str(steps), "--max-nodes", str(GEN_MAX_NODES),
-                                "--gate-budget", str(GATE_BUDGET), "--workers", str(workers),
-                                "--seed", str(SEED), "--out", str(out)])
+                with harness_cap(refused[workers]), wall_cap(PHASE_CAP_S, "4o"):
+                    run = cli.main(["generate", "--init-seed", "0", "--denoise-init-seed", "0",
+                                    "--refine-init-seed", "0", "--num", str(GEN_NUM),
+                                    "--sample-steps", str(steps), "--max-nodes",
+                                    str(GEN_MAX_NODES), "--workers", str(workers),
+                                    "--seed", str(SEED), "--out", str(out)])
             finally:
                 rec_mod.summarize_outputs = summarize
             torch.cuda.synchronize()
@@ -1340,7 +1524,8 @@ def gated_generate_phase(cli, ek) -> dict:
     payload = runs[0]["payload"]
     gate, hook = pipe.sampler.can_assemble, pipe.sampler.refine_hook
     info = gate.cache_info()
-    out = {"molecules": GEN_NUM, "max_nodes": GEN_MAX_NODES, "gate_budget": GATE_BUDGET,
+    refused_nodes = nodes_refused(result.trees)
+    out = {"molecules": GEN_NUM, "max_nodes": GEN_MAX_NODES, "verdict_cap": VERDICT_CAP,
            "seconds": runs[0]["seconds"], "seconds_workers_2": runs[2]["seconds"],
            "trees": len(done), "reconstructed": len(result.molecules), "max9": max9,
            "attempted": attempted, **{k: st[k] for k in ("t_coarse", "t_fine", "t_reconstruct",
@@ -1349,23 +1534,27 @@ def gated_generate_phase(cli, ek) -> dict:
            "reconstruct_share": st["t_reconstruct"] / runs[0]["seconds"],
            "gate_hits": info.hits, "gate_misses": info.misses,
            "gate_hit_rate": info.hits / max(info.hits + info.misses, 1),
-           "gate_over_budget": len(gate.over_budget), "refine": dict(hook.stats),
+           "refused_at_cap": len(refused[0]), "nodes_refused": refused_nodes[:5],
+           "refine": dict(hook.stats),
            "coarse_chunks": n_chunks, "launches": runs[0]["launches"],
            "launches_workers_2": runs[2]["launches"], "same_across_workers": same}
     print(f"gated generate ({HARNESS}): {GEN_NUM} molecules of at most {GEN_MAX_NODES} "
-          f"fragments, {steps} coarse steps, refine on, gate budget {GATE_BUDGET}: "
+          f"fragments, {steps} coarse steps, refine on: "
           f"{runs[0]['seconds']:.3f} s (workers 0; workers 2: {runs[2]['seconds']:.3f} s), "
           f"t_coarse {st['t_coarse']:.3f} s, t_fine {st['t_fine']:.3f} s, t_reconstruct "
           f"{st['t_reconstruct']:.3f} s ({out['reconstruct_share']:.3f} of the wall; workers 2: "
           f"{out['t_reconstruct_workers_2']:.3f} s); {len(done)} trees, {attempted} attempted, "
           f"{max9} max9, {len(result.molecules)} molecules; valid {st['valid']:.4f}, unique "
           f"{st['unique']:.4f}, avg_atoms {st['avg_atoms']:.4f}; gate {info.hits} hits, "
-          f"{info.misses} misses ({out['gate_hit_rate']:.3f}), {len(gate.over_budget)} over "
-          f"budget; refine {hook.stats['score_calls']} fused checks; launches "
+          f"{info.misses} misses ({out['gate_hit_rate']:.3f}), {len(refused[0])} refused at "
+          f"the harness's cap; nodes the uncapped gate refuses {refused_nodes[:5]}; refine "
+          f"{hook.stats['score_calls']} fused checks; launches "
           f"{runs[0]['launches']} (expected {expect}); workers 0 and 2 equal: {same}")
     if runs[0]["launches"] != expect or runs[2]["launches"] != expect:
         fail(f"4o ({HARNESS}): kernel launch counts {runs[0]['launches']}, "
              f"{runs[2]['launches']} != {expect}")
+    if refused_nodes:
+        fail(f"4o ({HARNESS}): the uncapped gate refuses nodes of the trees: {refused_nodes}")
     if len(outputs) != len(done) or not same:
         fail(f"4o ({HARNESS}): {len(outputs)} reconstructions of {len(done)} trees, or the "
              f"worker counts disagree")
@@ -1425,6 +1614,7 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA GPU")
+    from hierdiff_torch.chem import has_rdkit
     from hierdiff_torch.config import CoarseModelConfig
     from hierdiff_torch.ops import _build, egnn_kernels as ek
     from hierdiff_torch.ops.egnn import DenseEGNN, DenseEquivariantUpdate, DenseGCL
@@ -1446,6 +1636,11 @@ def main() -> None:
     print(card)
     print(f"device: {torch.cuda.get_device_name(0)} | torch {torch.__version__} | "
           f"cuda {torch.version.cuda} | {n_sms} SMs, max SM clock {sm_clock_hz / 1e6:.0f} MHz")
+    if has_rdkit():
+        fail("an rdkit module is installed: this run assumes none, so that phases 4e-4m run "
+             "ungated and 4n-4q put the fake-RDKit harness in its place")
+    print("RDKit: absent, as this run assumes (4e-4m ungated; 4n-4q under the fake-RDKit "
+          "harness)")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(2) as pool:   # nvcc processes all start together
         clocked = pool.submit(_build.build_all, ("fused_gcl_bwd",), True)
@@ -1949,13 +2144,14 @@ def main() -> None:
         trained_assemble = trained_assemble_phase(
             cli, coarse_pkl, {stage: Path(fine_tmp) / stage / "ema.pt" for stage in fine_train})
 
-    # ---- 4n-4p. the assembly gate, reconstruction and evaluation (fake-RDKit harness)
+    # ---- 4n-4q. the assembly gate, reconstruction and evaluation (fake-RDKit harness)
     tagged = HarnessLines(sys.stdout)
     try:
         with contextlib.redirect_stdout(tagged):
             gated = gated_assemble_phase(cli, coarse_pkl, assembled["trees_per_s"])
             generated_gated = gated_generate_phase(cli, ek)
             reconstructed = reconstruct_eval_phase(cli, generated_gated)
+            gated_refine = gated_refine_phase(cli, coarse_pkl)
     finally:
         tagged.flush()
 
@@ -1996,7 +2192,8 @@ def main() -> None:
         "generate_refine": generated_refine, "train_denoise": fine_train["denoise"],
         "train_refine": fine_train["refine"], "fine_step_gradients": fine_grads,
         "planted": planted, "assemble_trained": trained_assemble, "assemble_gated": gated,
-        "generate_gated": generated_gated["stats"], "reconstruct_eval": reconstructed}))
+        "generate_gated": generated_gated["stats"], "reconstruct_eval": reconstructed,
+        "assemble_gated_refine": gated_refine}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
