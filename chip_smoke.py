@@ -9,7 +9,8 @@ Phases, one output line each, any failure exits non-zero:
      it, the phase-clock build of fused_gcl_bwd, which counts the edges its
      edge kernel computes) and its time, and the number of HGMMA (wgmma)
      instructions in each built library (``cuobjdump --dump-sass``), none
-     of which may be 0;
+     of which may be 0; the run fails if the treekit library (the native
+     searches and packers, ``hierdiff_torch/runtime``) does not build;
   2. each kernel against its plain PyTorch version at the kernel shape
      (B=64, N=32, H=256, E=2, ragged node counts), on what the layer adds
      to its input (out - h for fused_gcl, out - x for fused_coord_update):
@@ -86,19 +87,28 @@ Phases, one output line each, any failure exits non-zero:
      largest |top_logp|; the CPU's f32 lattice against its f64 one is
      printed beside it, the scale of f32 rounding at these magnitudes), the
      dynamic-depth lattice bitwise equal to the static one, two card runs
-     bitwise equal. The lattice's wall and device
-     ms per chunk, by bucket (device: torch.profiler), the host search's
-     seconds and trees/s;
+     bitwise equal. The CLI's native search against the Python search
+     (``native_search=False``) on the card's lattices from the same seed:
+     bitwise equal trees and tiebreak streams, both times printed. The
+     lattice's wall and device ms per chunk, by bucket (device:
+     torch.profiler), the host search's seconds and trees/s;
   4f. ``sampling.cli generate --init-seed 0 --denoise-init-seed 0``: 64
      molecules, 100 coarse steps, beam 5: a spanning tree for every molecule,
      the coarse kernels' launches exactly 12 fused_gcl and 6
      fused_coord_update per model call (100 reverse steps and the final one)
-     per coarse chunk; molecules/s, t_coarse and t_fine;
+     per coarse chunk; molecules/s, t_coarse and t_fine; overlapped (the
+     default: coarse chunks stream into the fine stage), then with
+     ``--no-overlap``: the point sets and the trees bitwise equal (every
+     bucket arrives in one coarse chunk), launches exact in both;
   4g. the refine stage: ``sampling.cli assemble --denoise-init-seed 0
      --refine-init-seed 0`` at the GEOM refine width (H=256, 2 layers per
      phase, 780 types, max_size 26) on phase 4's 128 point sets, beam 5: a
-     spanning tree for every molecule, at least one fused check and one
-     committed swap (counted around the hook). On the first checked fleet of
+     spanning tree for every molecule, through the native refine-on search
+     (its group rounds, fleet rows and lanes counted); the pipelined Python
+     search on the same lattices gives the same trees bit for bit, runs at
+     least one fused check and commits at least one swap (counted around
+     its hook); native and Python search, dispatch, collect and walk
+     seconds. On the Python search's first checked fleet of
      the two fullest buckets: the card's fused check against the CPU's
      under ``tools/refine_check.py`` (total and new_total within 1e-3 of the
      fleet's largest |total|; a differing node, type or valid slot only
@@ -107,13 +117,21 @@ Phases, one output line each, any failure exits non-zero:
      beside it), the dynamic depth against the static one and a repeat,
      bitwise. Wall, device ms (torch.profiler) and peak memory of one
      fused check per bucket. On the fullest bucket's molecules, card
-     against card, bitwise: the pipelined search against the sequential
-     group searches with the same seeds, a second pipelined run, and merge
-     4 against merge 1 (16 one-molecule groups). trees/s, lattice and
+     against card, bitwise: the pipelined search against the native one,
+     the sequential group searches with the same seeds, a second pipelined
+     run, and merge 4 against merge 1 (16 one-molecule groups). trees/s, lattice and
      search seconds, the hook's dispatch / collect / walk seconds;
-  4h. ``sampling.cli generate`` as 4f with ``--refine-init-seed 0``: a tree
-     per molecule, the coarse launches exact per chunk; molecules/s,
-     t_coarse, t_fine and the hook's counters;
+  4h. ``sampling.cli generate`` as 4f with ``--refine-init-seed 0``, on and
+     off overlap as 4f: a tree per molecule, the native search's counters,
+     the coarse launches exact per chunk, the overlapped run bitwise the
+     serial one; molecules/s, t_coarse, t_fine and the hook's counters;
+  4r. ``sampling.cli assemble --denoise-init-seed 0
+     denoise.vocab_conditioning=true`` (the round-based ``ARSampler``) at
+     GEOM width, beam 5, on phase 4's first 16 point sets of bucket 16: a
+     spanning tree per molecule, every round's fleet from the native packer
+     bitwise the Python packer's, the first two rounds' expansions card
+     against CPU under the margin rule of 4e, two runs bitwise equal, no
+     coarse kernel; model steps, seconds and trees/s;
   4i. ``train.cli denoise --config configs/denoise_geom.yaml --init-seed 0``
      (H=256, 3 + 3 layers, 780 types, batch 32, f32), a synthetic pool of
      512 trees, 20 steps, two evaluations: every batch from the native
@@ -153,7 +171,9 @@ Phases, one output line each, any failure exits non-zero:
   4n. ``sampling.cli assemble --denoise-init-seed 0`` with the assembly
      gate, refine off, on phase 4's point sets of at most 8 nodes, and the
      same sets ungated beside it: every returned tree a spanning tree whose
-     every node passes the uncapped gate, the gate queried; trees/s gated,
+     every node passes the uncapped gate, the gate queried; the Python
+     gated search second on the same lattices (its verdicts from the gate's
+     cache) bitwise the native one; trees/s gated,
      ungated and 4e's, the gate's hits, misses, hit rate and refusals at
      the cap;
   4o. ``sampling.cli generate --num 16 --sample-steps 100 --max-nodes 3
@@ -162,7 +182,11 @@ Phases, one output line each, any failure exits non-zero:
      trees - max9, valid = molecules / attempts), the same molecules and
      stats from both worker counts, molecules and stats in the pickle, every
      node passes the uncapped gate; t_coarse, t_fine, t_reconstruct and its
-     share of the wall, valid, unique, avg_atoms, the gate's counters;
+     share of the wall, valid, unique, avg_atoms, the gate's counters; then
+     ``--chunk-size 8 --workers 2`` (``run_streamed``: each chunk
+     reconstructed by the pool while the next samples): 16 trees, the
+     molecules, the panel's stats and t_device, the coarse launches exact
+     per macro-chunk;
   4p. ``sampling.cli reconstruct`` on 4o's pickle (2 workers) gives 4o's
      molecules and stats; ``eval.cli`` on them writes every key of the JAX
      panel; the six test molecules of ``hierdiff_torch/tools/chem_check.py``
@@ -172,14 +196,17 @@ Phases, one output line each, any failure exits non-zero:
      with the gate on phase 4's 6 smallest point sets of at least 12 nodes
      (a fused check needs an unfinished tree of more than 10 typed nodes;
      seed 0's random types, rings of up to 16 atoms, end every such gated
-     search before that, seed 1's are mostly single atoms): the hook's
-     fused checks
-     ran and a swap passed the gate and was committed (counted around the
-     hook), every returned tree a spanning tree whose every node passes the
-     uncapped gate; trees/s, checks, swaps and the gate's counters;
-  5. the kernel list as JSON (``launches_by_path`` counts every path above,
-     the two fine-stage training paths and both gated generate runs
-     included), then the result JSON as the last line.
+     search before that, seed 1's are mostly single atoms), through the
+     native search: the hook's fused checks ran; the pipelined Python
+     search second on the same lattices (verdicts from the cache), its
+     trees repaired by ``finalize``, bitwise the CLI's, and in it a swap
+     passed the gate and was committed (counted around its hook); every
+     returned tree a spanning tree whose every node passes the uncapped
+     gate; trees/s, checks, swaps and the gate's counters;
+  5. the kernel list as JSON (``launches_by_path`` counts every path above:
+     the two fine-stage training paths, both gated generate runs, the
+     serial generate runs, run_streamed and the ARSampler included), then
+     the result JSON as the last line.
 """
 
 from __future__ import annotations
@@ -193,6 +220,7 @@ import ctypes
 import json
 import math
 import pickle
+import random
 import shutil
 import signal
 import subprocess
@@ -488,7 +516,7 @@ def assemble_phase(cli, coarse_pkl: bytes, device) -> dict:
 
     from hierdiff_torch.config import EdgeDenoiseConfig
     from hierdiff_torch.data.collate import bucket_for
-    from hierdiff_torch.sampling.lattice import _next_pow2, pad_blur, pow2_chunks
+    from hierdiff_torch.sampling.lattice import LatticeSampler, _next_pow2, pad_blur, pow2_chunks
     from hierdiff_torch.tools.lattice_check import compare_lattices
     from hierdiff_torch.utils.weights import init_weights
 
@@ -508,6 +536,27 @@ def assemble_phase(cli, coarse_pkl: bytes, device) -> dict:
           f"{run['search_s']:.3f} s, {len(blur) / seconds:.3f} trees/s; faults {faults}")
     if faults:
         fail(f"assemble gave trees that are missing or invalid: {faults}")
+
+    # the CLI's native search against the Python one on the same card
+    # lattices, each from a tiebreak stream seeded as the CLI's (2022)
+    search_s, streams, found = {}, {}, {}
+    for native in (True, False):
+        rng = random.Random(2022)
+        s_ = LatticeSampler(sampler.model, beam_size=sampler.beam_size, buckets=sampler.buckets,
+                            rng=rng, native_search=native)
+        t0 = time.perf_counter()
+        found[native] = s_._search(blur, run["lattices"])
+        search_s[native] = time.perf_counter() - t0
+        streams[native] = rng.getstate()
+    native_check = {"cli_search_s": run["search_s"], "native_s": search_s[True],
+                    "python_s": search_s[False],
+                    "bitwise": same_trees(found[True], found[False])
+                    and same_trees(found[True], run["trees"]),
+                    "same_stream_after": streams[True] == streams[False]}
+    print(f"assemble search, native against Python on the card's lattices: "
+          f"{json.dumps(native_check)}")
+    if not (native_check["bitwise"] and native_check["same_stream_after"]):
+        fail(f"the native search differs from the Python search: {native_check}")
 
     by_bucket = {}
     for i, n in enumerate(sizes):
@@ -573,19 +622,25 @@ def assemble_phase(cli, coarse_pkl: bytes, device) -> dict:
         if not (report["ok"] and check["bitwise_repeat"] and check["bitwise_static_depth"]):
             fail(f"the card's lattice disagrees with the CPU's or is not repeatable: {check}")
     return {"molecules": len(blur), "lattice_s": run["lattice_s"], "search_s": run["search_s"],
-            "trees_per_s": len(blur) / seconds, "chunks": chunks, "card_against_cpu": checks}
+            "trees_per_s": len(blur) / seconds, "chunks": chunks, "card_against_cpu": checks,
+            "native_against_python": native_check}
 
 
-def generate_phase(cli, ek, num: int = 64, steps: int = 100, refine: bool = False):
+def generate_phase(cli, ek, num: int = 64, steps: int = 100, refine: bool = False,
+                   overlap: bool = True):
     """Phase 4f (4h with ``refine``: the refine model's checks in the
-    search): ``sampling.cli generate`` from the GEOM histogram to trees; the
-    coarse kernels' launches must be exact for the chunk plan."""
-    name = "generate, refine on" if refine else "generate"
+    search): ``sampling.cli generate`` from the GEOM histogram to trees,
+    overlapped (the default) or with ``--no-overlap``; the coarse kernels'
+    launches must be exact for the chunk plan. Returns (stats, launches,
+    the pipeline's result, the pipeline)."""
+    name = ("generate, refine on" if refine else "generate") + (
+        "" if overlap else ", overlap off")
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "generated.pkl"
         ek.reset_launch_counts()
         run = cli.main(["generate", "--init-seed", "0", "--denoise-init-seed", "0",
                         *(["--refine-init-seed", "0"] if refine else []),
+                        "--overlap" if overlap else "--no-overlap",
                         "--num", str(num), "--sample-steps", str(steps), "--beam", "5",
                         "--seed", str(SEED), "--out", str(out)])
         torch.cuda.synchronize()
@@ -600,7 +655,7 @@ def generate_phase(cli, ek, num: int = 64, steps: int = 100, refine: bool = Fals
               "fused_gcl_bwd": 0, "coord_update_autograd": 0}
     faults = spanning_tree_faults(trees, sizes)
     hook = pipe.sampler.refine_hook
-    stats = {"molecules": num, "seconds": run["seconds"],
+    stats = {"molecules": num, "overlap": overlap, "seconds": run["seconds"],
              "molecules_per_s": num / run["seconds"], **result.stats,
              "coarse_chunks": n_chunks, "launches": launches, "faults": faults,
              "refine": None if hook is None else dict(hook.stats)}
@@ -612,7 +667,27 @@ def generate_phase(cli, ek, num: int = 64, steps: int = 100, refine: bool = Fals
         fail(f"{name}: kernel launch counts {launches} != {expect}")
     if faults:
         fail(f"{name} gave trees that are missing or invalid: {faults}")
-    return stats, launches
+    if refine and not (hook.stats["rounds"] > 0 and hook.stats["lanes"] > 0):
+        fail(f"{name}: the native refine search did not run: {hook.stats}")
+    return stats, launches, result, pipe
+
+
+def overlap_check(name: str, on, off, pipe) -> dict:
+    """4f / 4h: the overlapped run against the serial one. The point sets
+    bitwise (one chunk plan, one seed per chunk). The trees bitwise: every
+    bucket's molecules arrive in one coarse chunk at these sizes (64
+    molecules, chunks of up to 64 per bucket), so the streamed lattices run
+    at the serial batch shapes; the check fails if that does not hold."""
+    sizes = np.asarray([b["h"].shape[0] for b in on.blur])
+    plan = pipe._plan_chunks(sizes)
+    whole = len({nb for nb, _ in plan}) == len(plan)
+    res = {"same_blur": all(np.array_equal(a["x"], b["x"]) and np.array_equal(a["h"], b["h"])
+                            for a, b in zip(on.blur, off.blur)),
+           "every_bucket_whole": whole, "same_trees": same_trees(on.trees, off.trees)}
+    print(f"{name}, overlap on against off: {json.dumps(res)}")
+    if not (res["same_blur"] and whole and res["same_trees"]):
+        fail(f"{name}: the overlapped run differs from the serial one: {res}")
+    return res
 
 
 def same_trees(a, b) -> bool:
@@ -625,15 +700,16 @@ def same_trees(a, b) -> bool:
 
 def refine_assemble_phase(cli, coarse_pkl: bytes, device) -> dict:
     """Phase 4g: ``sampling.cli assemble`` with the refine model at GEOM
-    width on phase 4's point sets. Trees, at least one fused check and one
-    committed swap; on the first checked fleets of the two fullest buckets
-    the card's fused check against the CPU's (``tools/refine_check.py``),
-    the dynamic against the static depth and a repeat, bitwise; device ms
-    and peak memory of a fused check by bucket; on one bucket's molecules
-    the pipelined search against the sequential group searches, a second
-    pipelined run, and merge 4 against merge 1, bitwise."""
-    import random
-
+    width on phase 4's point sets, through the native refine-on search:
+    trees, fused checks and the native counters. The pipelined Python
+    search on the same lattices must give the same trees bit for bit, and
+    commit at least one swap (counted around its hook). On the Python
+    search's first checked fleets of the two fullest buckets the card's
+    fused check against the CPU's (``tools/refine_check.py``), the dynamic
+    against the static depth and a repeat, bitwise; device ms and peak
+    memory of a fused check by bucket; on one bucket's molecules the
+    pipelined search against the native one, the sequential group searches,
+    a second pipelined run, and merge 4 against merge 1, bitwise."""
     from torch.profiler import ProfilerActivity, profile
 
     from hierdiff_torch.config import RefineConfig
@@ -644,49 +720,65 @@ def refine_assemble_phase(cli, coarse_pkl: bytes, device) -> dict:
     from hierdiff_torch.tools.refine_check import compare_fused
     from hierdiff_torch.utils.weights import init_weights
 
-    # counted around the hook, not inside it: the first checked fleet of
-    # each bucket, and the swaps the walk commits
-    seen = {"fleets": {}, "swaps": 0}
-    real_dispatch, real_collect = RefineHook.dispatch_batch, RefineHook.collect_batch
-
-    def dispatch(self, states):
-        act = [s for s in states if np.sum(s.wids >= 0) * self.check_frac > 1]
-        if act:
-            nb = bucket_for(max(s.n for s in act), self.buckets)
-            seen["fleets"].setdefault(nb, [s.clone() for s in act])
-        return real_dispatch(self, states)
-
-    def collect(self, token, states):
-        out = real_collect(self, token, states)
-        seen["swaps"] += sum(changed for _, _, changed in out)
-        return out
-
-    RefineHook.dispatch_batch, RefineHook.collect_batch = dispatch, collect
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            src, out = Path(tmp) / "coarse.pkl", Path(tmp) / "trees.pkl"
-            src.write_bytes(coarse_pkl)
-            run = cli.main(["assemble", "--coarse-pkl", str(src), "--denoise-init-seed", "0",
-                            "--refine-init-seed", "0", "--out", str(out)])
-            with open(out, "rb") as f:
-                trees = pickle.load(f)["trees"]
-    finally:
-        RefineHook.dispatch_batch, RefineHook.collect_batch = real_dispatch, real_collect
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = Path(tmp) / "coarse.pkl", Path(tmp) / "trees.pkl"
+        src.write_bytes(coarse_pkl)
+        run = cli.main(["assemble", "--coarse-pkl", str(src), "--denoise-init-seed", "0",
+                        "--refine-init-seed", "0", "--out", str(out)])
+        with open(out, "rb") as f:
+            trees = pickle.load(f)["trees"]
     blur, sampler, lattices = run["blur"], run["sampler"], run["lattices"]
     hook = sampler.refine_hook
     sizes = [b["h"].shape[0] for b in blur]
     faults = spanning_tree_faults(trees, sizes)
     seconds = run["lattice_s"] + run["search_s"]
     st = dict(hook.stats)
+
+    # the pipelined Python search on the same lattices, counted around its
+    # hook: the first checked fleet of each bucket and the swaps it commits
+    seen = {"fleets": {}, "swaps": 0}
+    py_hook = RefineHook(hook.model, hook.vocab_sizes, buckets=hook.buckets)
+    real_dispatch, real_collect = py_hook.dispatch_batch, py_hook.collect_batch
+
+    def dispatch(states):
+        act = [s for s in states if np.sum(s.wids >= 0) * py_hook.check_frac > 1]
+        if act:
+            nb = bucket_for(max(s.n for s in act), py_hook.buckets)
+            seen["fleets"].setdefault(nb, [s.clone() for s in act])
+        return real_dispatch(states)
+
+    def collect(token, states):
+        res = real_collect(token, states)
+        seen["swaps"] += sum(changed for _, _, changed in res)
+        return res
+
+    py_hook.dispatch_batch, py_hook.collect_batch = dispatch, collect
+    py_sampler = lat.LatticeSampler(sampler.model, beam_size=sampler.beam_size,
+                                    buckets=sampler.buckets, refine_hook=py_hook,
+                                    native_search=False)
+    t0 = time.perf_counter()
+    py_trees = py_sampler._search(blur, lattices)
+    py_search_s = time.perf_counter() - t0
+    pst = dict(py_hook.stats)
+    native_is_python = same_trees(run["trees"], py_trees)
     print(f"assemble, refine on: GEOM refine H={hook.model.hidden_size} x {hook.model.n_layers} "
-          f"layers per phase, {len(blur)} molecules: lattices {run['lattice_s']:.3f} s, search "
-          f"{run['search_s']:.3f} s, {len(blur) / seconds:.3f} trees/s; {st['score_calls']} "
+          f"layers per phase, {len(blur)} molecules: lattices {run['lattice_s']:.3f} s, native "
+          f"search {run['search_s']:.3f} s, {len(blur) / seconds:.3f} trees/s; {st['score_calls']} "
           f"fused checks (dispatch {st['dispatch_s']:.3f} s, collect {st['collect_s']:.3f} s, "
-          f"walk {st['walk_s']:.3f} s), {seen['swaps']} swaps committed; faults {faults}")
+          f"walk {st['walk_s']:.3f} s; {st['rounds']} group rounds, {st['fleet_rows']} fleet "
+          f"rows, {st['lanes']} lanes); the pipelined Python search on the same lattices "
+          f"{py_search_s:.3f} s, {pst['score_calls']} fused checks (dispatch "
+          f"{pst['dispatch_s']:.3f} s, collect {pst['collect_s']:.3f} s, walk "
+          f"{pst['walk_s']:.3f} s), {seen['swaps']} swaps committed; native trees bitwise the "
+          f"Python ones: {native_is_python}; faults {faults}")
     if faults:
         fail(f"refine-on assemble gave trees that are missing or invalid: {faults}")
     if st["score_calls"] < 1 or seen["swaps"] < 1:
         fail("refine-on assemble ran no fused check or committed no swap")
+    if not (st["rounds"] > 0 and st["fleet_rows"] > 0 and st["lanes"] > 0):
+        fail(f"the native refine search did not count its rounds, rows and lanes: {st}")
+    if not native_is_python:
+        fail("the native refine-on search differs from the pipelined Python search")
 
     def fused(h, fleet, nb, sp, margins=False, dtype=torch.float32):
         base = [t.to(dtype) for t in h._pack_states(fleet, nb, sp)]
@@ -757,19 +849,20 @@ def refine_assemble_phase(cli, coarse_pkl: bytes, device) -> dict:
     sub = [blur[i] for i in by_bucket[nb]]
     sub_lat = {j: lattices[i] for j, i in enumerate(by_bucket[nb])}
 
-    def search(cap, merge=1, members=None):
+    def search(cap, merge=1, members=None, native=False):
         h = RefineHook(hook.model, hook.vocab_sizes, buckets=hook.buckets)
         blur_, lat_ = (sub, sub_lat) if members is None else (
             [sub[j] for j in members], {k: sub_lat[j] for k, j in enumerate(members)})
         s_ = lat.LatticeSampler(sampler.model, beam_size=sampler.beam_size,
                                 buckets=sampler.buckets, refine_hook=h,
-                                refine_group_cap=cap, refine_merge=merge)
+                                refine_group_cap=cap, refine_merge=merge, native_search=native)
         t0 = time.perf_counter()
         out_ = s_._search(blur_, lat_)
         return out_, s_, h, time.perf_counter() - t0
 
     pipelined, s_pipe, h_pipe, t_pipe = search(32)
     second = search(32)[0]
+    native, _, h_nat, t_nat = search(32, native=True)
     seed_base = random.Random(2022).getrandbits(64)
     h_seq = RefineHook(hook.model, hook.vocab_sizes, buckets=hook.buckets)
     sequential = [None] * len(sub)
@@ -786,8 +879,10 @@ def refine_assemble_phase(cli, coarse_pkl: bytes, device) -> dict:
     merged = {m: search(1, m, lanes) for m in (1, 4)}
     searches = {"bucket": nb, "molecules": len(sub),
                 "groups": len(s_pipe._refine_groups(sub)),
-                "pipelined_s": t_pipe, "sequential_s": t_seq,
+                "pipelined_s": t_pipe, "sequential_s": t_seq, "native_s": t_nat,
                 "checks_pipelined": h_pipe.stats["score_calls"],
+                "checks_native": h_nat.stats["score_calls"],
+                "native_is_pipelined": same_trees(native, pipelined),
                 "checks_sequential": h_seq.stats["score_calls"],
                 "pipelined_is_sequential": same_trees(pipelined, sequential),
                 "bitwise_second_run": same_trees(pipelined, second),
@@ -797,10 +892,12 @@ def refine_assemble_phase(cli, coarse_pkl: bytes, device) -> dict:
                 "merge4_is_merge1": same_trees(merged[4][0], merged[1][0])}
     print(f"refine-on searches, card against card: {json.dumps(searches)}")
     if not (searches["pipelined_is_sequential"] and searches["bitwise_second_run"]
-            and searches["merge4_is_merge1"]):
+            and searches["merge4_is_merge1"] and searches["native_is_pipelined"]):
         fail(f"refine-on searches are not bitwise equal: {searches}")
     return {"molecules": len(blur), "lattice_s": run["lattice_s"], "search_s": run["search_s"],
             "trees_per_s": len(blur) / seconds, "refine": st, "swaps": seen["swaps"],
+            "python_search_s": py_search_s, "python_refine": pst,
+            "native_is_python": native_is_python,
             "fused_check_by_bucket": per_bucket, "card_against_cpu": checks,
             "searches": searches}
 
@@ -1213,6 +1310,7 @@ GATED_MAX_NODES = 8                   # 4n: phase 4's point sets of at most 8 no
 # are mostly single atoms, so the search reaches the hook's checks (PERF.md)
 REFINE_MIN_NODES, REFINE_SETS, REFINE_DENOISE_SEED = 12, 6, 1
 GEN_MAX_NODES, GEN_NUM = 3, 16        # 4o
+STREAM_CHUNK = 8                      # 4o: run_streamed's macro-chunk
 PHASE_CAP_S = 240.0                   # the wall of one run of 4n, 4o or 4q
 HARNESS = "fake-RDKit harness"
 # the keys of the JAX package's panel (hierdiff_tpu/eval/cli.py evaluate, with --ref)
@@ -1365,10 +1463,24 @@ def gated_assemble_phase(cli, coarse_pkl: bytes, ungated_rate: float) -> dict:
             if not gated:
                 install_harness()
     run = runs[True]
+    # the Python gated search second on the same lattices: its verdicts come
+    # from the cache the native search filled, and its trees must be the
+    # native ones bit for bit
+    from hierdiff_torch.sampling.lattice import LatticeSampler
+
+    sampler = run["sampler"]
+    info = run["gate"].cache_info()      # the native search's queries
+    py = LatticeSampler(sampler.model, beam_size=sampler.beam_size, buckets=sampler.buckets,
+                        can_assemble=run["gate"], native_search=False)
+    with wall_cap(PHASE_CAP_S, "4n, the Python search"):
+        t0 = time.perf_counter()
+        py_trees = py._search(run["blur"], run["lattices"])
+        py_search_s = time.perf_counter() - t0
+    py_check = {"python_search_s": py_search_s, "bitwise": same_trees(py_trees, run["trees"]),
+                "new_misses": run["gate"].cache_info().misses - info.misses}
     sizes = [b["h"].shape[0] for b in blur]
     kept = [(d, n) for d, n in zip(run["pickled"], sizes) if d is not None]
     faults = spanning_tree_faults([d for d, _ in kept], [n for _, n in kept])
-    info = run["gate"].cache_info()
     refused_nodes = nodes_refused(run["trees"])
     rate = {g: len(blur) / (r["lattice_s"] + r["search_s"]) for g, r in runs.items()}
     atoms = type_atoms(run["lattices"])
@@ -1381,7 +1493,9 @@ def gated_assemble_phase(cli, coarse_pkl: bytes, ungated_rate: float) -> dict:
            "gate_hits": info.hits, "gate_misses": info.misses,
            "gate_hit_rate": info.hits / max(info.hits + info.misses, 1),
            "refused_at_cap": len(refused), "faults": faults,
-           "nodes_refused": refused_nodes[:5]}
+           "nodes_refused": refused_nodes[:5], "python_search": py_check}
+    print(f"gated assemble ({HARNESS}): the Python search second on the same lattices: "
+          f"{json.dumps(py_check)}")
     print(f"gated assemble ({HARNESS}): GEOM denoise, phase 4's {len(blur)} point sets of at "
           f"most {GATED_MAX_NODES} nodes (the lattice's top types {atoms:.2f} heavy atoms on "
           f"average): {len(kept)}/{len(blur)} trees, {rate[True]:.3f} trees/s (search "
@@ -1392,6 +1506,8 @@ def gated_assemble_phase(cli, coarse_pkl: bytes, ungated_rate: float) -> dict:
           f"candidates; faults {faults}; nodes the uncapped gate refuses {refused_nodes[:5]}")
     if faults or refused_nodes or info.misses == 0:
         fail(f"4n ({HARNESS}): gated trees invalid, a node refused, or the gate never fired")
+    if not py_check["bitwise"]:
+        fail(f"4n ({HARNESS}): the native gated search differs from the Python one: {py_check}")
     return out
 
 
@@ -1399,43 +1515,59 @@ def gated_refine_phase(cli, coarse_pkl: bytes) -> dict:
     """Phase 4q: ``sampling.cli assemble --denoise-init-seed
     REFINE_DENOISE_SEED --refine-init-seed 0`` with the assembly gate on
     phase 4's REFINE_SETS smallest point sets of at least REFINE_MIN_NODES
-    nodes. The hook's fused checks ran, a swap passed the gate and was
-    committed (counted around the hook), every returned tree is a spanning
-    tree whose every node passes the uncapped gate."""
+    nodes, through the native search. The hook's fused checks ran; the
+    pipelined Python search second on the same lattices gives the same
+    trees bit for bit, and in it a swap passed the gate and was committed
+    (counted around its hook); every returned tree is a spanning tree whose
+    every node passes the uncapped gate."""
+    from hierdiff_torch.sampling import lattice as lat
     from hierdiff_torch.sampling.refine_hook import RefineHook
 
     blur = cli._flatten_blur_pkl(pickle.loads(coarse_pkl))
     order = sorted((i for i, b in enumerate(blur) if b["h"].shape[0] >= REFINE_MIN_NODES),
                    key=lambda i: (blur[i]["h"].shape[0], i))[:REFINE_SETS]
     blur = [blur[i] for i in order]
-    swaps, refused = [0], []
-    real_collect = RefineHook.collect_batch
+    refused = []
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = Path(tmp) / "coarse.pkl", Path(tmp) / "trees.pkl"
+        with open(src, "wb") as f:
+            pickle.dump([blur], f)
+        with harness_cap(refused), wall_cap(PHASE_CAP_S, "4q"):
+            run = cli.main(["assemble", "--coarse-pkl", str(src), "--denoise-init-seed",
+                            str(REFINE_DENOISE_SEED), "--refine-init-seed", "0",
+                            "--out", str(out)])
+        with open(out, "rb") as f:
+            pickled = pickle.load(f)["trees"]
+    sampler, hook = run["sampler"], run["sampler"].refine_hook
+    st = dict(hook.stats)
+    info = run["gate"].cache_info()      # the native search's queries
+    # the pipelined Python search second, on the same lattices and gates
+    # (its verdicts from the cache), its swaps counted around its hook; its
+    # trees, repaired by ``finalize``, must be the CLI's bit for bit
+    swaps = [0]
+    py_hook = RefineHook(hook.model, hook.vocab_sizes, can_assemble=hook.can_assemble,
+                         buckets=hook.buckets)
+    real_collect = py_hook.collect_batch
 
-    def collect(self, token, states):
-        res = real_collect(self, token, states)
+    def collect(token, states):
+        res = real_collect(token, states)
         swaps[0] += sum(changed for _, _, changed in res)
         return res
 
-    RefineHook.collect_batch = collect
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            src, out = Path(tmp) / "coarse.pkl", Path(tmp) / "trees.pkl"
-            with open(src, "wb") as f:
-                pickle.dump([blur], f)
-            with harness_cap(refused), wall_cap(PHASE_CAP_S, "4q"):
-                run = cli.main(["assemble", "--coarse-pkl", str(src), "--denoise-init-seed",
-                                str(REFINE_DENOISE_SEED), "--refine-init-seed", "0",
-                                "--out", str(out)])
-            with open(out, "rb") as f:
-                pickled = pickle.load(f)["trees"]
-    finally:
-        RefineHook.collect_batch = real_collect
-    hook = run["sampler"].refine_hook
-    st = dict(hook.stats)
+    py_hook.collect_batch = collect
+    py = lat.LatticeSampler(sampler.model, beam_size=sampler.beam_size, buckets=sampler.buckets,
+                            can_assemble=sampler.can_assemble, refine_hook=py_hook,
+                            native_search=False)
+    with wall_cap(PHASE_CAP_S, "4q, the Python search"):
+        t0 = time.perf_counter()
+        py_trees = [py_hook.finalize(t) if t is not None else None
+                    for t in py._search(run["blur"], run["lattices"])]
+        py_search_s = time.perf_counter() - t0
+    py_check = {"python_search_s": py_search_s, "bitwise": same_trees(py_trees, run["trees"]),
+                "new_misses": run["gate"].cache_info().misses - info.misses}
     sizes = [b["h"].shape[0] for b in blur]
     kept = [(d, n) for d, n in zip(pickled, sizes) if d is not None]
     faults = spanning_tree_faults([d for d, _ in kept], [n for _, n in kept])
-    info = run["gate"].cache_info()
     refused_nodes = nodes_refused(run["trees"])
     seconds = run["lattice_s"] + run["search_s"]
     atoms = type_atoms(run["lattices"])
@@ -1447,7 +1579,7 @@ def gated_refine_phase(cli, coarse_pkl: bytes) -> dict:
            "gate_hits": info.hits, "gate_misses": info.misses,
            "gate_hit_rate": info.hits / max(info.hits + info.misses, 1),
            "refused_at_cap": len(refused), "refine": st, "faults": faults,
-           "nodes_refused": refused_nodes[:5]}
+           "nodes_refused": refused_nodes[:5], "python_search": py_check}
     print(f"gated assemble, refine on ({HARNESS}): GEOM denoise (seed "
           f"{REFINE_DENOISE_SEED}) and refine, phase 4's {len(blur)} smallest point sets of at "
           f"least {REFINE_MIN_NODES} nodes ({sizes} nodes; the lattice's top types {atoms:.2f} "
@@ -1455,7 +1587,9 @@ def gated_refine_phase(cli, coarse_pkl: bytes) -> dict:
           f"trees/s (lattices {run['lattice_s']:.3f} s, search {run['search_s']:.3f} s); "
           f"{st['score_calls']} "
           f"fused checks (dispatch {st['dispatch_s']:.3f} s, collect {st['collect_s']:.3f} s, "
-          f"walk {st['walk_s']:.3f} s), {swaps[0]} swaps passed the gate and were committed; "
+          f"walk {st['walk_s']:.3f} s; native: {st['rounds']} group rounds, {st['lanes']} "
+          f"lanes), {swaps[0]} swaps passed the gate and were committed (the Python search, "
+          f"{json.dumps(py_check)}); "
           f"gate {info.hits} hits, {info.misses} misses ({out['gate_hit_rate']:.3f} hit rate), "
           f"{len(refused)} refused at the harness's cap; faults {faults}; nodes the uncapped "
           f"gate refuses {refused_nodes[:5]}")
@@ -1463,6 +1597,8 @@ def gated_refine_phase(cli, coarse_pkl: bytes) -> dict:
         fail(f"4q ({HARNESS}): no gated fused check ran, or no swap passed the gate")
     if faults or refused_nodes:
         fail(f"4q ({HARNESS}): gated refine-on trees invalid, or a node refused")
+    if not py_check["bitwise"]:
+        fail(f"4q ({HARNESS}): the native gated refine-on search differs from the Python one")
     return out
 
 
@@ -1473,7 +1609,10 @@ def gated_generate_phase(cli, ek) -> dict:
     launches exact; every tree that was assembled reconstructed (its output
     counted as an attempt unless 'max9'); the same molecules and stats from
     both worker counts; molecules and stats in the pickle; every node of
-    every tree passes the uncapped gate."""
+    every tree passes the uncapped gate. Then ``generate --chunk-size
+    STREAM_CHUNK --workers 2`` (``run_streamed``): trees, molecules, the
+    panel's stats and ``t_device``, the coarse launches exact for each
+    macro-chunk's plan."""
     from hierdiff_torch.chem import reconstruct as rec_mod
 
     steps, runs, refused = 100, {}, {0: [], 2: []}
@@ -1506,6 +1645,19 @@ def gated_generate_phase(cli, ek) -> dict:
                 run["payload"] = pickle.load(f)
             runs[workers] = run
         pkl = runs[0]["path"].read_bytes()
+        # run_streamed: macro-chunks of STREAM_CHUNK, each reconstructed by
+        # the pool while the next samples
+        streamed_refused = []
+        ek.reset_launch_counts()
+        with harness_cap(streamed_refused), wall_cap(PHASE_CAP_S, "4o, run_streamed"):
+            streamed = cli.main(["generate", "--init-seed", "0", "--denoise-init-seed", "0",
+                                 "--refine-init-seed", "0", "--num", str(GEN_NUM),
+                                 "--sample-steps", str(steps), "--max-nodes",
+                                 str(GEN_MAX_NODES), "--workers", "2", "--chunk-size",
+                                 str(STREAM_CHUNK), "--seed", str(SEED),
+                                 "--out", str(Path(tmp) / "streamed.pkl")])
+        torch.cuda.synchronize()
+        streamed["launches"] = dict(ek.launch_counts)
     result, pipe = runs[0]["result"], runs[0]["pipeline"]
     sizes = [b["h"].shape[0] for b in result.blur]
     n_chunks = len(pipe._plan_chunks(np.asarray(sizes)))
@@ -1522,6 +1674,27 @@ def gated_generate_phase(cli, ek) -> dict:
             and {k: runs[0]["result"].stats[k] for k in keys}
             == {k: runs[2]["result"].stats[k] for k in keys})
     payload = runs[0]["payload"]
+    sres = streamed["result"]
+    s_sizes = [b["h"].shape[0] for b in sres.blur]
+    s_chunks = sum(len(pipe._plan_chunks(np.asarray(s_sizes[c0: c0 + STREAM_CHUNK])))
+                   for c0 in range(0, GEN_NUM, STREAM_CHUNK))
+    s_expect = {"fused_gcl": s_chunks * (steps + 1) * 12,
+                "fused_coord_update": s_chunks * (steps + 1) * 6,
+                "fused_gcl_bwd": 0, "coord_update_autograd": 0}
+    s_done = [t for t in sres.trees if t is not None]
+    s_out = {"molecules": GEN_NUM, "chunk_size": STREAM_CHUNK, "workers": 2,
+             "seconds": streamed["seconds"], "trees": len(s_done),
+             "reconstructed": None if sres.molecules is None else len(sres.molecules),
+             "stats": sres.stats, "coarse_chunks": s_chunks, "launches": streamed["launches"],
+             "refused_at_cap": len(streamed_refused)}
+    print(f"gated generate, run_streamed ({HARNESS}): {json.dumps(s_out)} (expected launches "
+          f"{s_expect})")
+    if (len(sres.trees) != GEN_NUM or not s_done or sres.molecules is None
+            or not {"valid", "unique", "avg_atoms", "t_device"} <= set(sres.stats)):
+        fail(f"4o ({HARNESS}): run_streamed lacks trees, molecules or the panel's stats: "
+             f"{s_out}")
+    if streamed["launches"] != s_expect:
+        fail(f"4o ({HARNESS}): run_streamed launch counts {streamed['launches']} != {s_expect}")
     gate, hook = pipe.sampler.can_assemble, pipe.sampler.refine_hook
     info = gate.cache_info()
     refused_nodes = nodes_refused(result.trees)
@@ -1563,6 +1736,7 @@ def gated_generate_phase(cli, ek) -> dict:
     if (set(payload) != {"trees", "molecules", "stats"} or payload["molecules"] is None
             or not set(keys) <= set(payload["stats"])):
         fail(f"4o ({HARNESS}): the pickle lacks molecules or stats: {sorted(payload)}")
+    out["run_streamed"] = s_out
     return {"stats": out, "pickle": pkl, "molecules": runs[0]["result"].molecules}
 
 
@@ -1606,6 +1780,107 @@ def reconstruct_eval_phase(cli, generated: dict) -> dict:
     return res
 
 
+AR_MOLECULES, AR_BUCKET = 16, 16       # 4r: phase 4's first 16 point sets of bucket 16
+
+
+def ar_phase(cli, ek, coarse_pkl: bytes, device) -> dict:
+    """Phase 4r: ``sampling.cli assemble --denoise-init-seed 0
+    denoise.vocab_conditioning=true`` (the round-based ``ARSampler``: one
+    ``ar_step`` per search round) at GEOM width, beam 5, on phase 4's first
+    AR_MOLECULES point sets of bucket AR_BUCKET: a spanning tree per
+    molecule; every round's fleet packed by the native packer equal bit for
+    bit to the Python packer's; the first two rounds' expansions, card
+    against CPU, under ``tools/lattice_check.py``'s margin rule (top_logp
+    within 1e-3 of the step's largest |top_logp|); two card runs bitwise
+    equal; no coarse kernel launched."""
+    from hierdiff_torch.config import EdgeDenoiseConfig
+    from hierdiff_torch.data.collate import SAMPLING_BUCKETS, bucket_for
+    from hierdiff_torch.sampling import ar
+    from hierdiff_torch.tools.lattice_check import compare_lattices
+    from hierdiff_torch.utils.weights import init_weights
+
+    blur = [b for b in cli._flatten_blur_pkl(pickle.loads(coarse_pkl))
+            if bucket_for(b["h"].shape[0], SAMPLING_BUCKETS) == AR_BUCKET][:AR_MOLECULES]
+    packs = {"calls": 0, "bitwise": True}
+    fleets = []
+    real_native = ar.pack_fleet_native
+
+    def spy(states, nb, bp):
+        out = real_native(states, nb, bp)
+        py = ar.pack_fleet_python(states, nb, bp)
+        packs["calls"] += 1
+        packs["bitwise"] &= all(a.dtype == b.dtype and np.array_equal(a, b)
+                                for a, b in zip(out, py))
+        if len(fleets) < 2:
+            fleets.append((len(states), tuple(a.copy() for a in out)))
+        return out
+
+    runs = []
+    ar.pack_fleet_native = spy
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            src = Path(tmp) / "coarse.pkl"
+            with open(src, "wb") as f:
+                pickle.dump([blur], f)
+            for k in range(2):
+                out = Path(tmp) / f"trees_{k}.pkl"
+                ek.reset_launch_counts()
+                run = cli.main(["assemble", "--coarse-pkl", str(src), "--denoise-init-seed", "0",
+                                "--out", str(out), "denoise.vocab_conditioning=true"])
+                torch.cuda.synchronize()
+                run["launches"] = dict(ek.launch_counts)
+                with open(out, "rb") as f:
+                    run["pickled"] = pickle.load(f)["trees"]
+                runs.append(run)
+    finally:
+        ar.pack_fleet_native = real_native
+    run = runs[0]
+    sampler = run["sampler"]
+    if not isinstance(sampler, ar.ARSampler):
+        fail(f"4r: vocab_conditioning built {type(sampler).__name__}, not the ARSampler")
+    sizes = [b["h"].shape[0] for b in blur]
+    faults = spanning_tree_faults(run["pickled"], sizes)
+    steps = sampler.expander.stats["steps"]
+    seconds = run["search_s"]
+
+    card_model = sampler.expander.model
+    cpu_model = init_weights(cli.build_denoise_from_cfg(
+        EdgeDenoiseConfig(vocab_conditioning=True), "cpu"),
+        torch.Generator().manual_seed(0)).clone(dynamic_depth=True)
+    checks = []
+    for b, arrays in fleets:
+        feats, pos, adj, vocab, disc, nmask = arrays
+        args = (feats, disc, vocab.astype(np.int64), pos, adj, nmask)
+        card = card_model.ar_step(*(torch.from_numpy(a).to(device) for a in args))
+        cpu = cpu_model.ar_step(*(torch.from_numpy(a) for a in args))
+        one = lambda out: {k: v.cpu().numpy()[:b, None] for k, v in out.items()}  # noqa: E731
+        report = compare_lattices(one(cpu), one(card), [1] * b, margin=1e-4, logp_tol=1e-3,
+                                  relative=True)
+        checks.append({"rows": b, "cut": report["cut"], "failures": report["failures"][:5],
+                       "max_logp_rel_err": report["max_logp_rel_err"], "ok": report["ok"]})
+    res = {"molecules": len(blur), "bucket": AR_BUCKET, "beam": 5, "steps": steps,
+           "pack_calls": packs["calls"], "packers_bitwise": packs["bitwise"],
+           "seconds": seconds, "trees_per_s": len(blur) / seconds,
+           "seconds_second_run": runs[1]["search_s"],
+           "bitwise_second_run": same_trees(run["trees"], runs[1]["trees"]),
+           "launches": run["launches"], "faults": faults, "card_against_cpu": checks}
+    print(f"assemble, ARSampler (vocab_conditioning): GEOM denoise H="
+          f"{card_model.hidden_nf}, {len(blur)} molecules of bucket {AR_BUCKET}, beam 5: "
+          f"{steps} model steps in {seconds:.3f} s ({res['trees_per_s']:.3f} trees/s; second "
+          f"run {runs[1]['search_s']:.3f} s); {json.dumps(res)}")
+    if faults:
+        fail(f"4r: ARSampler trees missing or invalid: {faults}")
+    if not (packs["bitwise"] and packs["calls"] > 0):
+        fail("4r: the native fleet packer differs from the Python packer")
+    if not all(c["ok"] for c in checks) or len(checks) < 2:
+        fail(f"4r: the card's expansion disagrees with the CPU's: {checks}")
+    if not res["bitwise_second_run"]:
+        fail("4r: two card runs of the ARSampler differ")
+    if any(run["launches"].values()):
+        fail(f"4r: the round-based sampler launched a coarse kernel: {run['launches']}")
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--parent", type=Path, default=None,
@@ -1641,6 +1916,13 @@ def main() -> None:
              "ungated and 4n-4q put the fake-RDKit harness in its place")
     print("RDKit: absent, as this run assumes (4e-4m ungated; 4n-4q under the fake-RDKit "
           "harness)")
+    from hierdiff_torch import runtime
+    t0 = time.perf_counter()
+    if not runtime.treekit_available():
+        fail("the treekit library did not build: the native searches and packers this run "
+             "measures would fall back to Python")
+    print(f"treekit: {runtime.library_path().name} built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s (native searches, packers)")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(2) as pool:   # nvcc processes all start together
         clocked = pool.submit(_build.build_all, ("fused_gcl_bwd",), True)
@@ -2119,14 +2401,24 @@ def main() -> None:
     # ---- 4e. the fine stage on phase 4's point sets
     assembled = assemble_phase(cli, coarse_pkl, device)
 
-    # ---- 4f. the pipeline from the histogram to junction trees
-    generated, generate_launches = generate_phase(cli, ek)
+    # ---- 4f. the pipeline from the histogram to junction trees, overlapped and not
+    generated, generate_launches, gen_on, gen_pipe = generate_phase(cli, ek)
+    generated_off, generate_off_launches, gen_off, _ = generate_phase(cli, ek, overlap=False)
+    generated["overlap_check"] = overlap_check("generate", gen_on, gen_off, gen_pipe)
 
     # ---- 4g. the fine stage with the refine model's checks, on phase 4's point sets
     refined = refine_assemble_phase(cli, coarse_pkl, device)
 
-    # ---- 4h. the pipeline with the refine model's checks
-    generated_refine, generate_refine_launches = generate_phase(cli, ek, refine=True)
+    # ---- 4h. the pipeline with the refine model's checks, overlapped and not
+    generated_refine, generate_refine_launches, ref_on, ref_pipe = generate_phase(
+        cli, ek, refine=True)
+    generated_refine_off, generate_refine_off_launches, ref_off, _ = generate_phase(
+        cli, ek, refine=True, overlap=False)
+    generated_refine["overlap_check"] = overlap_check("generate, refine on", ref_on, ref_off,
+                                                      ref_pipe)
+
+    # ---- 4r. the round-based sampler (vocab_conditioning)
+    assembled_ar = ar_phase(cli, ek, coarse_pkl, device)
 
     with tempfile.TemporaryDirectory() as fine_tmp:
         # ---- 4i, 4j. training of the fine stage's two models at GEOM width
@@ -2166,7 +2458,11 @@ def main() -> None:
             "fused_gcl_bwd": ("hierdiff_torch/csrc/fused_gcl_bwd.cu",
                               "hierdiff_tpu/ops/egnn_pallas.py:346")}
     paths = {"sample": launches, "train": train_launches, "generate": generate_launches,
+             "generate_overlap_off": generate_off_launches,
              "generate_refine": generate_refine_launches,
+             "generate_refine_overlap_off": generate_refine_off_launches,
+             "assemble_ar": assembled_ar["launches"],
+             "generate_streamed": generated_gated["stats"]["run_streamed"]["launches"],
              "train_denoise": fine_train["denoise"]["launches"],
              "train_refine": fine_train["refine"]["launches"],
              "generate_gated": generated_gated["stats"]["launches"],
@@ -2188,8 +2484,9 @@ def main() -> None:
     print(json.dumps({"kernels": kernels, "train": {
         k: train[k] for k in ("steps", "seconds", "steps_per_sec", "molecules_per_sec")},
         "cache_after_step": cache, "step_gradients": step_grads, "assemble": assembled,
-        "generate": generated, "assemble_refine": refined,
-        "generate_refine": generated_refine, "train_denoise": fine_train["denoise"],
+        "generate": generated, "generate_overlap_off": generated_off,
+        "assemble_refine": refined, "generate_refine": generated_refine,
+        "generate_refine_overlap_off": generated_refine_off, "assemble_ar": assembled_ar, "train_denoise": fine_train["denoise"],
         "train_refine": fine_train["refine"], "fine_step_gradients": fine_grads,
         "planted": planted, "assemble_trained": trained_assemble, "assemble_gated": gated,
         "generate_gated": generated_gated["stats"], "reconstruct_eval": reconstructed,

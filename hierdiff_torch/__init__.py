@@ -1,4 +1,7 @@
-"""PyTorch + CUDA port of hierdiff_tpu (coarse stage: sampler and training).
+"""PyTorch + CUDA port of hierdiff_tpu: the coarse stage (sampler and
+training), the fine and refine stages (sampling with the native and Python
+searches, the round-based sampler, training), the overlapped ``generate``
+pipeline, the chemistry and the evaluation panel.
 
 The layout mirrors ``hierdiff_tpu`` module for module. Entry points run on
 the CUDA device unless the caller passes ``device="cpu"``; the two fused EGNN

@@ -9,9 +9,12 @@ reconstruction to molecules and the pipeline from a histogram to molecules.
     # stage 2 (ar_sampling_nosize.py equivalent): point sets -> trees
     python -m hierdiff_torch.sampling.cli assemble --coarse-pkl samples.pkl \\
         --denoise-weights denoise.pt --out trees.pkl
-    # all stages: histogram -> trees -> molecules (with RDKit)
+    # all stages: histogram -> trees -> molecules (with RDKit); the coarse
+    # chunks stream into the fine stage unless --no-overlap; --chunk-size
+    # reconstructs each chunk in the worker pool while the next samples
     python -m hierdiff_torch.sampling.cli generate --init-seed 0 \\
-        --denoise-init-seed 0 --num 64 --sample-steps 100 [--workers 4]
+        --denoise-init-seed 0 --num 64 --sample-steps 100 [--workers 4] \\
+        [--chunk-size 1024]
     # stage 3 (reconstruct.py equivalent): trees -> molecules, needs RDKit
     python -m hierdiff_torch.sampling.cli reconstruct --trees-pkl trees.pkl \\
         --out reconstructed.pkl
@@ -200,6 +203,9 @@ def _search_line(hook, gate) -> str:
         st = hook.stats
         line = (f"refine: {st['score_calls']} fused checks, dispatch {st['dispatch_s']:.3f} s, "
                 f"collect {st['collect_s']:.3f} s, walk {st['walk_s']:.3f} s")
+        if st["rounds"]:
+            line += (f"; native search: {st['rounds']} group rounds, {st['fleet_rows']} fleet "
+                     f"rows, {st['lanes']} lanes")
     if gate is None:
         return f"{line}; assembly gate off (no RDKit)"
     info = gate.cache_info()
@@ -232,7 +238,9 @@ def cmd_assemble(args) -> dict:
     """Stage 2 on its own: a coarse pickle's point sets -> junction trees,
     pickled as ``{"trees": [...]}``. Returns the blur sets, the trees, the
     sampler, the lattices and the seconds of the lattices and of the search
-    (the refine hook's checks and its ``finalize`` included)."""
+    (the refine hook's checks and its ``finalize`` included). Under
+    ``denoise.vocab_conditioning=true`` the round-based sampler runs: no
+    lattices, every second counts as search."""
     device = resolve_device(args.device)
     cfg, denoise, buckets, hook, _vocab, gate = _fine_stage_setup(args, device)
     with open(args.coarse_pkl, "rb") as f:
@@ -250,9 +258,13 @@ def cmd_assemble(args) -> dict:
     sampler = build_fine_sampler(denoise, beam_size=args.beam, buckets=buckets,
                                  can_assemble=gate, refine_hook=hook)
     t0 = time.perf_counter()
-    lattices = sampler.compute_lattices(blur)
-    t1 = time.perf_counter()
-    trees = sampler._search(blur, lattices)
+    if hasattr(sampler, "compute_lattices"):
+        lattices = sampler.compute_lattices(blur)
+        t1 = time.perf_counter()
+        trees = sampler._search(blur, lattices)
+    else:   # the round-based sampler: a model step per search round
+        lattices, t1 = None, t0
+        trees = sampler.sample(blur)
     if hook is not None:
         trees = [hook.finalize(t) if t is not None else None for t in trees]
     t2 = time.perf_counter()
@@ -282,15 +294,23 @@ def cmd_generate(args) -> dict:
                               sample_steps=args.steps or None, sample_buckets=buckets,
                               refine_hook=hook, vocab=vocab, can_assemble=gate)
     t0 = time.perf_counter()
-    result = pipe.run(args.seed, args.num, reconstruct=has_rdkit(), n_workers=args.workers)
+    if args.chunk_size:
+        result = pipe.run_streamed(args.seed, args.num, chunk_size=args.chunk_size,
+                                   n_workers=args.workers)
+    else:
+        result = pipe.run(args.seed, args.num, reconstruct=has_rdkit(), n_workers=args.workers,
+                          overlap=args.overlap)
     seconds = time.perf_counter() - t0
     ok = sum(t is not None for t in result.trees)
-    t_rec = result.stats.get("t_reconstruct")
+    st = result.stats
+    if "t_device" in st:
+        times = f"t_device {st['t_device']:.3f} s (reconstruction overlapped)"
+    else:
+        times = f"t_coarse {st['t_coarse']:.3f} s, t_fine {st['t_fine']:.3f} s" + (
+            f", t_reconstruct {st['t_reconstruct']:.3f} s" if "t_reconstruct" in st else "")
     print(f"assembled {ok}/{args.num} junction trees in {seconds:.3f} s "
-          f"({args.num / seconds:.3f} molecules/s, device {device}): t_coarse "
-          f"{result.stats['t_coarse']:.3f} s, t_fine {result.stats['t_fine']:.3f} s"
-          + ("" if t_rec is None else f", t_reconstruct {t_rec:.3f} s")
-          + f"; {_search_line(hook, gate)}")
+          f"({args.num / seconds:.3f} molecules/s, device {device}): {times}; "
+          f"{_search_line(hook, gate)}")
     if result.molecules is None:
         print("reconstruction skipped: RDKit is not installed (the pickle holds junction trees)")
     else:
@@ -389,6 +409,13 @@ def build_parser() -> argparse.ArgumentParser:
     pg.add_argument("--max-nodes", type=int, default=0)
     pg.add_argument("--workers", type=int, default=0,
                     help="reconstruction processes (0 or 1: in this process)")
+    pg.add_argument("--chunk-size", type=int, default=0,
+                    help="with RDKit: generate in chunks of this many molecules, each "
+                         "reconstructed by the --workers pool while the next samples "
+                         "(run_streamed; 0: one run)")
+    pg.add_argument("--overlap", action=argparse.BooleanOptionalAction, default=None,
+                    help="stream the coarse chunks into the fine stage (default: on unless "
+                         "HIERDIFF_PIPE_OVERLAP=0); the point sets are the same either way")
     fine_args(pg, "generated.pkl")
     pg.set_defaults(fn=cmd_generate)
 

@@ -1,36 +1,46 @@
 """Lattice sampler: the fine-stage assembly as one model run per chunk.
 
 Port of ``hierdiff_tpu/sampling/lattice.py`` (``MoleculeLattice``,
-``LatticeExpander``, ``pow2_chunks`` and the serial ``LatticeSampler`` with
-the Python search). With the reference's live configuration the tree-growth
-trajectory does not depend on the fragment types the beam picks (see
-``EdgeDenoise.ar_lattice``), so the device computes every expansion step of
-a chunk of molecules (focal node, attached node, top-k types) in one
-``ar_lattice`` run, and the beam search then walks those lattices on the
-host without calling the model.
+``LatticeExpander``, ``pow2_chunks``, ``LatticeSampler`` with its Python and
+native searches and the streamed driver). With the reference's live
+configuration the tree-growth trajectory does not depend on the fragment
+types the beam picks (see ``EdgeDenoise.ar_lattice``), so the device
+computes every expansion step of a chunk of molecules (focal node, attached
+node, top-k types) in one ``ar_lattice`` run, and the beam search then walks
+those lattices on the host without calling the model.
 
 Molecules are grouped by pad bucket and each bucket split into pow2 chunks;
-each chunk's outputs are copied to the host once. Under ``gated=True`` a
-molecule's lattice does not depend on its chunk or pad, so chunking changes
-no result.
+each chunk's outputs are copied to pinned host memory behind one CUDA event
+(``HostCopy``). Under ``gated=True`` a molecule's lattice does not depend on
+its chunk or pad, so chunking changes no result.
 
-With a refine hook (``sampling/refine_hook.py``) the search checks each
-fleet of beam candidates on the device every round. The molecules are then
-searched in groups of at most ``refine_group_cap`` per pad bucket, each
-group its own ``PQBeamSearch.run_rounds`` with its own tiebreak stream
-(``_group_seed``), advanced round-robin with every live group's fused check
-in flight (``_sample_refine_pipelined``); ``refine_group_cap=0`` keeps one
-lockstep search.
+The search runs in C++ (``runtime/treekit.cpp``) when the library is built
+and the assembly gate is verdict-style (``gate.verdict``): refine off the
+whole search (``_sample_native``), refine on each group's queues, walk and
+expansions (``_NativeRefineLoop``), while Python pads each round's fleet and
+enqueues its fused check. Both are bitwise equal to the Python searches,
+the tiebreak stream included; ``native_search=False`` keeps the Python ones.
 
-Not ported yet (ROADMAP.md, Queue 1): the streamed driver
-(``sample_streamed``), the native searches, the data mesh and the per-node
-vocab restriction (``allowed_fn``).
+With a refine hook the search checks each fleet of beam candidates on the
+device every round. The molecules are then searched in groups of at most
+``refine_group_cap`` per pad bucket, each group its own search with its own
+tiebreak stream (``_group_seed``), advanced round-robin with every live
+group's fused check in flight; ``refine_group_cap=0`` keeps one lockstep
+search.
+
+``sample_streamed`` takes the coarse chunks as they land (the overlapped
+``GenerationPipeline.run``): each chunk's lattices are enqueued at once, and
+refine on, full groups join the native loop while later coarse chunks run.
+
+Not ported yet (ROADMAP.md, Queue 1): the data mesh and the per-node vocab
+restriction (``allowed_fn``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import random
+import time
 from collections import deque
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -83,6 +93,38 @@ def _next_pow2(n: int) -> int:
     return p
 
 
+class HostCopy:
+    """Tensors copied to the host behind one event: on CUDA each goes to
+    pinned memory without a sync and one ``torch.cuda.Event`` is recorded
+    behind the copies; CPU tensors are ready as they are. ``is_ready`` asks
+    without waiting, ``wait`` returns the numpy arrays in the input's
+    structure (a dict or a tuple)."""
+
+    def __init__(self, tensors):
+        self.keys = list(tensors) if isinstance(tensors, dict) else None
+        values = list(tensors.values()) if self.keys is not None else list(tensors)
+        self.event = None
+        if any(v.is_cuda for v in values):
+            host = []
+            for v in values:
+                h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                h.copy_(v, non_blocking=True)
+                host.append(h)
+            self.event = torch.cuda.Event()
+            self.event.record()
+            values = host
+        self.host = values
+
+    def is_ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def wait(self):
+        if self.event is not None:
+            self.event.synchronize()
+        arrays = [h.numpy() for h in self.host]
+        return dict(zip(self.keys, arrays)) if self.keys is not None else tuple(arrays)
+
+
 def _group_seed(base: int, members) -> int:
     """Tiebreak seed of one refine-on group search: one master draw
     (``base``) mixed with the group's first molecule index. Groups partition
@@ -131,7 +173,8 @@ class LatticeSampler:
                  buckets: Optional[Sequence[int]] = None, refine_hook=None,
                  can_assemble: Optional[Callable[[TreeState, int], bool]] = None,
                  rng: Optional[random.Random] = None, refine_group_cap: int = 32,
-                 refine_merge: int = 1):
+                 refine_merge: int = 1, native_search: bool = True,
+                 retry_final_gate: bool = True):
         """buckets: pad buckets (None: ``DEFAULT_BUCKETS``); the lattice's
         work grows with the cube of the pad. refine_hook: a ``RefineHook``
         or None. can_assemble: the search's assembly gate or None. rng: the
@@ -142,7 +185,12 @@ class LatticeSampler:
         lockstep search). refine_merge: same-bucket groups bundled into one
         fused check per round; the check is row-independent and a bundle
         never spans two buckets, so it changes no result, only the number
-        of checks."""
+        of checks.
+
+        native_search: search in C++ when the treekit library is built and
+        the gate, if any, is verdict-style (bitwise the Python search).
+        retry_final_gate: a completed tree that fails the final gate does
+        not end its molecule's search (``beam.PQBeamSearch``)."""
         if model.gated and not model.dynamic_depth:
             # inference: bound the depth loops by the trees' actual depth
             # (exact under gated=True; see EdgeDenoise.depth_mp)
@@ -155,6 +203,8 @@ class LatticeSampler:
         self.rng = rng
         self.refine_group_cap = refine_group_cap
         self.refine_merge = refine_merge
+        self.native_search = native_search
+        self.retry_final_gate = retry_final_gate
 
     # --- device side ---------------------------------------------------------
 
@@ -168,7 +218,7 @@ class LatticeSampler:
 
     def _dispatch_lattices(self, blur_sets, indices) -> List[tuple]:
         """Run ``ar_lattice`` on each (bucket, pow2 chunk) of ``indices``;
-        returns [(chunk, outputs on the device), ...]. The device works
+        returns [(chunk, HostCopy of its outputs), ...]. The device works
         through them in order; the dynamic depth loops read one number back
         per depth pass, so the host stays close behind."""
         by_bucket: Dict[int, List[int]] = {}
@@ -184,14 +234,14 @@ class LatticeSampler:
                 c0 += take
                 arrays = pad_blur(blur_sets, chunk, _next_pow2(len(chunk)), nb)
                 out = self.model.ar_lattice(*(torch.from_numpy(a).to(device) for a in arrays))
-                pending.append((chunk, {k: out[k] for k in LATTICE_KEYS}))
+                pending.append((chunk, HostCopy({k: out[k] for k in LATTICE_KEYS})))
         return pending
 
     @staticmethod
     def _collect_lattice(chunk, out, blur_sets, lattices) -> None:
-        """Copy one chunk's outputs to the host and split them into
-        per-molecule MoleculeLattice entries."""
-        out = {k: v.cpu().numpy() for k, v in out.items()}
+        """Wait for one chunk's host copy and split it into per-molecule
+        MoleculeLattice entries."""
+        out = out.wait()
         for row, i in enumerate(chunk):
             n = blur_sets[i]["h"].shape[0]
             lattices[i] = MoleculeLattice(
@@ -222,16 +272,124 @@ class LatticeSampler:
             return []
         return self._search(blur_sets, self.compute_lattices(blur_sets))
 
+    def sample_streamed(self, feeder) -> List[Optional[TreeState]]:
+        """The overlapped assembly: take coarse chunks from ``feeder`` as
+        they land instead of after the whole coarse stage.
+
+        feeder (``pipeline._BlurFeeder``): ``total`` (molecule count),
+        ``blur`` (the per-molecule list it fills), ``pump()`` (no wait:
+        absorbs the chunks whose copy has landed, keeps its coarse chunks in
+        flight, returns the new chunks' index lists), ``collect_next()``
+        (waits for the oldest chunk) and ``done``.
+
+        Each arrived chunk's lattices are enqueued at once. Refine on and
+        native, molecule groups join one ``_NativeRefineLoop`` as their
+        lattices land: a group goes as soon as a bucket's pool holds
+        ``refine_group_cap`` molecules, the remainders in sorted bucket
+        order once every lattice has landed. That is the serial group
+        partition for any feeder that delivers molecules in index order (the
+        coarse chunk plan does), and ``_group_seed`` ties each group's
+        stream to its members, so the trees equal ``sample``'s bit for bit
+        when every bucket's lattices run at the serial batch shapes, and up
+        to the rounding of another batch shape otherwise. The Python
+        refine-on search has no incremental driver: it collects everything,
+        then runs the serial search."""
+        total = feeder.total
+        blur_sets = feeder.blur
+        if not total:
+            return []
+        use_loop = self._refine_native_eligible()
+        if self.refine_hook is not None and not use_loop:
+            while not feeder.done:
+                feeder.collect_next()
+            return self.sample(blur_sets)
+        lattices: Dict[int, MoleculeLattice] = {}
+        results: List[Optional[TreeState]] = [None] * total
+        loop = _NativeRefineLoop(self, blur_sets, results) if use_loop else None
+        pending_lat = deque()
+
+        def on_chunks(chunks):
+            for idxs in chunks:
+                pending_lat.extend(self._dispatch_lattices(blur_sets, idxs))
+
+        # per-bucket pools: a group leaves when ``cap`` members are in; the
+        # remainders wait until every lattice has landed (a group per
+        # arrived chunk would split each bucket's tail into small groups)
+        pools: Dict[int, List[int]] = {}
+        flushed = False
+
+        def absorb_lattice(item):
+            chunk, out = item
+            self._collect_lattice(chunk, out, blur_sets, lattices)
+            if loop is not None:
+                # a lattice chunk holds one bucket
+                gbucket = bucket_for(blur_sets[chunk[0]]["h"].shape[0], self.buckets)
+                pool = pools.setdefault(gbucket, [])
+                pool.extend(chunk)
+                cap = self.refine_group_cap
+                while len(pool) >= cap:
+                    loop.add_group(pool[:cap], gbucket, lattices)
+                    del pool[:cap]
+
+        while True:
+            on_chunks(feeder.pump())
+            while pending_lat and pending_lat[0][1].is_ready():
+                absorb_lattice(pending_lat.popleft())
+            if loop is not None and feeder.done and not pending_lat and not flushed:
+                flushed = True
+                for nb in sorted(pools):
+                    if pools[nb]:
+                        loop.add_group(pools[nb], nb, lattices)
+                        pools[nb] = []
+            if loop is not None and not loop.empty:
+                loop.step_one()
+            elif not feeder.done:
+                on_chunks(feeder.collect_next())
+            elif pending_lat:
+                absorb_lattice(pending_lat.popleft())   # waits for its copy
+            else:
+                break
+        if loop is not None:
+            loop.drain()
+            return results
+        return self._search(blur_sets, lattices)
+
+    def _native_gate(self, gate) -> bool:
+        """A gate the C searches can call back: none, or one that carries
+        its memoized ``verdict(wid, sorted neighbour wids)``."""
+        return gate is None or hasattr(gate, "verdict")
+
+    def _refine_native_eligible(self) -> bool:
+        """The native refine-on search needs groups, verdict-style gates in
+        the search and in the hook, the hook's pad buckets equal to the
+        sampler's (a group's fleets must pad to the group's bucket), and the
+        library."""
+        if self.refine_hook is None or not self.refine_group_cap or not self.native_search:
+            return False
+        if not (tuple(self.refine_hook.buckets) == self.buckets
+                and self._native_gate(self.can_assemble)
+                and self._native_gate(self.refine_hook.can_assemble)):
+            return False
+        from hierdiff_torch import runtime
+        return runtime.treekit_available()
+
     def _search(self, blur_sets, lattices) -> List[Optional[TreeState]]:
-        """Host beam search over precomputed lattices: refine-on with groups
-        goes to the pipelined group searches, anything else to one lockstep
-        search (the JAX package's routing where no native library is
-        built)."""
+        """Host beam search over precomputed lattices, routed as the JAX
+        package routes it: refine off, the native search when it is
+        eligible; refine on with groups, the native group searches or the
+        pipelined Python ones; anything else one lockstep Python search."""
+        if (self.refine_hook is None and self.native_search
+                and self._native_gate(self.can_assemble)):
+            from hierdiff_torch import runtime
+            if runtime.treekit_available():
+                return self._sample_native(blur_sets, lattices)
         if self.refine_hook is not None and self.refine_group_cap:
+            if self._refine_native_eligible():
+                return self._sample_refine_native(blur_sets, lattices)
             return self._sample_refine_pipelined(blur_sets, lattices)
         search = PQBeamSearch(LatticeExpander(lattices), beam_size=self.beam_size,
                               can_assemble=self.can_assemble, refine_hook=self.refine_hook,
-                              rng=self.rng)
+                              rng=self.rng, retry_final_gate=self.retry_final_gate)
         return search.run(self._init_states(blur_sets, range(len(blur_sets))))
 
     @staticmethod
@@ -248,6 +406,42 @@ class LatticeSampler:
                 index=idx))
         return init
 
+    def _sample_native(self, blur_sets, lattices) -> List[Optional[TreeState]]:
+        """Refine off: the whole search in C++ (tk_beam_search_lattice, its
+        gated form with the gate's verdict), bitwise the Python search; the
+        caller's tiebreak stream is continued and written back."""
+        from hierdiff_torch import runtime
+
+        sizes = [jt["h"].shape[0] for jt in blur_sets]
+        rng = self.rng if self.rng is not None else random.Random(2022)
+        verdict = getattr(self.can_assemble, "verdict", None)
+        wids, ok, logp = runtime.beam_search_lattice_native(
+            lattices, sizes, self.beam_size, rng, verdict=verdict,
+            retry_final_gate=self.retry_final_gate)
+        return [self._tree_from_lattice(blur_sets, lattices, i, wids[i], float(logp[i]))
+                if ok[i] else None for i in range(len(blur_sets))]
+
+    @staticmethod
+    def _tree_from_lattice(blur_sets, lattices, i: int, wids: np.ndarray,
+                           logp: float) -> TreeState:
+        """The completed TreeState of a native search: the topology is the
+        lattice's whole trajectory, wids and logp come from the search."""
+        jt = blur_sets[i]
+        n = jt["h"].shape[0]
+        lat = lattices[i]
+        adj = np.zeros((n, n), np.float32)
+        last_edge = None
+        for t in range(n):
+            if lat.attach[t]:
+                f, tg = int(lat.focal[t]), int(lat.target[t])
+                adj[f, tg] = adj[tg, f] = 1.0
+                last_edge = (f, tg)
+        if last_edge is None and n > 0:
+            adj[0, 0] = 1.0     # one node: the root marker is never cleared
+        return TreeState(feats=np.asarray(jt["h"], np.float32),
+                         pos=np.asarray(jt["x"], np.float32),
+                         adj=adj, wids=wids, logp=logp, index=i, last_edge=last_edge)
+
     def _refine_groups(self, blur_sets) -> List[tuple]:
         """(members, bucket) of the refine-on group searches: molecules
         grouped by pad bucket, at most ``refine_group_cap`` per group."""
@@ -259,6 +453,19 @@ class LatticeSampler:
             for c0 in range(0, len(idxs), self.refine_group_cap):
                 out.append((idxs[c0: c0 + self.refine_group_cap], nb))
         return out
+
+    def _sample_refine_native(self, blur_sets, lattices) -> List[Optional[TreeState]]:
+        """Refine on, the host side in C++: every group of
+        ``_refine_groups`` a ``runtime.NativeRefineSearch`` in one
+        ``_NativeRefineLoop``. Same groups, seeds and fleets as
+        ``_sample_refine_pipelined``, and the fused check's inputs are the
+        same, so the trees are bitwise equal."""
+        results: List[Optional[TreeState]] = [None] * len(blur_sets)
+        loop = _NativeRefineLoop(self, blur_sets, results)
+        for members, gbucket in self._refine_groups(blur_sets):
+            loop.add_group(members, gbucket, lattices)
+        loop.drain()
+        return results
 
     def _sample_refine_pipelined(self, blur_sets, lattices) -> List[Optional[TreeState]]:
         """Refine-on search as pipelined molecule-group searches.
@@ -284,7 +491,8 @@ class LatticeSampler:
         for members, gbucket in self._refine_groups(blur_sets):
             search = PQBeamSearch(expander, beam_size=self.beam_size,
                                   can_assemble=self.can_assemble, refine_hook=hook,
-                                  rng=random.Random(_group_seed(seed_base, members)))
+                                  rng=random.Random(_group_seed(seed_base, members)),
+                                  retry_final_gate=self.retry_final_gate)
             gen = search.run_rounds(self._init_states(blur_sets, members))
             try:
                 fleet = next(gen)
@@ -328,3 +536,123 @@ class LatticeSampler:
             if nxt:
                 queue.append((nxt, dispatch_lane(nxt)))
         return results
+
+
+class _NativeRefineLoop:
+    """The event loop of the native refine-on group searches, to which
+    groups can be added as they become ready: ``_sample_refine_native`` adds
+    every group at once, ``LatticeSampler.sample_streamed`` adds them as
+    their lattices land.
+
+    A group's seed comes from ``_group_seed`` (the one master draw mixed
+    with its first member), so it does not depend on when the group was
+    added. Same-bucket groups' fleets are merged into one
+    ``RefineHook.dispatch_arrays`` call of at most ``fleet_chunk_rows`` rows,
+    so a lane is one fused check. While other lanes are in flight, a
+    bucket's ready groups wait until they hold half that many rows; with
+    nothing in flight everything goes. The check is row-independent and pads
+    every chunk to ``fleet_pad_rows``, so lanes change no result."""
+
+    def __init__(self, sampler: LatticeSampler, blur_sets, results):
+        self.s = sampler
+        self.blur_sets = blur_sets
+        self.results = results
+        self.hook = sampler.refine_hook
+        master = sampler.rng if sampler.rng is not None else random.Random(2022)
+        self.seed_base = master.getrandbits(64)   # one draw, as the pipelined search
+        self.verdict = getattr(sampler.can_assemble, "verdict", None)
+        self.hook_verdict = getattr(self.hook.can_assemble, "verdict", None)
+        # queue: lanes in flight ([(group, rows at dispatch), ...], tokens);
+        # ready: per bucket, the groups waiting for a dispatch
+        self.queue = deque()
+        self.ready: Dict[int, List[dict]] = {}
+
+    @property
+    def empty(self) -> bool:
+        return not self.queue and not any(self.ready.values())
+
+    def add_group(self, members, gbucket: int, lattices) -> None:
+        from hierdiff_torch import runtime
+
+        hook = self.hook
+        grng = random.Random(_group_seed(self.seed_base, members))
+        sizes = [self.blur_sets[i]["h"].shape[0] for i in members]
+        feats, pos, nmask = pad_blur(self.blur_sets, members, len(members), gbucket)
+        g = {"members": members, "bucket": gbucket, "lattices": lattices,
+             "K": max(1, int(gbucket * hook.check_frac)),
+             "feats": feats, "pos": pos, "nmask": nmask,
+             "ns": runtime.NativeRefineSearch(
+                 lattices, members, sizes, self.s.beam_size, grng, gbucket,
+                 hook.check_frac, verdict=self.verdict, hook_verdict=self.hook_verdict,
+                 retry_final_gate=self.s.retry_final_gate)}
+        g["S"] = g["ns"].step(None, g["K"])
+        if g["S"] == 0:
+            self._finish(g)
+            return
+        self.ready.setdefault(gbucket, []).append(g)
+        self._flush()
+
+    def _finish(self, g) -> None:
+        wids_list, ok, logp = g["ns"].finish()
+        for r, i in enumerate(g["members"]):
+            if ok[r]:
+                self.results[i] = LatticeSampler._tree_from_lattice(
+                    self.blur_sets, g["lattices"], i, wids_list[r], float(logp[r]))
+
+    def _flush(self) -> None:
+        """Form lanes from the ready groups and dispatch them (see the
+        class docstring)."""
+        for nb, gs in self.ready.items():
+            cap = self.hook.fleet_chunk_rows(nb)
+            while gs:
+                if self.queue and sum(g["S"] for g in gs) < max(1, cap // 2):
+                    break   # hold: partners land with the lanes in flight
+                lane, rows = [], 0
+                while gs and (not lane or rows + gs[0]["S"] <= cap):
+                    g = gs.pop(0)
+                    lane.append(g)
+                    rows += g["S"]
+                self.queue.append(([(g, g["S"]) for g in lane], self._dispatch_lane(lane, nb)))
+                self.hook.stats["lanes"] += 1
+
+    def _dispatch_lane(self, lane, nb: int):
+        """The lane's fleets, concatenated, through the hook's chunk and pad
+        policy (``RefineHook.dispatch_arrays``)."""
+        parts = []
+        for g in lane:
+            ns, rows = g["ns"], g["S"]
+            mol = ns.fleet_mol[:rows]
+            parts.append((g["feats"][mol], g["pos"][mol], ns.fleet_adj[:rows],
+                          g["nmask"][mol], ns.fleet_wids[:rows]))
+        feats, pos, adj, nmask, wids = (np.concatenate([p[i] for p in parts]) for i in range(5))
+        return self.hook.dispatch_arrays(nb, feats, pos, adj, nmask, wids)
+
+    def step_one(self) -> None:
+        """Advance the oldest lane in flight one round: wait for its checks,
+        step every member group, queue the survivors again."""
+        hook = self.hook
+        if not self.queue:
+            self._flush()
+        lane, pending = self.queue.popleft()
+        t0 = time.perf_counter()
+        packed = np.concatenate([hook.wait_packed(token, cnt) for cnt, token in pending])
+        t1 = time.perf_counter()
+        hook.stats["collect_s"] += t1 - t0
+        hook.stats["score_s"] += t1 - t0
+        off = 0
+        for g, cnt in lane:
+            rows = packed[off: off + cnt]
+            off += cnt
+            g["S"] = g["ns"].step(rows, g["K"])
+            hook.stats["rounds"] += 1
+            hook.stats["fleet_rows"] += int(g["S"])
+            if g["S"] == 0:
+                self._finish(g)
+            else:
+                self.ready.setdefault(g["bucket"], []).append(g)
+        hook.stats["walk_s"] += time.perf_counter() - t1
+        self._flush()
+
+    def drain(self) -> None:
+        while not self.empty:
+            self.step_one()

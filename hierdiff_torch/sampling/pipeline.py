@@ -1,21 +1,29 @@
 """Generation pipeline: coarse point sets -> junction trees -> molecules.
 
-Port of the serial path of ``hierdiff_tpu/sampling/pipeline.py``
-(``GenerationPipeline.run`` without overlap, ``build_fine_sampler``'s
-lattice branch, ``round_int_features``):
+Port of ``hierdiff_tpu/sampling/pipeline.py`` (``GenerationPipeline.run``
+serial and overlapped, ``run_streamed``, ``build_fine_sampler``,
+``round_int_features``):
 
 1. coarse: node counts from the histogram prior, grouped by pad bucket and
    chunked, each chunk a run of ``sample_coarse`` (the coarse kernels on the
    card);
-2. fine: the lattice sampler assembles a junction tree per molecule, with
-   the refine hook's checks and the assembly gate in its search when they
-   are given, and the hook's ``finalize`` repair after it;
+2. fine: the lattice sampler (the round-based ``ARSampler`` under
+   ``vocab_conditioning``) assembles a junction tree per molecule, with the
+   refine hook's checks and the assembly gate in its search when they are
+   given, and the hook's ``finalize`` repair after it;
 3. reconstruct: host RDKit assembly of each tree into a molecule
    (``chem/reconstruct.py``), when RDKit is present and a vocabulary is set.
 
+By default ``run`` overlaps stages 1 and 2 (``_BlurFeeder`` into
+``LatticeSampler.sample_streamed``): the fine stage takes each coarse chunk
+as its copy lands while the next chunks run. The chunk plan and the chunks'
+seeds are those of the serial path, so the point sets are bitwise the same.
+``run_streamed`` also overlaps stage 3, reconstructing each macro-chunk in
+a process pool while the next one samples. The JAX package's segmented
+coarse chain (a workaround for the TPU's queue) is not carried over.
+
 Integer blur features are rounded at the hand-off between the stages, as in
-the reference (ar_sampling_nosize.py:388). The streamed, overlapped driver
-(``run_streamed``) is not ported yet.
+the reference (ar_sampling_nosize.py:388).
 
 Random numbers differ from the JAX pipeline by design. ``run(seed, n)``
 draws the node counts from ``np.random.default_rng(seed)``, so a JAX run
@@ -30,7 +38,9 @@ the chunks run in.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
+from collections import deque
 from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
@@ -43,19 +53,24 @@ from hierdiff_torch.models.edge_denoise import EdgeDenoise
 from hierdiff_torch.ops.distributions import DistributionNodes
 from hierdiff_torch.sampling.beam import TreeState
 from hierdiff_torch.sampling.coarse import make_masks_for_counts, sample_coarse
-from hierdiff_torch.sampling.lattice import LatticeSampler, _next_pow2, pow2_chunks
+from hierdiff_torch.sampling.ar import ARSampler
+from hierdiff_torch.sampling.lattice import HostCopy, LatticeSampler, _next_pow2, pow2_chunks
 
 
 def build_fine_sampler(denoise_model: EdgeDenoise, *, beam_size: int = 5,
                        buckets: Optional[Sequence[int]] = None, can_assemble=None,
-                       refine_hook=None) -> LatticeSampler:
-    """Stage-2 sampler for a denoise model: the lattice sampler, with the
-    assembly gate ``can_assemble`` and the refine hook's checks in its search
-    when they are given."""
+                       refine_hook=None, allowed_fn=None):
+    """Stage-2 sampler for a denoise model, with the assembly gate
+    ``can_assemble`` and the refine hook's checks in its search when they
+    are given: the lattice sampler, or the round-based ``ARSampler`` when
+    type choices feed back into the trajectory (``vocab_conditioning``).
+    ``allowed_fn`` (the per-node vocab restriction) is not ported yet."""
+    if allowed_fn is not None:
+        raise NotImplementedError("allowed_fn (the per-node vocab restriction) is not ported "
+                                  "yet (ROADMAP.md, Queue 1)")
     if denoise_model.vocab_conditioning:
-        raise NotImplementedError(
-            "vocab_conditioning needs the round-based ARSampler (sampling/ar.py), which is "
-            "not ported yet (ROADMAP.md, Queue 1)")
+        return ARSampler(denoise_model, beam_size=beam_size, can_assemble=can_assemble,
+                         refine_hook=refine_hook, buckets=buckets)
     return LatticeSampler(denoise_model, beam_size=beam_size, buckets=buckets,
                           can_assemble=can_assemble, refine_hook=refine_hook)
 
@@ -70,6 +85,66 @@ def chunk_seed(seed: int, first: int) -> int:
     """Seed of the torch.Generator of the coarse chunk whose first molecule
     is ``first``."""
     return int(np.random.SeedSequence([seed, first]).generate_state(1, np.uint64)[0])
+
+
+class _BlurFeeder:
+    """Feeds the coarse chunks to ``LatticeSampler.sample_streamed``.
+
+    Keeps ``inflight`` coarse chunks (default 2) launched, each with its
+    packed samples copied to the host behind an event (``HostCopy``).
+    ``pump()`` does not wait: it takes in the chunks whose copy has landed
+    and launches the next. ``collect_next()`` waits for the oldest. The
+    chunk plan and the chunks' seeds are ``sample_blur``'s, so the point
+    sets are bitwise those of the serial path. In eager PyTorch a launch
+    runs the chain's whole host loop, so the overlap is single-threaded:
+    the fine stage works between launches."""
+
+    def __init__(self, pipe: "GenerationPipeline", seed: int, counts: np.ndarray,
+                 batch_size: Optional[int] = None, inflight: Optional[int] = None):
+        self.pipe = pipe
+        self.seed = seed
+        self.counts = counts
+        self.chunks = pipe._plan_chunks(counts, batch_size)
+        self.total = len(counts)
+        self.blur: List[Optional[Dict[str, np.ndarray]]] = [None] * self.total
+        self.inflight = deque()
+        self.pos = 0
+        self.budget = int(inflight or os.environ.get("HIERDIFF_COARSE_INFLIGHT", "2"))
+        self.t_last_coarse: Optional[float] = None
+        self._top_up()
+
+    def _top_up(self) -> None:
+        while len(self.inflight) < self.budget and self.pos < len(self.chunks):
+            nb, chunk = self.chunks[self.pos]
+            self.pos += 1
+            xh = self.pipe._dispatch_coarse(self.seed, self.counts, nb, chunk)
+            self.inflight.append((chunk, HostCopy((xh,))))
+
+    @property
+    def done(self) -> bool:
+        return not self.inflight and self.pos >= len(self.chunks)
+
+    def _absorb(self, chunk, copy: HostCopy) -> list:
+        self.pipe._absorb_coarse(chunk, copy.wait()[0], self.counts, self.blur)
+        if self.done:
+            self.t_last_coarse = time.perf_counter()
+        return list(chunk)
+
+    def pump(self) -> List[list]:
+        out = []
+        while self.inflight and self.inflight[0][1].is_ready():
+            chunk, copy = self.inflight.popleft()
+            self._top_up()               # keep the device fed before reading
+            out.append(self._absorb(chunk, copy))
+        self._top_up()
+        return out
+
+    def collect_next(self) -> List[list]:
+        if not self.inflight:
+            return []
+        chunk, copy = self.inflight.popleft()
+        self._top_up()                   # launch the next before waiting
+        return [self._absorb(chunk, copy)]
 
 
 @dataclasses.dataclass
@@ -151,35 +226,67 @@ class GenerationPipeline:
             out[i] = {"x": xh[row, :c, :nd],
                       "h": round_int_features(xh[row, :c, nd:], self.int_nf)}
 
-    def sample_blur(self, seed: int, n_molecules: int) -> List[Dict[str, np.ndarray]]:
-        """Stage 1: coarse point sets, sizes from the histogram prior drawn
-        with ``np.random.default_rng(seed)``. Every chunk is queued first,
-        then each is copied to the host once."""
-        counts = self._sample_counts(np.random.default_rng(seed), n_molecules)
-        out: List[Optional[Dict[str, np.ndarray]]] = [None] * n_molecules
+    def _blur_for_counts(self, seed: int, counts: np.ndarray,
+                         batch_size: Optional[int] = None) -> List[Dict[str, np.ndarray]]:
+        """Stage 1 for given node counts: every chunk is queued first, then
+        each is copied to the host once."""
+        out: List[Optional[Dict[str, np.ndarray]]] = [None] * len(counts)
         pending = [(chunk, self._dispatch_coarse(seed, counts, nb, chunk))
-                   for nb, chunk in self._plan_chunks(counts)]
+                   for nb, chunk in self._plan_chunks(counts, batch_size)]
         for chunk, xh in pending:
             self._absorb_coarse(chunk, xh.cpu().numpy(), counts, out)
         return out  # type: ignore[return-value]
 
-    def run(self, seed: int, n_molecules: int, reconstruct: bool = True,
-            n_workers: int = 0) -> PipelineResult:
-        """Coarse, fine, then reconstruction, one after the other. ``stats``
-        holds the wall seconds of each (``t_coarse``, ``t_fine``; the refine
-        hook's ``finalize`` counts in ``t_fine``). With ``reconstruct``, RDKit
-        present and a vocabulary set, the trees that were assembled become
-        molecules (``n_workers`` > 1: a process pool), and ``stats`` gains
-        the reconstruction's valid, unique, avg_atoms and ``t_reconstruct``."""
-        t0 = time.perf_counter()
-        blur = self.sample_blur(seed, n_molecules)
-        t1 = time.perf_counter()
-        trees = self.sampler.sample(blur)
+    def sample_blur(self, seed: int, n_molecules: int,
+                    batch_size: Optional[int] = None) -> List[Dict[str, np.ndarray]]:
+        """Stage 1: coarse point sets, sizes from the histogram prior drawn
+        with ``np.random.default_rng(seed)``."""
+        counts = self._sample_counts(np.random.default_rng(seed), n_molecules)
+        return self._blur_for_counts(seed, counts, batch_size)
+
+    def _overlap(self, overlap: Optional[bool]) -> bool:
+        """Whether to overlap stages 1 and 2: by default (None) whenever the
+        fine sampler can stream, unless HIERDIFF_PIPE_OVERLAP=0."""
+        if overlap is None:
+            overlap = os.environ.get("HIERDIFF_PIPE_OVERLAP", "1") != "0"
+        return bool(overlap) and hasattr(self.sampler, "sample_streamed")
+
+    def _blur_and_trees(self, seed: int, counts: np.ndarray, batch_size: Optional[int],
+                        overlap: bool):
+        """Stages 1 and 2 for given node counts, the hook's ``finalize``
+        included: (blur, trees, the wall when the last coarse chunk
+        landed)."""
+        if overlap:
+            feeder = _BlurFeeder(self, seed, counts, batch_size)
+            trees = self.sampler.sample_streamed(feeder)
+            blur = feeder.blur
+            t1 = feeder.t_last_coarse or time.perf_counter()
+        else:
+            blur = self._blur_for_counts(seed, counts, batch_size)
+            t1 = time.perf_counter()
+            trees = self.sampler.sample(blur)
         hook = self.sampler.refine_hook
         if hook is not None:
             # end-of-search repair of non-assemblable fragments
             # (reference: model_refine.py:252-299 check_final_tree)
             trees = [hook.finalize(t) if t is not None else None for t in trees]
+        return blur, trees, t1
+
+    def run(self, seed: int, n_molecules: int, reconstruct: bool = True,
+            n_workers: int = 0, batch_size: Optional[int] = None,
+            overlap: Optional[bool] = None) -> PipelineResult:
+        """Coarse, fine, then reconstruction. ``overlap`` (default: on,
+        ``_overlap``) streams the coarse chunks into the fine stage; the
+        point sets are the same either way. ``stats`` holds ``t_coarse``
+        (overlapped: the wall until the last coarse chunk landed, with fine
+        work already done under it) and ``t_fine`` (the rest, the hook's
+        ``finalize`` included). With ``reconstruct``, RDKit present and a
+        vocabulary set, the trees that were assembled become molecules
+        (``n_workers`` > 1: a process pool), and ``stats`` gains the
+        reconstruction's valid, unique, avg_atoms and ``t_reconstruct``."""
+        t0 = time.perf_counter()
+        counts = self._sample_counts(np.random.default_rng(seed), n_molecules)
+        blur, trees, t1 = self._blur_and_trees(seed, counts, batch_size, self._overlap(overlap))
         t2 = time.perf_counter()
         result = PipelineResult(blur=blur, trees=trees,
                                 stats={"t_coarse": t1 - t0, "t_fine": t2 - t1})
@@ -191,6 +298,51 @@ class GenerationPipeline:
             result.stats["t_reconstruct"] = time.perf_counter() - t2
         return result
 
+    def run_streamed(self, seed: int, n_molecules: int, chunk_size: int = 1024,
+                     n_workers: int = 2, batch_size: Optional[int] = None,
+                     memoize: bool = False) -> PipelineResult:
+        """Generation in macro-chunks of ``chunk_size`` molecules with stage
+        3 overlapped: each chunk's trees are reconstructed in a forked
+        process pool (``map_async``; the workers touch no CUDA) while the
+        next chunk samples on the card. Chunk k draws its counts from one
+        ``np.random.default_rng(seed)`` stream, and its coarse chunks take
+        ``chunk_seed(seed, 1000 + k)`` as their run's seed. Without RDKit or
+        a vocabulary it is ``run`` without reconstruction. ``memoize`` turns
+        on the workers' reconstruction caches. ``stats``: the
+        reconstruction's panel, ``t_device`` (stages 1 and 2, summed over
+        the chunks) and ``t_total``."""
+        if not (has_rdkit() and self.vocab is not None):
+            return self.run(seed, n_molecules, reconstruct=False, batch_size=batch_size)
+        import multiprocessing as mp
+
+        from hierdiff_torch.chem.reconstruct import _pool_init, _pool_one, summarize_outputs
+
+        rng_np = np.random.default_rng(seed)
+        overlap = self._overlap(None)
+        t0 = time.perf_counter()
+        t_device = 0.0
+        blur_all: List[Dict[str, np.ndarray]] = []
+        trees_all: List[Optional[TreeState]] = []
+        pending = []
+        # fork: the workers inherit sys.modules (an RDKit stand-in included)
+        with mp.get_context("fork").Pool(max(n_workers, 1), initializer=_pool_init,
+                                         initargs=(self.vocab, memoize)) as pool:
+            for k, c0 in enumerate(range(0, n_molecules, chunk_size)):
+                m = min(chunk_size, n_molecules - c0)
+                td = time.perf_counter()
+                counts = self._sample_counts(rng_np, m)
+                blur, trees, _ = self._blur_and_trees(chunk_seed(seed, 1000 + k), counts,
+                                                      batch_size, overlap)
+                t_device += time.perf_counter() - td
+                blur_all.extend(blur)
+                trees_all.extend(trees)
+                jt = [tree_state_to_moltree(t, self.vocab) for t in trees if t is not None]
+                pending.append(pool.map_async(_pool_one, jt))
+            outputs = [o for p in pending for o in p.get()]
+        results, stats = summarize_outputs(outputs)
+        out = PipelineResult(blur=blur_all, trees=trees_all, molecules=results)
+        out.stats = dict(stats, t_device=t_device, t_total=time.perf_counter() - t0)
+        return out
 
 def tree_state_to_moltree(state: TreeState, vocab):
     """A beam-search TreeState -> a ``chem.mol_tree.MolTree`` for

@@ -69,8 +69,10 @@ class RefineHook:
         # score_s = dispatch_s + collect_s on the fused path: dispatch_s is
         # the host's pack-and-enqueue time (which includes the depth bounds'
         # reads), collect_s the wait for the packed copy, walk_s the host
-        # walk over the slots. rounds, fleet_rows and lanes belong to the
-        # native search, which is not ported; they stay 0.
+        # walk over the slots (in the native search: the C++ step, which
+        # walks, commits and expands). rounds, fleet_rows and lanes count
+        # the native search's group rounds, the fleet rows they hand over
+        # (fleet_rows / rounds: mean fleet) and its merged dispatches.
         self.stats = {"pack_s": 0.0, "pack_calls": 0, "score_s": 0.0,
                       "score_calls": 0, "score_rows": 0, "host_s": 0.0,
                       "dispatch_s": 0.0, "collect_s": 0.0, "walk_s": 0.0,
@@ -250,14 +252,20 @@ class RefineHook:
         self.stats["score_rows"] += sp
         return token
 
+    @staticmethod
+    def wait_packed(token, n_rows: int) -> np.ndarray:
+        """Wait for one packed copy (the token of ``_dispatch_fused``): its
+        first n_rows rows, (n_rows, 1 + 4K) float32."""
+        host, ready = token
+        if ready is not None:
+            ready.synchronize()
+        return host.numpy()[:n_rows]
+
     def _collect_fused(self, token, n_rows: int, K: int):
         """Wait for one packed copy and unpack it to numpy (total, node_k,
         wid_k, valid, new_total), trimmed to n_rows."""
         t0 = time.perf_counter()
-        host, ready = token
-        if ready is not None:
-            ready.synchronize()
-        packed = host.numpy()[:n_rows]
+        packed = self.wait_packed(token, n_rows)
         total = packed[:, 0]
         node_k = packed[:, 1: 1 + K].astype(np.int64)
         wid_k = packed[:, 1 + K: 1 + 2 * K].astype(np.int64)
@@ -369,6 +377,33 @@ class RefineHook:
             token = self._dispatch_fused(base, [states[si].wids for si in chunk], nb, sp)
             pending.append((chunk, token))
         return (K, pending)
+
+    def dispatch_arrays(self, nb: int, feats: np.ndarray, pos: np.ndarray, adj: np.ndarray,
+                        nmask: np.ndarray, wids: np.ndarray) -> List[tuple]:
+        """Chunk, pad and enqueue a fleet that is already packed: ``rows``
+        states at bucket nb as arrays (rows, nb, ...), from the native
+        search. The policy of ``dispatch_batch``: at most
+        ``fleet_chunk_rows`` rows per check, every chunk padded to
+        ``fleet_pad_rows``, padding rows unassigned, the same
+        ``_dispatch_fused`` token. Returns [(rows in chunk, token), ...];
+        ``wait_packed(token, rows)`` collects each."""
+        rows = len(feats)
+        max_states = self.fleet_chunk_rows(nb)
+        sp = self.fleet_pad_rows(nb)   # one shape per bucket
+        pending = []
+        for c0 in range(0, rows, max_states):
+            c1 = min(rows, c0 + max_states)
+            cnt = c1 - c0
+            t0 = time.perf_counter()
+            padded = []
+            for a in (feats, pos, adj, nmask):
+                p = np.zeros((sp,) + a.shape[1:], np.float32)
+                p[:cnt] = a[c0:c1]
+                padded.append(_to_device(p, self.device))
+            self.stats["pack_s"] += time.perf_counter() - t0
+            self.stats["pack_calls"] += 1
+            pending.append((cnt, self._dispatch_fused(tuple(padded), list(wids[c0:c1]), nb, sp)))
+        return pending
 
     def collect_batch(self, token, states: List[TreeState]) -> List[Tuple[TreeState, float, bool]]:
         """Second half of ``check_batch``: unpack each chunk's packed copy,

@@ -414,7 +414,7 @@ def test_gated_search_equals_jax(searches, refine):
     psampler = port_lattice.LatticeSampler(PortDenoise(hidden_nf=16), beam_size=3,
                                            can_assemble=s["gate"], refine_hook=phook,
                                            rng=random.Random(7), buckets=(NB,),
-                                           refine_group_cap=0)
+                                           refine_group_cap=0, native_search=False)
     with jax.default_matmul_precision("highest"):
         want = jsampler._search(s["blur"], s["jax_lattices"])
         if refine:
@@ -429,6 +429,27 @@ def test_gated_search_equals_jax(searches, refine):
     for t in got:
         if t is not None:
             assert all(s["gate"](t, i) for i in range(t.n))
+
+
+def test_native_gated_search_equals_jax(searches):
+    """The native gated search (the gate's memoized verdict called back
+    from C++) over the same lattices is JAX's Python search with JAX's gate,
+    tree for tree, and leaves the tiebreak stream where JAX's leaves it."""
+    s = searches
+    jrng, prng = random.Random(7), random.Random(7)
+    jsampler = jax_lattice.LatticeSampler(EdgeDenoise(hidden_nf=16), None, beam_size=3,
+                                          can_assemble=s["jax_gate"], rng=jrng,
+                                          native_search=False, buckets=(NB,))
+    psampler = port_lattice.LatticeSampler(PortDenoise(hidden_nf=16), beam_size=3,
+                                           can_assemble=s["gate"], rng=prng, buckets=(NB,))
+    with jax.default_matmul_precision("highest"):
+        want = jsampler._search(s["blur"], s["jax_lattices"])
+    hits = s["gate"].cache_info().hits + s["gate"].cache_info().misses
+    got = psampler._search(s["blur"], s["lattices"])
+    assert s["gate"].cache_info().hits + s["gate"].cache_info().misses > hits
+    _same_trees(got, want)
+    assert any(t is not None for t in got)
+    assert prng.getstate() == jrng.getstate()
 
 
 # --- 4. the pipeline and the CLIs -------------------------------------------------

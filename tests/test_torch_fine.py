@@ -509,7 +509,14 @@ def test_generate_cli_writes_the_jax_layout(tmp_path):
 
 
 def test_vocab_conditioning_and_bf16_are_refused():
+    """Refused: the fine stage's bf16 and the per-node vocab restriction
+    (both still queued). ``vocab_conditioning`` builds the round-based
+    sampler since it was ported."""
+    from hierdiff_torch.sampling.ar import ARSampler
+
+    conditioned = PortDenoise(hidden_nf=16, vocab_conditioning=True)
+    assert isinstance(port_pipeline.build_fine_sampler(conditioned), ARSampler)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_pipeline.build_fine_sampler(PortDenoise(hidden_nf=16, vocab_conditioning=True))
+        port_pipeline.build_fine_sampler(conditioned, allowed_fn=lambda feats: [])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PortDenoise(hidden_nf=16, compute_dtype="bfloat16")

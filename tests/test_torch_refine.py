@@ -452,7 +452,7 @@ def test_refine_sampler_over_jax_lattices_is_jax_search(fx, search):
                                           buckets=(NB,))
     psampler = port_lattice.LatticeSampler(search["port"], beam_size=2, buckets=(NB,),
                                            refine_hook=phook, rng=random.Random(7),
-                                           refine_group_cap=cap)
+                                           refine_group_cap=cap, native_search=False)
     groups = psampler._refine_groups(blur)
     assert groups == jsampler._refine_groups(blur) and len(groups) == 2
     jrec = _Recorder(jhook, groups, np.asarray)
@@ -502,8 +502,11 @@ def _small_hook(fx):
 
 
 def _port_sampler(search, hook, **kw):
+    """The Python refine-on searches (the native ones are held to them in
+    tests/test_torch_native.py)."""
     return port_lattice.LatticeSampler(search["port"], beam_size=2, buckets=SMALL_BUCKETS,
-                                       refine_hook=hook, rng=random.Random(7), **kw)
+                                       refine_hook=hook, rng=random.Random(7),
+                                       native_search=False, **kw)
 
 
 def test_pipelined_search_is_the_sequential_group_searches(fx, search):
