@@ -7,15 +7,15 @@ bookkeeping runs on the host through the shared priority-queue search
 per-candidate and final assembly gates, the refine hook's checks).
 
 This path is needed when the fragment types the beam picks feed back into
-the model's inputs: ``vocab_conditioning=True``, or the size variant's fp
-replacement (``vocab_fps``, ar_sampling.py:170-182). Otherwise the lattice
+the model's inputs (``vocab_conditioning=True``); otherwise the lattice
 sampler (``sampling/lattice.py``) computes every expansion in one run per
 chunk, and ``build_fine_sampler`` picks it.
 
 The fleet is packed by ``runtime.pack_ar_fleet_native`` when the treekit
 library is built, else by the Python packer (``pack_fleet_python``); both
-give the same arrays bit for bit. Not ported yet (ROADMAP.md, Queue 1): the
-per-node vocab restriction (``allowed_fn``).
+give the same arrays bit for bit. Not ported: the per-node vocab
+restriction (``allowed_fn``, ROADMAP.md Queue 1) and the size variant's fp
+replacement (``vocab_fps``), which no caller sets.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import torch
 from hierdiff_torch.data.collate import DEFAULT_BUCKETS, bucket_for
 from hierdiff_torch.models.edge_denoise import EdgeDenoise
 from hierdiff_torch.sampling.beam import Expansion, PQBeamSearch, TreeState
-from hierdiff_torch.sampling.lattice import LATTICE_KEYS, HostCopy, _next_pow2
+from hierdiff_torch.sampling.lattice import LATTICE_KEYS, HostCopy, LatticeSampler, _next_pow2
 
 UNDISCOVERED_TOKEN = 780
 
@@ -79,18 +79,13 @@ class DeviceExpander:
     dense pass costs the square of its bucket, but every extra call costs its
     launches)."""
 
-    def __init__(self, model: EdgeDenoise,
-                 allowed_fn: Optional[Callable[[np.ndarray], List[np.ndarray]]] = None,
-                 buckets: Optional[Sequence[int]] = None):
-        if allowed_fn is not None:
-            raise NotImplementedError("allowed_fn (the per-node vocab restriction) is not "
-                                      "ported yet (ROADMAP.md, Queue 1)")
+    def __init__(self, model: EdgeDenoise, buckets: Optional[Sequence[int]] = None):
         if model.gated and not model.dynamic_depth:
             # inference: bound the depth loops by the trees' actual depth
             model = model.clone(dynamic_depth=True)
         self.model = model
         self.buckets = tuple(buckets) if buckets else DEFAULT_BUCKETS
-        self.stats = {"steps": 0, "rows": 0, "native_packs": 0}
+        self.stats = {"steps": 0, "native_packs": 0}
 
     def _batch_step(self, states: Sequence[TreeState]) -> Dict[str, np.ndarray]:
         """Pad the fleet to one bucket and a pow2 row count (the fleet size
@@ -111,10 +106,9 @@ class DeviceExpander:
         on = lambda a, dtype=None: torch.from_numpy(a).to(device, dtype)  # noqa: E731
         out = self.model.ar_step(on(feats), on(disc), on(vocab, torch.int64), on(pos), on(adj),
                                  on(nmask))
-        host = HostCopy({k: out[k] for k in LATTICE_KEYS}).wait()
+        host = HostCopy([out[k] for k in LATTICE_KEYS]).wait()
         self.stats["steps"] += 1
-        self.stats["rows"] += bp
-        return {k: v[:b] for k, v in host.items()}
+        return {k: v[:b] for k, v in zip(LATTICE_KEYS, host)}
 
     def __call__(self, states: List[TreeState]) -> List[Expansion]:
         max_bucket = bucket_for(max(s.n for s in states), self.buckets)
@@ -144,49 +138,30 @@ class ARSampler:
                  can_assemble: Optional[Callable[[TreeState, int], bool]] = None,
                  refine_hook=None,
                  allowed_fn: Optional[Callable[[np.ndarray], List[np.ndarray]]] = None,
-                 vocab_fps: Optional[np.ndarray] = None,
-                 retry_final_gate: bool = True,
                  rng: Optional[random.Random] = None,
                  buckets: Optional[Sequence[int]] = None):
-        """vocab_fps (V, F): replace a typed node's blur features with the
-        fragment's own fp row (size variant, ar_sampling.py:170-182).
+        """rng: the search's tiebreak stream (None: ``random.Random(2022)``).
         allowed_fn must be None (not ported yet)."""
+        if allowed_fn is not None:
+            raise NotImplementedError("allowed_fn (the per-node vocab restriction) is not "
+                                      "ported yet (ROADMAP.md, Queue 1)")
         self.model = model
         self.beam_size = beam_size
         self.can_assemble = can_assemble
         self.refine_hook = refine_hook
-        self.expander = DeviceExpander(model, allowed_fn=allowed_fn, buckets=buckets)
-        self.buckets = self.expander.buckets
-        self.vocab_fps = vocab_fps
-        self.retry_final_gate = retry_final_gate
+        self.expander = DeviceExpander(model, buckets=buckets)
         self.rng = rng
 
-    def sample(self, blur_sets: Sequence[Dict[str, np.ndarray]],
-               max_rounds: Optional[int] = None) -> List[Optional[TreeState]]:
+    def sample(self, blur_sets: Sequence[Dict[str, np.ndarray]]) -> List[Optional[TreeState]]:
         """Assemble junction trees for a batch of coarse samples.
 
         blur_sets: per molecule {'x': (n, 3), 'h': (n, F)}, h integer-rounded
         (ar_sampling_nosize.py:388). Returns the best completed tree per
-        molecule (None on failure). ``max_rounds`` caps the expansions per
-        molecule at that many times its size (the search's default is
-        40)."""
+        molecule (None on failure)."""
         if not blur_sets:
             return []
-        init = []
-        for idx, jt in enumerate(blur_sets):
-            n = jt["h"].shape[0]
-            init.append(TreeState(feats=np.asarray(jt["h"], np.float32),
-                                  pos=np.asarray(jt["x"], np.float32),
-                                  adj=np.zeros((n, n), np.float32),
-                                  wids=np.full(n, -1, np.int64), index=idx))
-        feats_for_wid = None
-        if self.vocab_fps is not None:
-            fps = self.vocab_fps
-            feats_for_wid = lambda wid: fps[wid]  # noqa: E731
+        init = LatticeSampler._init_states(blur_sets, range(len(blur_sets)))
         search = PQBeamSearch(self.expander, beam_size=self.beam_size,
                               can_assemble=self.can_assemble, refine_hook=self.refine_hook,
-                              rng=self.rng, retry_final_gate=self.retry_final_gate,
-                              feats_for_wid=feats_for_wid)
-        if max_rounds is not None:
-            search.max_expansions_factor = max(1, max_rounds)
+                              rng=self.rng)
         return search.run(init)

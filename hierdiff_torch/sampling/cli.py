@@ -413,9 +413,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="with RDKit: generate in chunks of this many molecules, each "
                          "reconstructed by the --workers pool while the next samples "
                          "(run_streamed; 0: one run)")
-    pg.add_argument("--overlap", action=argparse.BooleanOptionalAction, default=None,
-                    help="stream the coarse chunks into the fine stage (default: on unless "
-                         "HIERDIFF_PIPE_OVERLAP=0); the point sets are the same either way")
+    pg.add_argument("--overlap", action=argparse.BooleanOptionalAction, default=True,
+                    help="stream the coarse chunks into the fine stage (default on); the "
+                         "point sets are the same either way")
     fine_args(pg, "generated.pkl")
     pg.set_defaults(fn=cmd_generate)
 

@@ -97,32 +97,25 @@ class HostCopy:
     """Tensors copied to the host behind one event: on CUDA each goes to
     pinned memory without a sync and one ``torch.cuda.Event`` is recorded
     behind the copies; CPU tensors are ready as they are. ``is_ready`` asks
-    without waiting, ``wait`` returns the numpy arrays in the input's
-    structure (a dict or a tuple)."""
+    without waiting, ``wait`` returns the numpy arrays in order."""
 
-    def __init__(self, tensors):
-        self.keys = list(tensors) if isinstance(tensors, dict) else None
-        values = list(tensors.values()) if self.keys is not None else list(tensors)
-        self.event = None
-        if any(v.is_cuda for v in values):
-            host = []
-            for v in values:
-                h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                h.copy_(v, non_blocking=True)
-                host.append(h)
+    def __init__(self, tensors: Sequence[torch.Tensor]):
+        self.host, self.event = list(tensors), None
+        if any(t.is_cuda for t in self.host):
+            pinned = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in self.host]
+            for p, t in zip(pinned, self.host):
+                p.copy_(t, non_blocking=True)
             self.event = torch.cuda.Event()
             self.event.record()
-            values = host
-        self.host = values
+            self.host = pinned
 
     def is_ready(self) -> bool:
         return self.event is None or self.event.query()
 
-    def wait(self):
+    def wait(self) -> List[np.ndarray]:
         if self.event is not None:
             self.event.synchronize()
-        arrays = [h.numpy() for h in self.host]
-        return dict(zip(self.keys, arrays)) if self.keys is not None else tuple(arrays)
+        return [t.numpy() for t in self.host]
 
 
 def _group_seed(base: int, members) -> int:
@@ -234,14 +227,14 @@ class LatticeSampler:
                 c0 += take
                 arrays = pad_blur(blur_sets, chunk, _next_pow2(len(chunk)), nb)
                 out = self.model.ar_lattice(*(torch.from_numpy(a).to(device) for a in arrays))
-                pending.append((chunk, HostCopy({k: out[k] for k in LATTICE_KEYS})))
+                pending.append((chunk, HostCopy([out[k] for k in LATTICE_KEYS])))
         return pending
 
     @staticmethod
     def _collect_lattice(chunk, out, blur_sets, lattices) -> None:
         """Wait for one chunk's host copy and split it into per-molecule
         MoleculeLattice entries."""
-        out = out.wait()
+        out = dict(zip(LATTICE_KEYS, out.wait()))
         for row, i in enumerate(chunk):
             n = blur_sets[i]["h"].shape[0]
             lattices[i] = MoleculeLattice(

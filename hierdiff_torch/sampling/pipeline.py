@@ -38,7 +38,6 @@ the chunks run in.
 from __future__ import annotations
 
 import dataclasses
-import os
 import time
 from collections import deque
 from typing import Dict, List, Mapping, Optional, Sequence
@@ -59,15 +58,11 @@ from hierdiff_torch.sampling.lattice import HostCopy, LatticeSampler, _next_pow2
 
 def build_fine_sampler(denoise_model: EdgeDenoise, *, beam_size: int = 5,
                        buckets: Optional[Sequence[int]] = None, can_assemble=None,
-                       refine_hook=None, allowed_fn=None):
+                       refine_hook=None):
     """Stage-2 sampler for a denoise model, with the assembly gate
     ``can_assemble`` and the refine hook's checks in its search when they
     are given: the lattice sampler, or the round-based ``ARSampler`` when
-    type choices feed back into the trajectory (``vocab_conditioning``).
-    ``allowed_fn`` (the per-node vocab restriction) is not ported yet."""
-    if allowed_fn is not None:
-        raise NotImplementedError("allowed_fn (the per-node vocab restriction) is not ported "
-                                  "yet (ROADMAP.md, Queue 1)")
+    type choices feed back into the trajectory (``vocab_conditioning``)."""
     if denoise_model.vocab_conditioning:
         return ARSampler(denoise_model, beam_size=beam_size, can_assemble=can_assemble,
                          refine_hook=refine_hook, buckets=buckets)
@@ -87,20 +82,23 @@ def chunk_seed(seed: int, first: int) -> int:
     return int(np.random.SeedSequence([seed, first]).generate_state(1, np.uint64)[0])
 
 
+COARSE_INFLIGHT = 2      # coarse chunks the feeder keeps launched
+
+
 class _BlurFeeder:
     """Feeds the coarse chunks to ``LatticeSampler.sample_streamed``.
 
-    Keeps ``inflight`` coarse chunks (default 2) launched, each with its
-    packed samples copied to the host behind an event (``HostCopy``).
-    ``pump()`` does not wait: it takes in the chunks whose copy has landed
-    and launches the next. ``collect_next()`` waits for the oldest. The
-    chunk plan and the chunks' seeds are ``sample_blur``'s, so the point
-    sets are bitwise those of the serial path. In eager PyTorch a launch
+    Keeps COARSE_INFLIGHT coarse chunks launched, each with its packed
+    samples copied to the host behind an event (``HostCopy``). ``pump()``
+    does not wait: it takes in the chunks whose copy has landed and
+    launches the next. ``collect_next()`` waits for the oldest. The chunk
+    plan and the chunks' seeds are the serial path's, so the point sets are
+    bitwise the same. In eager PyTorch a launch
     runs the chain's whole host loop, so the overlap is single-threaded:
     the fine stage works between launches."""
 
     def __init__(self, pipe: "GenerationPipeline", seed: int, counts: np.ndarray,
-                 batch_size: Optional[int] = None, inflight: Optional[int] = None):
+                 batch_size: Optional[int] = None):
         self.pipe = pipe
         self.seed = seed
         self.counts = counts
@@ -109,12 +107,11 @@ class _BlurFeeder:
         self.blur: List[Optional[Dict[str, np.ndarray]]] = [None] * self.total
         self.inflight = deque()
         self.pos = 0
-        self.budget = int(inflight or os.environ.get("HIERDIFF_COARSE_INFLIGHT", "2"))
         self.t_last_coarse: Optional[float] = None
         self._top_up()
 
     def _top_up(self) -> None:
-        while len(self.inflight) < self.budget and self.pos < len(self.chunks):
+        while len(self.inflight) < COARSE_INFLIGHT and self.pos < len(self.chunks):
             nb, chunk = self.chunks[self.pos]
             self.pos += 1
             xh = self.pipe._dispatch_coarse(self.seed, self.counts, nb, chunk)
@@ -237,26 +234,19 @@ class GenerationPipeline:
             self._absorb_coarse(chunk, xh.cpu().numpy(), counts, out)
         return out  # type: ignore[return-value]
 
-    def sample_blur(self, seed: int, n_molecules: int,
-                    batch_size: Optional[int] = None) -> List[Dict[str, np.ndarray]]:
+    def sample_blur(self, seed: int, n_molecules: int) -> List[Dict[str, np.ndarray]]:
         """Stage 1: coarse point sets, sizes from the histogram prior drawn
         with ``np.random.default_rng(seed)``."""
         counts = self._sample_counts(np.random.default_rng(seed), n_molecules)
-        return self._blur_for_counts(seed, counts, batch_size)
-
-    def _overlap(self, overlap: Optional[bool]) -> bool:
-        """Whether to overlap stages 1 and 2: by default (None) whenever the
-        fine sampler can stream, unless HIERDIFF_PIPE_OVERLAP=0."""
-        if overlap is None:
-            overlap = os.environ.get("HIERDIFF_PIPE_OVERLAP", "1") != "0"
-        return bool(overlap) and hasattr(self.sampler, "sample_streamed")
+        return self._blur_for_counts(seed, counts)
 
     def _blur_and_trees(self, seed: int, counts: np.ndarray, batch_size: Optional[int],
                         overlap: bool):
         """Stages 1 and 2 for given node counts, the hook's ``finalize``
         included: (blur, trees, the wall when the last coarse chunk
-        landed)."""
-        if overlap:
+        landed). ``overlap`` streams the coarse chunks into the fine stage
+        when the fine sampler can take them (the round-based one cannot)."""
+        if overlap and hasattr(self.sampler, "sample_streamed"):
             feeder = _BlurFeeder(self, seed, counts, batch_size)
             trees = self.sampler.sample_streamed(feeder)
             blur = feeder.blur
@@ -274,10 +264,9 @@ class GenerationPipeline:
 
     def run(self, seed: int, n_molecules: int, reconstruct: bool = True,
             n_workers: int = 0, batch_size: Optional[int] = None,
-            overlap: Optional[bool] = None) -> PipelineResult:
-        """Coarse, fine, then reconstruction. ``overlap`` (default: on,
-        ``_overlap``) streams the coarse chunks into the fine stage; the
-        point sets are the same either way. ``stats`` holds ``t_coarse``
+            overlap: bool = True) -> PipelineResult:
+        """Coarse, fine, then reconstruction. ``overlap`` streams the coarse
+        chunks into the fine stage; the point sets are the same either way. ``stats`` holds ``t_coarse``
         (overlapped: the wall until the last coarse chunk landed, with fine
         work already done under it) and ``t_fine`` (the rest, the hook's
         ``finalize`` included). With ``reconstruct``, RDKit present and a
@@ -286,7 +275,7 @@ class GenerationPipeline:
         reconstruction's valid, unique, avg_atoms and ``t_reconstruct``."""
         t0 = time.perf_counter()
         counts = self._sample_counts(np.random.default_rng(seed), n_molecules)
-        blur, trees, t1 = self._blur_and_trees(seed, counts, batch_size, self._overlap(overlap))
+        blur, trees, t1 = self._blur_and_trees(seed, counts, batch_size, overlap)
         t2 = time.perf_counter()
         result = PipelineResult(blur=blur, trees=trees,
                                 stats={"t_coarse": t1 - t0, "t_fine": t2 - t1})
@@ -299,16 +288,15 @@ class GenerationPipeline:
         return result
 
     def run_streamed(self, seed: int, n_molecules: int, chunk_size: int = 1024,
-                     n_workers: int = 2, batch_size: Optional[int] = None,
-                     memoize: bool = False) -> PipelineResult:
+                     n_workers: int = 2, batch_size: Optional[int] = None) -> PipelineResult:
         """Generation in macro-chunks of ``chunk_size`` molecules with stage
         3 overlapped: each chunk's trees are reconstructed in a forked
         process pool (``map_async``; the workers touch no CUDA) while the
-        next chunk samples on the card. Chunk k draws its counts from one
+        next chunk samples on the card; within a chunk the stages overlap as
+        in ``run``. Chunk k draws its counts from one
         ``np.random.default_rng(seed)`` stream, and its coarse chunks take
         ``chunk_seed(seed, 1000 + k)`` as their run's seed. Without RDKit or
-        a vocabulary it is ``run`` without reconstruction. ``memoize`` turns
-        on the workers' reconstruction caches. ``stats``: the
+        a vocabulary it is ``run`` without reconstruction. ``stats``: the
         reconstruction's panel, ``t_device`` (stages 1 and 2, summed over
         the chunks) and ``t_total``."""
         if not (has_rdkit() and self.vocab is not None):
@@ -318,7 +306,6 @@ class GenerationPipeline:
         from hierdiff_torch.chem.reconstruct import _pool_init, _pool_one, summarize_outputs
 
         rng_np = np.random.default_rng(seed)
-        overlap = self._overlap(None)
         t0 = time.perf_counter()
         t_device = 0.0
         blur_all: List[Dict[str, np.ndarray]] = []
@@ -326,13 +313,13 @@ class GenerationPipeline:
         pending = []
         # fork: the workers inherit sys.modules (an RDKit stand-in included)
         with mp.get_context("fork").Pool(max(n_workers, 1), initializer=_pool_init,
-                                         initargs=(self.vocab, memoize)) as pool:
+                                         initargs=(self.vocab,)) as pool:
             for k, c0 in enumerate(range(0, n_molecules, chunk_size)):
                 m = min(chunk_size, n_molecules - c0)
                 td = time.perf_counter()
                 counts = self._sample_counts(rng_np, m)
                 blur, trees, _ = self._blur_and_trees(chunk_seed(seed, 1000 + k), counts,
-                                                      batch_size, overlap)
+                                                      batch_size, True)
                 t_device += time.perf_counter() - td
                 blur_all.extend(blur)
                 trees_all.extend(trees)

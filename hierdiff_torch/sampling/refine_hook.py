@@ -34,7 +34,7 @@ from hierdiff_torch.data.refine import MASK_TOKEN, size_support_indices
 from hierdiff_torch.models.refine import NodeRefine
 from hierdiff_torch.ops.masked import masked_log_softmax
 from hierdiff_torch.sampling.beam import TreeState
-from hierdiff_torch.sampling.lattice import _next_pow2
+from hierdiff_torch.sampling.lattice import HostCopy, _next_pow2
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> Tensor:
@@ -235,16 +235,8 @@ class RefineHook:
         for i, w in enumerate(wids_rows):
             wids[i, :len(w)] = w
             wids[i, len(w):] = -1     # padding nodes read as unassigned
-        dev = self._fused_check(feats, _to_device(wids, self.device), pos, adj, nmask, nb,
-                                margins)
-        if dev.is_cuda:
-            host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
-            host.copy_(dev, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-            token = (host, ready)
-        else:
-            token = (dev, None)
+        token = HostCopy((self._fused_check(feats, _to_device(wids, self.device), pos, adj,
+                                            nmask, nb, margins),))
         dt = time.perf_counter() - t0
         self.stats["score_s"] += dt
         self.stats["dispatch_s"] += dt
@@ -253,13 +245,10 @@ class RefineHook:
         return token
 
     @staticmethod
-    def wait_packed(token, n_rows: int) -> np.ndarray:
+    def wait_packed(token: HostCopy, n_rows: int) -> np.ndarray:
         """Wait for one packed copy (the token of ``_dispatch_fused``): its
         first n_rows rows, (n_rows, 1 + 4K) float32."""
-        host, ready = token
-        if ready is not None:
-            ready.synchronize()
-        return host.numpy()[:n_rows]
+        return token.wait()[0][:n_rows]
 
     def _collect_fused(self, token, n_rows: int, K: int):
         """Wait for one packed copy and unpack it to numpy (total, node_k,

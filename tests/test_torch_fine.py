@@ -517,6 +517,6 @@ def test_vocab_conditioning_and_bf16_are_refused():
     conditioned = PortDenoise(hidden_nf=16, vocab_conditioning=True)
     assert isinstance(port_pipeline.build_fine_sampler(conditioned), ARSampler)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_pipeline.build_fine_sampler(conditioned, allowed_fn=lambda feats: [])
+        ARSampler(conditioned, allowed_fn=lambda feats: [])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PortDenoise(hidden_nf=16, compute_dtype="bfloat16")

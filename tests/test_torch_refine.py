@@ -304,7 +304,7 @@ def test_fused_check_matches_jax_under_the_margin_rule(fx):
     pstates = _port_states(states)
     token = phook._dispatch_fused(phook._pack_states(pstates, NB, sp), wids_rows, NB, sp,
                                   margins=True)
-    got = token[0].numpy()[:len(states)]
+    got = phook.wait_packed(token, len(states))
     assert got.shape == (len(states), 1 + 6 * K + 1) and ref.shape == (len(states), 1 + 4 * K)
     report = compare_fused(ref, got[:, :1 + 4 * K], K, _jax_margins(fx, jhook, states),
                            margin=MARGIN, tol=F32_REL)
@@ -456,7 +456,7 @@ def test_refine_sampler_over_jax_lattices_is_jax_search(fx, search):
     groups = psampler._refine_groups(blur)
     assert groups == jsampler._refine_groups(blur) and len(groups) == 2
     jrec = _Recorder(jhook, groups, np.asarray)
-    prec = _Recorder(phook, groups, lambda dev: dev[0].numpy())
+    prec = _Recorder(phook, groups, lambda dev: dev.wait()[0])
     with jax.default_matmul_precision("highest"):
         want = jsampler._search(blur, lattices)
     got = psampler._search(blur, lattices)

@@ -93,15 +93,15 @@ def test_overlapped_run_is_the_serial_run(refine_on):
 
 def test_feeder_keeps_the_serial_chunk_plan():
     pipe = _pipe(False)
-    counts = pipe._sample_counts(np.random.default_rng(3), 40)
-    feeder = port_pipeline._BlurFeeder(pipe, 3, counts, batch_size=None, inflight=1)
-    assert feeder.chunks == pipe._plan_chunks(counts)
-    assert len(feeder.inflight) == 1 and feeder.pos == 1
+    counts = np.array([2, 6, 9, 14, 18] * 8)             # 4 pad buckets: 4 coarse chunks
+    feeder = port_pipeline._BlurFeeder(pipe, 3, counts)
+    assert feeder.chunks == pipe._plan_chunks(counts) and len(feeder.chunks) > 2
+    assert len(feeder.inflight) == feeder.pos == port_pipeline.COARSE_INFLIGHT
     got = []
     while not feeder.done:
         got += feeder.pump() or feeder.collect_next()
     assert [sorted(c) for c in got] == [sorted(c) for _, c in feeder.chunks]
-    want = pipe.sample_blur(3, 40)
+    want = pipe._blur_for_counts(3, counts)
     for a, b in zip(feeder.blur, want):
         np.testing.assert_array_equal(a["x"], b["x"])
     assert feeder.t_last_coarse is not None
