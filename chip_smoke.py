@@ -1752,8 +1752,9 @@ def reconstruct_eval_phase(cli, generated: dict) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         src, out, js = Path(tmp) / "gen.pkl", Path(tmp) / "rec.pkl", Path(tmp) / "m.json"
         src.write_bytes(generated["pickle"])
-        rec = cli.main(["reconstruct", "--trees-pkl", str(src), "--workers", "2",
-                        "--out", str(out)])
+        with wall_cap(PHASE_CAP_S, "4p"):
+            rec = cli.main(["reconstruct", "--trees-pkl", str(src), "--workers", "2",
+                            "--out", str(out)])
         same = (canonical(rec["molecules"]) == canonical(generated["molecules"])
                 and {k: rec["stats"][k] for k in keys}
                 == {k: generated["stats"][k] for k in keys})

@@ -13,6 +13,7 @@ under a process pool overlapping device compute.
 from __future__ import annotations
 
 import copy
+import gc
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -263,6 +264,12 @@ _WORKER_REC = None
 
 def _pool_init(vocab, memoize: bool = False):
     global _WORKER_REC
+    # a forked worker must never free what it inherited: freeing a CUDA or
+    # pinned-host tensor calls into a CUDA context the child cannot use, and
+    # aborts it (the pool then waits forever). Its collector would do so for
+    # any cyclic garbage the parent had not collected yet, so the inherited
+    # objects are moved out of its reach.
+    gc.freeze()
     _WORKER_REC = TreeReconstructor(vocab, memoize=memoize)
 
 

@@ -97,7 +97,10 @@ class HostCopy:
     """Tensors copied to the host behind one event: on CUDA each goes to
     pinned memory without a sync and one ``torch.cuda.Event`` is recorded
     behind the copies; CPU tensors are ready as they are. ``is_ready`` asks
-    without waiting, ``wait`` returns the numpy arrays in order."""
+    without waiting, ``wait`` returns the numpy arrays in order: copies out
+    of the pinned buffers, since a view would tie the buffer (whose release
+    calls CUDA) to lattices, point sets and trees that a forked
+    reconstruction worker inherits."""
 
     def __init__(self, tensors: Sequence[torch.Tensor]):
         self.host, self.event = list(tensors), None
@@ -113,9 +116,10 @@ class HostCopy:
         return self.event is None or self.event.query()
 
     def wait(self) -> List[np.ndarray]:
-        if self.event is not None:
-            self.event.synchronize()
-        return [t.numpy() for t in self.host]
+        if self.event is None:
+            return [t.numpy() for t in self.host]
+        self.event.synchronize()
+        return [t.numpy().copy() for t in self.host]
 
 
 def _group_seed(base: int, members) -> int:
