@@ -97,8 +97,9 @@ Phases, one output line each, any failure exits non-zero:
      the coarse kernels' launches exactly 12 fused_gcl and 6
      fused_coord_update per model call (100 reverse steps and the final one)
      per coarse chunk; molecules/s, t_coarse and t_fine; overlapped (the
-     default: coarse chunks stream into the fine stage), then with
-     ``--no-overlap``: the point sets and the trees bitwise equal (every
+     default: coarse chunks stream into the fine stage), then with its
+     stages one after the other (``tools/overlap_ab.serial_stages``): the
+     point sets and the trees bitwise equal (every
      bucket arrives in one coarse chunk), launches exact in both;
   4g. the refine stage: ``sampling.cli assemble --denoise-init-seed 0
      --refine-init-seed 0`` at the GEOM refine width (H=256, 2 layers per
@@ -630,19 +631,21 @@ def generate_phase(cli, ek, num: int = 64, steps: int = 100, refine: bool = Fals
                    overlap: bool = True):
     """Phase 4f (4h with ``refine``: the refine model's checks in the
     search): ``sampling.cli generate`` from the GEOM histogram to trees,
-    overlapped (the default) or with ``--no-overlap``; the coarse kernels'
+    overlapped (the default) or under ``serial_stages``; the coarse kernels'
     launches must be exact for the chunk plan. Returns (stats, launches,
     the pipeline's result, the pipeline)."""
+    from hierdiff_torch.tools.overlap_ab import serial_stages
+
     name = ("generate, refine on" if refine else "generate") + (
         "" if overlap else ", overlap off")
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "generated.pkl"
         ek.reset_launch_counts()
-        run = cli.main(["generate", "--init-seed", "0", "--denoise-init-seed", "0",
-                        *(["--refine-init-seed", "0"] if refine else []),
-                        "--overlap" if overlap else "--no-overlap",
-                        "--num", str(num), "--sample-steps", str(steps), "--beam", "5",
-                        "--seed", str(SEED), "--out", str(out)])
+        with contextlib.nullcontext() if overlap else serial_stages():
+            run = cli.main(["generate", "--init-seed", "0", "--denoise-init-seed", "0",
+                            *(["--refine-init-seed", "0"] if refine else []),
+                            "--num", str(num), "--sample-steps", str(steps), "--beam", "5",
+                            "--seed", str(SEED), "--out", str(out)])
         torch.cuda.synchronize()
         launches = dict(ek.launch_counts)
         with open(out, "rb") as f:

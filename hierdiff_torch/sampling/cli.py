@@ -10,8 +10,8 @@ reconstruction to molecules and the pipeline from a histogram to molecules.
     python -m hierdiff_torch.sampling.cli assemble --coarse-pkl samples.pkl \\
         --denoise-weights denoise.pt --out trees.pkl
     # all stages: histogram -> trees -> molecules (with RDKit); the coarse
-    # chunks stream into the fine stage unless --no-overlap; --chunk-size
-    # reconstructs each chunk in the worker pool while the next samples
+    # chunks stream into the fine stage; --chunk-size reconstructs each
+    # chunk in the worker pool while the next samples
     python -m hierdiff_torch.sampling.cli generate --init-seed 0 \\
         --denoise-init-seed 0 --num 64 --sample-steps 100 [--workers 4] \\
         [--chunk-size 1024]
@@ -298,8 +298,7 @@ def cmd_generate(args) -> dict:
         result = pipe.run_streamed(args.seed, args.num, chunk_size=args.chunk_size,
                                    n_workers=args.workers)
     else:
-        result = pipe.run(args.seed, args.num, reconstruct=has_rdkit(), n_workers=args.workers,
-                          overlap=args.overlap)
+        result = pipe.run(args.seed, args.num, reconstruct=has_rdkit(), n_workers=args.workers)
     seconds = time.perf_counter() - t0
     ok = sum(t is not None for t in result.trees)
     st = result.stats
@@ -413,9 +412,6 @@ def build_parser() -> argparse.ArgumentParser:
                     help="with RDKit: generate in chunks of this many molecules, each "
                          "reconstructed by the --workers pool while the next samples "
                          "(run_streamed; 0: one run)")
-    pg.add_argument("--overlap", action=argparse.BooleanOptionalAction, default=True,
-                    help="stream the coarse chunks into the fine stage (default on); the "
-                         "point sets are the same either way")
     fine_args(pg, "generated.pkl")
     pg.set_defaults(fn=cmd_generate)
 

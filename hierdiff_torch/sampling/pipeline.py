@@ -97,12 +97,11 @@ class _BlurFeeder:
     runs the chain's whole host loop, so the overlap is single-threaded:
     the fine stage works between launches."""
 
-    def __init__(self, pipe: "GenerationPipeline", seed: int, counts: np.ndarray,
-                 batch_size: Optional[int] = None):
+    def __init__(self, pipe: "GenerationPipeline", seed: int, counts: np.ndarray):
         self.pipe = pipe
         self.seed = seed
         self.counts = counts
-        self.chunks = pipe._plan_chunks(counts, batch_size)
+        self.chunks = pipe._plan_chunks(counts)
         self.total = len(counts)
         self.blur: List[Optional[Dict[str, np.ndarray]]] = [None] * self.total
         self.inflight = deque()
@@ -223,13 +222,12 @@ class GenerationPipeline:
             out[i] = {"x": xh[row, :c, :nd],
                       "h": round_int_features(xh[row, :c, nd:], self.int_nf)}
 
-    def _blur_for_counts(self, seed: int, counts: np.ndarray,
-                         batch_size: Optional[int] = None) -> List[Dict[str, np.ndarray]]:
+    def _blur_for_counts(self, seed: int, counts: np.ndarray) -> List[Dict[str, np.ndarray]]:
         """Stage 1 for given node counts: every chunk is queued first, then
         each is copied to the host once."""
         out: List[Optional[Dict[str, np.ndarray]]] = [None] * len(counts)
         pending = [(chunk, self._dispatch_coarse(seed, counts, nb, chunk))
-                   for nb, chunk in self._plan_chunks(counts, batch_size)]
+                   for nb, chunk in self._plan_chunks(counts)]
         for chunk, xh in pending:
             self._absorb_coarse(chunk, xh.cpu().numpy(), counts, out)
         return out  # type: ignore[return-value]
@@ -240,19 +238,18 @@ class GenerationPipeline:
         counts = self._sample_counts(np.random.default_rng(seed), n_molecules)
         return self._blur_for_counts(seed, counts)
 
-    def _blur_and_trees(self, seed: int, counts: np.ndarray, batch_size: Optional[int],
-                        overlap: bool):
+    def _blur_and_trees(self, seed: int, counts: np.ndarray, overlap: bool):
         """Stages 1 and 2 for given node counts, the hook's ``finalize``
         included: (blur, trees, the wall when the last coarse chunk
         landed). ``overlap`` streams the coarse chunks into the fine stage
         when the fine sampler can take them (the round-based one cannot)."""
         if overlap and hasattr(self.sampler, "sample_streamed"):
-            feeder = _BlurFeeder(self, seed, counts, batch_size)
+            feeder = _BlurFeeder(self, seed, counts)
             trees = self.sampler.sample_streamed(feeder)
             blur = feeder.blur
             t1 = feeder.t_last_coarse or time.perf_counter()
         else:
-            blur = self._blur_for_counts(seed, counts, batch_size)
+            blur = self._blur_for_counts(seed, counts)
             t1 = time.perf_counter()
             trees = self.sampler.sample(blur)
         hook = self.sampler.refine_hook
@@ -263,19 +260,20 @@ class GenerationPipeline:
         return blur, trees, t1
 
     def run(self, seed: int, n_molecules: int, reconstruct: bool = True,
-            n_workers: int = 0, batch_size: Optional[int] = None,
-            overlap: bool = True) -> PipelineResult:
+            n_workers: int = 0, overlap: bool = True) -> PipelineResult:
         """Coarse, fine, then reconstruction. ``overlap`` streams the coarse
-        chunks into the fine stage; the point sets are the same either way. ``stats`` holds ``t_coarse``
-        (overlapped: the wall until the last coarse chunk landed, with fine
-        work already done under it) and ``t_fine`` (the rest, the hook's
+        chunks into the fine stage (off: one stage after the other, the
+        reference the tests hold it to); the point sets are the same either
+        way. ``stats`` holds ``t_coarse`` (overlapped: the wall until the
+        last coarse chunk landed, with fine work already done under it) and
+        ``t_fine`` (the rest, the hook's
         ``finalize`` included). With ``reconstruct``, RDKit present and a
         vocabulary set, the trees that were assembled become molecules
         (``n_workers`` > 1: a process pool), and ``stats`` gains the
         reconstruction's valid, unique, avg_atoms and ``t_reconstruct``."""
         t0 = time.perf_counter()
         counts = self._sample_counts(np.random.default_rng(seed), n_molecules)
-        blur, trees, t1 = self._blur_and_trees(seed, counts, batch_size, overlap)
+        blur, trees, t1 = self._blur_and_trees(seed, counts, overlap)
         t2 = time.perf_counter()
         result = PipelineResult(blur=blur, trees=trees,
                                 stats={"t_coarse": t1 - t0, "t_fine": t2 - t1})
@@ -288,7 +286,7 @@ class GenerationPipeline:
         return result
 
     def run_streamed(self, seed: int, n_molecules: int, chunk_size: int = 1024,
-                     n_workers: int = 2, batch_size: Optional[int] = None) -> PipelineResult:
+                     n_workers: int = 2) -> PipelineResult:
         """Generation in macro-chunks of ``chunk_size`` molecules with stage
         3 overlapped: each chunk's trees are reconstructed in a forked
         process pool (``map_async``; the workers touch no CUDA) while the
@@ -300,7 +298,7 @@ class GenerationPipeline:
         reconstruction's panel, ``t_device`` (stages 1 and 2, summed over
         the chunks) and ``t_total``."""
         if not (has_rdkit() and self.vocab is not None):
-            return self.run(seed, n_molecules, reconstruct=False, batch_size=batch_size)
+            return self.run(seed, n_molecules, reconstruct=False)
         import multiprocessing as mp
 
         from hierdiff_torch.chem.reconstruct import _pool_init, _pool_one, summarize_outputs
@@ -318,8 +316,7 @@ class GenerationPipeline:
                 m = min(chunk_size, n_molecules - c0)
                 td = time.perf_counter()
                 counts = self._sample_counts(rng_np, m)
-                blur, trees, _ = self._blur_and_trees(chunk_seed(seed, 1000 + k), counts,
-                                                      batch_size, True)
+                blur, trees, _ = self._blur_and_trees(chunk_seed(seed, 1000 + k), counts, True)
                 t_device += time.perf_counter() - td
                 blur_all.extend(blur)
                 trees_all.extend(trees)

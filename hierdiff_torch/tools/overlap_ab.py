@@ -4,8 +4,9 @@
 
 Each pair runs ``sampling.cli generate`` at the GEOM configuration (random
 weights from seed 0, 100 strided coarse steps, beam 5; with ``--refine``
-the refine model's checks too) once with ``--overlap`` and once with
-``--no-overlap``, in one process after one unrecorded warm-up run,
+the refine model's checks too) once as it is (overlapped) and once under
+``serial_stages`` (one stage after the other), in one process after one
+unrecorded warm-up run,
 alternating which goes first. Prints the card's name and power limit, one
 JSON line per run (molecules/s, ``t_coarse``, ``t_fine``, the refine hook's
 counters) and the quartiles of each metric per mode, and fails if a pair's
@@ -15,12 +16,29 @@ point sets or trees differ. Needs a CUDA GPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import subprocess
 import tempfile
 from pathlib import Path
 
 import numpy as np
+
+
+@contextlib.contextmanager
+def serial_stages():
+    """Within the block, ``GenerationPipeline.run`` runs its stages one
+    after the other (``overlap=False``), so that ``sampling.cli generate``,
+    which always overlaps, can be driven both ways."""
+    from hierdiff_torch.sampling.pipeline import GenerationPipeline
+
+    run = GenerationPipeline.run
+    GenerationPipeline.run = functools.partialmethod(run, overlap=False)
+    try:
+        yield
+    finally:
+        GenerationPipeline.run = run
 
 
 def main(argv=None) -> None:
@@ -37,11 +55,11 @@ def main(argv=None) -> None:
     rows = {"on": [], "off": []}
     with tempfile.TemporaryDirectory() as tmp:
         def generate(mode: str):
-            return cli.main(["generate", "--init-seed", "0", "--denoise-init-seed", "0",
-                             *(["--refine-init-seed", "0"] if args.refine else []),
-                             "--overlap" if mode == "on" else "--no-overlap",
-                             "--num", str(args.num), "--sample-steps", "100", "--beam", "5",
-                             "--seed", "0", "--out", str(Path(tmp) / f"{mode}.pkl")])
+            with serial_stages() if mode == "off" else contextlib.nullcontext():
+                return cli.main(["generate", "--init-seed", "0", "--denoise-init-seed", "0",
+                                 *(["--refine-init-seed", "0"] if args.refine else []),
+                                 "--num", str(args.num), "--sample-steps", "100", "--beam", "5",
+                                 "--seed", "0", "--out", str(Path(tmp) / f"{mode}.pkl")])
 
         generate("off")   # warm-up, not recorded: the kernels' build and first calls
         for pair in range(args.pairs):

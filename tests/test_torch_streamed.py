@@ -4,6 +4,7 @@ and ``run_streamed`` (reconstruction in a process pool) on the CPU, at a
 tiny size (coarse hidden 16 x 1 layer, 10 timesteps; denoise and refine
 hidden 16, 1 + 1 layers)."""
 
+import contextlib
 import pickle
 import sys
 from pathlib import Path
@@ -23,6 +24,7 @@ from hierdiff_torch.models.refine import NodeRefine as PortRefine  # noqa: E402
 from hierdiff_torch.sampling import cli as port_cli  # noqa: E402
 from hierdiff_torch.sampling import pipeline as port_pipeline  # noqa: E402
 from hierdiff_torch.sampling.refine_hook import RefineHook  # noqa: E402
+from hierdiff_torch.tools.overlap_ab import serial_stages  # noqa: E402
 from hierdiff_torch.utils import weights as port_weights  # noqa: E402
 
 SMALL_ROWS = 4
@@ -107,20 +109,35 @@ def test_feeder_keeps_the_serial_chunk_plan():
     assert feeder.t_last_coarse is not None
 
 
-def test_generate_cli_overlap_flag(tmp_path, capsys):
-    """``generate --no-overlap`` and the default write the same trees."""
+def test_generate_cli_overlap_flag(tmp_path, capsys, monkeypatch):
+    """``generate`` has no overlap flag: it always overlaps, and writes the
+    trees of its stages run one after the other (``serial_stages``)."""
     tiny = ["denoise.hidden_nf=16", "denoise.n_layers_full=1", "denoise.n_layers_focal=1",
             "coarse.hidden_nf=16", "coarse.n_layers=1"]
-    trees = {}
-    for flag in ("--overlap", "--no-overlap"):
-        out = tmp_path / f"gen{flag}.pkl"
-        port_cli.main(["generate", "--init-seed", "0", "--denoise-init-seed", "0",
-                       "--device", "cpu", "--num", "5", "--sample-steps", "3", "--max-nodes",
-                       "7", "--beam", "2", flag, "--out", str(out), *tiny])
+    argv = ["generate", "--init-seed", "0", "--denoise-init-seed", "0", "--device", "cpu",
+            "--num", "5", "--sample-steps", "3", "--max-nodes", "7", "--beam", "2", *tiny]
+    with pytest.raises(SystemExit):
+        port_cli.main(argv + ["--no-overlap", "--out", str(tmp_path / "refused.pkl")])
+    feeders = []
+    feeder = port_pipeline._BlurFeeder
+    monkeypatch.setattr(port_pipeline, "_BlurFeeder", lambda *a: feeders.append(1) or feeder(*a))
+    run, trees = port_pipeline.GenerationPipeline.run, {}
+    for mode in ("on", "off"):
+        out = tmp_path / f"gen_{mode}.pkl"
+        with serial_stages() if mode == "off" else contextlib.nullcontext():
+            port_cli.main(argv + ["--out", str(out)])
+        assert len(feeders) == 1                     # only the overlapped run fed chunks
         with open(out, "rb") as f:
-            trees[flag] = pickle.load(f)["trees"]
-    for a, b in zip(trees["--overlap"], trees["--no-overlap"]):
+            trees[mode] = pickle.load(f)["trees"]
+    assert port_pipeline.GenerationPipeline.run is run              # restored after the block
+    assert len(trees["on"]) == len(trees["off"]) == 5
+    assert any(t is not None for t in trees["on"])
+    for a, b in zip(trees["on"], trees["off"]):
+        assert (a is None) == (b is None)
+        if a is None:
+            continue
         np.testing.assert_array_equal(a["wids"], b["wids"])
+        np.testing.assert_array_equal(a["adj"], b["adj"])
         assert a["logp"] == b["logp"]
 
 
