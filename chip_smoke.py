@@ -323,25 +323,23 @@ def cache_after_step(ek, DenseGCL, init_weights, gen, device, h, e, em, nm, g) -
     return out
 
 
-def card_against_cpu(cli, ek, CoarseModelConfig, init_weights, gen, device) -> dict:
-    """The gradient of one training loss at GEOM width (f32 elementwise, B=8,
-    injected t and noise) on the card (kernels) and on the CPU (plain). The
-    CPU runs the batch a second time in reverse order: the same loss, summed
-    in another order, so a parameter's gradient that moves by
-    ``ROUNDING_SHARE`` of its size or more is at rounding level, and neither
-    its card value nor its being nonzero is held to the CPU's."""
-    from hierdiff_torch.data.collate import collate_coarse
-    from hierdiff_torch.data.synthetic import SyntheticTreeGenerator
+def card_against_cpu(ek, model, batch: dict, what: str, show=()) -> dict:
+    """The gradient of one training loss of ``model`` (on the card, in
+    training mode) on the numpy ``batch`` with injected t and noise, on the
+    card (kernels) and on the CPU (plain). The CPU runs the batch a second
+    time in reverse order: the same loss, summed in another order, so a
+    parameter's gradient that moves by ``ROUNDING_SHARE`` of its size or more
+    is at rounding level, and neither its card value nor its being nonzero
+    is held to the CPU's. The errors of the parameters whose names start
+    with one of ``show`` are printed and returned by name."""
     from hierdiff_torch.ops.masked import combine_noise
 
-    batch = collate_coarse(SyntheticTreeGenerator(seed=SEED).sample_trees(8))
     rng = np.random.default_rng(SEED + 1)
     b, n = batch["atom_mask"].shape[:2]
-    t_int = torch.from_numpy(rng.integers(0, 1001, size=(b, 1)))
+    t_int = torch.from_numpy(rng.integers(0, model.timesteps + 1, size=(b, 1)))
     eps = combine_noise(torch.from_numpy(rng.standard_normal((b, n, 11)).astype(np.float32)),
                         torch.from_numpy(batch["atom_mask"]), 3)
-    model = init_weights(cli.build_coarse_from_cfg(CoarseModelConfig(), "float32", device),
-                         gen()).train()
+    device = next(model.parameters()).device
 
     def grads_on(m, dev, order=slice(None)):
         m.zero_grad(set_to_none=True)
@@ -372,8 +370,11 @@ def card_against_cpu(cli, ek, CoarseModelConfig, init_weights, gen, device) -> d
     glob = math.sqrt(sum(diff2.values()) / sum(ref2.values()))
     missing = sorted(k for k, v in card.items() if not torch.isfinite(v).all()
                      or (k not in rounding and not v.abs().max() > 0))
-    ok = glob < 2e-2 and not missing and launches["fused_gcl_bwd"] == 12
-    print(f"step gradients, card against CPU: GEOM H={H} f32 elementwise, B={b} N={n}: global "
+    ok = (glob < 2e-2 and not missing and launches["fused_gcl_bwd"] == 12
+          and all(v is not None and v < 2e-2 for v in ({k: per.get(k) for k in cpu
+                                                         if k.startswith(tuple(show))}.values()
+                                                        if show else ())))
+    print(f"step gradients, card against CPU: {what}, B={b} N={n}: global "
           f"relative L2 error {glob:.3e} (bar 2e-2), worst tensor above rounding {worst} "
           f"{per[worst]:.3e}, worst outside the gamma network {worst_egnn} "
           f"{egnn[worst_egnn]:.3e}; launches on the card {launches}; parameters without a "
@@ -381,7 +382,10 @@ def card_against_cpu(cli, ek, CoarseModelConfig, init_weights, gen, device) -> d
           f"reversing the batch order moves the CPU gradient): "
           + ", ".join(f"{k} cpu {r['cpu_l2']:.4g} moved {r['moved_by_reversal']:.3g} card "
                       f"{r['card_l2']:.4g}" for k, r in rounding.items()))
-    return {"global_rel_l2": glob, "worst_tensor": worst, "worst_rel_l2": per[worst],
+    shown = {k: per.get(k) for k in cpu if k.startswith(tuple(show))} if show else {}
+    if shown:
+        print(f"  of them: {shown} (None: at rounding level)")
+    return {"global_rel_l2": glob, "worst_tensor": worst, "worst_rel_l2": per[worst], **shown,
             "worst_egnn_tensor": worst_egnn, "worst_egnn_rel_l2": egnn[worst_egnn],
             "launches": launches, "missing": missing, "rounding_level": rounding, "ok": ok}
 
@@ -406,12 +410,22 @@ def holey_inputs(rng: np.random.Generator, device, b: int, n: int):
             cdiff.contiguous(), dev(holey[..., None]), dev(nm), dev(full[..., None]))
 
 
-def coord_work(counts: np.ndarray, b: int, n: int):
+def complete_graphs(counts: np.ndarray):
+    """(real edges, real nodes) of molecules of ``counts`` nodes, each fully
+    connected without self-loops."""
+    c = counts.astype(np.int64)
+    return float((c * (c - 1)).sum()), float(c.sum())
+
+
+def mask_edges_nodes(edge_mask: torch.Tensor, node_mask: torch.Tensor):
+    """(real edges, real nodes): nonzeros of the masks, any pattern."""
+    return float((edge_mask != 0).sum().item()), float((node_mask != 0).sum().item())
+
+
+def coord_work(n_edges: float, n_nodes: float, b: int, n: int):
     """fused_coord_update's least work for a batch: bf16 FLOPs (edge MLP,
     head and the node projections), SFU operations and bytes over the real
     edges and nodes (each input read once, out written)."""
-    c = counts.astype(np.int64)
-    n_edges, n_nodes = float((c * (c - 1)).sum()), float(c.sum())
     flops = n_edges * (2 * H * H + 2 * E * H + 2 * H) + n_nodes * 4 * H * H
     sfu = n_edges * (4 * H + 1)
     nbytes = (b * n * H * 4 + b * n * n * E * 4 + b * n * n * 3 * 4 + b * n * n * 4 + b * n * 4
@@ -419,11 +433,9 @@ def coord_work(counts: np.ndarray, b: int, n: int):
     return flops, sfu, nbytes
 
 
-def gcl_work(counts: np.ndarray, b: int, n: int):
+def gcl_work(n_edges: float, n_nodes: float, b: int, n: int):
     """fused_gcl's least work for a batch: bf16 FLOPs, SFU operations and
     bytes over the real edges and nodes (each input read once, out written)."""
-    c = counts.astype(np.int64)
-    n_edges, n_nodes = float((c * (c - 1)).sum()), float(c.sum())
     flops = n_edges * (2 * H * H + 2 * E * H + 2 * H) + n_nodes * 10 * H * H
     sfu = n_edges * (4 * H + 2) + n_nodes * 2 * H
     nbytes = (b * n * H * 4 * 2 + b * n * n * E * 4 + b * n * n * 4 + b * n * 4
@@ -431,12 +443,10 @@ def gcl_work(counts: np.ndarray, b: int, n: int):
     return flops, sfu, nbytes
 
 
-def bwd_work(counts: np.ndarray, b: int, n: int):
+def bwd_work(n_edges: float, n_nodes: float, b: int, n: int):
     """fused_gcl_bwd's least work for a batch: bf16 FLOPs, SFU operations and
     bytes over the real edges and nodes (each input read once, each output
     written once)."""
-    c = counts.astype(np.int64)
-    n_edges, n_nodes = float((c * (c - 1)).sum()), float(c.sum())
     # per real edge: the rematerialised u W2, du = dv W2^T and dW2 += u^T dv
     # (6 H^2), the pair/edge terms (e W_e, de, dW_e: 6 E H) and the gate
     # (forward dot, datt, dw_att: 6 H); per node the node-MLP backward with
@@ -1885,6 +1895,431 @@ def ar_phase(cli, ek, coarse_pkl: bytes, device) -> dict:
     return res
 
 
+# ---- 4s, 4t: the pocket-conditioned (CrossDocked) family
+#
+# configs/coarse_crossdock.yaml at its published width (H=256, 6 blocks of 2
+# GCLs + 1 coordinate update, f32 elementwise, cross edges on). Training runs
+# on synthetic pockets of K=16 residues (train/data_iters.synthetic_pockets);
+# sampling conditions on a pocket read from a PDB file the smoke writes from
+# a seed: POCKET_CA residues within POCKET_RADIUS of the site centre (the
+# origin) and POCKET_FAR residues outside it.
+
+CROSSDOCK = "configs/coarse_crossdock.yaml"
+POCKET_STEPS = 20          # 4s training steps, batch 32 (the config's)
+POCKET_CA, POCKET_FAR, POCKET_RADIUS = 32, 8, 10.0
+POCKET_SAMPLES, POCKET_SAMPLE_STEPS = 64, 100
+
+
+def write_pocket_pdb(path: Path, seed: int) -> None:
+    """C-alpha ATOM records in the fixed-width PDB layout: POCKET_CA residues
+    3-9 A from the origin, POCKET_FAR at 15-25 A, random residue types."""
+    from hierdiff_torch.chem.pocket import RESIDUE_LIST
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(POCKET_CA + POCKET_FAR):
+        d = rng.standard_normal(3)
+        r = (3.0 + 6.0 * rng.random()) if i < POCKET_CA else (15.0 + 10.0 * rng.random())
+        x, y, z = d / np.linalg.norm(d) * r
+        res = RESIDUE_LIST[int(rng.integers(len(RESIDUE_LIST)))]
+        rows.append(f"ATOM  {i + 1:5d}  CA  {res} A{i + 1:4d}    {x:8.3f}{y:8.3f}{z:8.3f}"
+                    "  1.00  0.00           C")
+    path.write_text("\n".join(rows) + "\n")
+
+
+def pocket_layer_inputs(batch: dict, device, seed: int):
+    """A DenseGCL's inputs at a pocket batch's shape: random h (B, n_mol+K,
+    H) on the real rows, the edge features of the molecule's and pocket's
+    positions, the pocket edge mask with cross edges, the node mask."""
+    from hierdiff_torch.models.diffusion import pocket_edge_mask
+    from hierdiff_torch.ops.egnn import coord2diff_dense
+
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+    nm = torch.cat([t["atom_mask"], t["protein_feat_mask"]], dim=1).float().contiguous()
+    em = pocket_edge_mask(t["atom_mask"].float(), t["edge_mask"].float(), t["protein_feat_mask"].float(),
+                          t["protein_edge_mask"].float(), True)[..., None].contiguous()
+    x = torch.cat([t["positions"], t["protein_pos"]], dim=1).float() * nm
+    radial, _ = coord2diff_dense(x, 0.0)
+    d0, _ = coord2diff_dense(x, 1.0)
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy(rng.standard_normal(tuple(nm.shape[:2]) + (H,)).astype(np.float32))
+    return h.to(device) * nm, torch.cat([radial, d0], dim=-1).contiguous(), em, nm
+
+
+def pocket_kernel_check(ek, name: str, kernel_fn, plain_fn, base, work, sm_clock_hz, n_sms,
+                        bar: float = TOL) -> dict:
+    """What a forward kernel adds to ``base`` against what its plain version
+    adds, with device times and the bound of ``work`` (bytes, operations)."""
+    out, ref = kernel_fn() - base, plain_fn() - base
+    torch.cuda.synchronize()
+    err, rel = rel_err(out, ref)
+    ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn, reps=5, warmup=1)
+    bound_ms, bound_by, parts = bound(*work, sm_clock_hz, n_sms)
+    ok = bool(torch.isfinite(out).all()) and rel < bar
+    print(f"kernel {name}: rel_err {rel:.3e} (bar {bar}), kernel_ms {ms:.4f} plain_ms "
+          f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) {'ok' if ok else 'FAIL'}")
+    return {"max_abs_err": err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_parts_ms": parts, "ok": ok}
+
+
+def pocket_bwd_check(ek, layer, h, e, em, nm, sm_clock_hz, n_sms, what: str) -> dict:
+    """fused_gcl_bwd against autograd of the plain version on pocket-shaped
+    inputs (every gradient under the f32 bar), its device time, bound and
+    edge slots against nnz(edge_mask)."""
+    g = torch.from_numpy(np.random.default_rng(SEED + 5).standard_normal(
+        tuple(h.shape)).astype(np.float32)).to(h.device)
+    agg = torch.empty_like(h)
+    ek._launch_gcl(layer, h, e, em, nm, h.device, agg_out=agg)
+    kernel_fn = lambda: ek.fused_gcl_bwd(layer, h, e, em, nm, g, agg)  # noqa: E731
+    plain_fn = lambda: ek.gcl_plain_vjp(layer, h, e, em, nm, g)  # noqa: E731
+    got, ref = kernel_fn(), plain_fn()
+    torch.cuda.synchronize()
+    errs = {f: rel_err(a, r) for f, a, r in zip(ek.GclGrads._fields, got, ref)
+            if a is not None and r is not None and r.numel()}   # E = 0: de, w_e empty
+    worst = max(errs, key=lambda f: errs[f][1])
+    computed, real = edge_slots(lambda **kw: ek.fused_gcl_bwd(layer, h, e, em, nm, g, agg, **kw))
+    nnz = int((em != 0).sum().item())
+    want = -(-nnz // ek.BWD_TILE_EDGES) * ek.BWD_TILE_EDGES
+    ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn, reps=5, warmup=1)
+    b, n = h.shape[:2]
+    bound_ms, bound_by, parts = bound(*bwd_work(*mask_edges_nodes(em, nm), b, n), sm_clock_hz, n_sms)
+    ok = (errs[worst][1] < GRAD_TOL[None] and computed == want and real == nnz
+          and all(bool(torch.isfinite(a).all()) for a in got if a is not None))
+    print(f"kernel fused_gcl_bwd [{what}]: worst {worst} rel_err {errs[worst][1]:.3e} (bar "
+          f"{GRAD_TOL[None]}); edge slots {computed} for {real} real edges, nnz(edge_mask) {nnz} of "
+          f"{em.numel()} dense (want {want}); kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+          f"{bound_ms:.4f} ({bound_by}) {'ok' if ok else 'FAIL'}")
+    return {"max_abs_err": max(a for a, _ in errs.values()), "rel_err": errs[worst][1],
+            "worst": worst, "edge_slots": computed, "real_edges": real, "nnz_edge_mask": nnz,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_parts_ms": parts, "ok": ok}
+
+
+def pocket_train_phase(train_cli, cli, ek, device, workdir: Path, sm_clock_hz, n_sms) -> dict:
+    """Phase 4s: ``train.cli coarse --config configs/coarse_crossdock.yaml``
+    for POCKET_STEPS steps at batch 32, f32, synthetic pockets of K=16:
+    rates after the first step, exact launches (12 fused_gcl and 12
+    fused_gcl_bwd a step), the device busy share over three more steps
+    (torch.profiler), both GCL kernels against their plain versions at a
+    training batch's shape with its pocket mask, a step's gradient card vs
+    CPU (pocket_embed included), and one gnn_dynamics and one
+    mean-aggregation forward card vs CPU."""
+    from hierdiff_torch.config import load_config
+    from hierdiff_torch.models.diffusion import CoarseDiffusion
+    from hierdiff_torch.ops.egnn import DenseGCL
+    from hierdiff_torch.parallel.train_step import train_step
+    from hierdiff_torch.train.data_iters import (POCKET_RESIDUES, coarse_iter, finite,
+                                                 load_tree_pool, to_device)
+    from hierdiff_torch.utils.weights import init_weights
+
+    t_phase = time.perf_counter()
+    cfg = load_config(CROSSDOCK, [f"train.seed={SEED}"])
+    ek.reset_launch_counts()
+    train = train_cli.main(["coarse", "--config", CROSSDOCK, "--init-seed", "0",
+                            f"train.workdir={workdir}", f"train.max_steps={POCKET_STEPS}",
+                            "train.log_every=1", "train.eval_every=1000",
+                            "train.checkpoint_every=1000", f"train.seed={SEED}"])
+    torch.cuda.synchronize()
+    launches = dict(ek.launch_counts)
+    gcls, coords = cfg.coarse.n_layers * cfg.coarse.inv_sublayers, cfg.coarse.n_layers
+    expect = {"fused_gcl": gcls * POCKET_STEPS, "fused_gcl_bwd": gcls * POCKET_STEPS,
+              "coord_update_autograd": coords * POCKET_STEPS, "fused_coord_update": 0}
+    with open(workdir / "metrics.csv") as f:
+        rows = [r for r in csv.DictReader(f) if r["split"] == "train"]
+    losses = [float(r["loss"]) for r in rows]
+    batch_size = cfg.train.batch_size
+
+    # the device's busy share over three more steps of the same trainer
+    pool = load_tree_pool(cfg, seed=cfg.train.seed)
+    batches = [to_device(b, device) for b in finite(coarse_iter(cfg, pool, seed=SEED + 7), 4)]
+    state, gen = train["trainer"].state, torch.Generator(device=device).manual_seed(SEED)
+    train_step(state, train_cli.coarse_loss, batches[0], gen)   # warm
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            train_step(state, train_cli.coarse_loss, b, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = profiled_device_ms(prof) / wall_ms
+    n_tots = [int(b["atom_mask"].shape[1] + b["protein_feat_mask"].shape[1]) for b in batches]
+    print(f"pocket training (4s): train CLI {CROSSDOCK} H={cfg.coarse.hidden_nf} "
+          f"{cfg.coarse.n_layers}x{cfg.coarse.inv_sublayers} layers, f32 elementwise, "
+          f"batch {batch_size}, K={POCKET_RESIDUES} synthetic pocket residues, {POCKET_STEPS} "
+          f"steps: {train['seconds']:.3f} s wall, {train['steps_per_sec']:.4f} steps/s and "
+          f"{train['molecules_per_sec']:.3f} molecules/s after the first step; losses "
+          f"{losses[0]:.4g} .. {losses[-1]:.4g}; launches {launches} (expected {expect}); device "
+          f"busy {busy:.3f} of {wall_ms:.1f} ms over 3 steps at n_mol+K = {n_tots[1:]}")
+    if len(rows) != POCKET_STEPS or not all(map(math.isfinite, losses)):
+        fail("a pocket training step gave a non-finite loss")
+    if launches != expect:
+        fail(f"pocket training launch counts {launches} != {expect}")
+
+    # both GCL kernels at a training batch's shape, with its pocket mask
+    big = max(batches, key=lambda b: b["atom_mask"].shape[1])
+    np_big = {k: v.cpu().numpy() for k, v in big.items()}
+    h, e, em, nm = pocket_layer_inputs(np_big, device, SEED + 11)
+    b_, n_ = h.shape[:2]
+    layer = init_weights(DenseGCL(H, E, normalization_factor=cfg.coarse.normalization_factor,
+                                  attention=True).to(device), torch.Generator().manual_seed(SEED))
+    shape = f"B={b_} n_mol+K={n_} fill {float((em != 0).float().mean()):.3f}"
+    with torch.no_grad():
+        fwd = pocket_kernel_check(
+            ek, f"fused_gcl [4s training shape {shape}]",
+            lambda: ek.fused_gcl(layer, h, e, em, nm), lambda: ek.gcl_plain(layer, h, e, em, nm),
+            h, gcl_work(*mask_edges_nodes(em, nm), b_, n_), sm_clock_hz, n_sms)
+    bwd = pocket_bwd_check(ek, layer, h, e, em, nm, sm_clock_hz, n_sms, f"4s training shape {shape}")
+    int32_margin = 2 ** 31 / max(b["atom_mask"].shape[0] * (b["atom_mask"].shape[1]
+                                                             + POCKET_RESIDUES) ** 2
+                                 for b in batches)
+    print(f"int32 edge index guard: the largest training batch's b*n*n is 1/{int32_margin:.0f} "
+          "of 2^31")
+
+    # a step's gradient, card against CPU, pocket_embed included
+    small = load_config(CROSSDOCK, [f"train.seed={SEED}", "train.batch_size=8"])
+    grads = card_against_cpu(
+        ek, init_weights(cli.build_coarse_from_cfg(small.coarse, device=device),
+                         torch.Generator().manual_seed(SEED)).train(),
+        next(coarse_iter(small, pool, seed=SEED + 3)),
+        f"crossdock H={H} f32 elementwise, K={POCKET_RESIDUES} pocket rows", show=("pocket_embed",))
+
+    # gnn_dynamics and mean aggregation: one forward each, card against CPU
+    options = {}
+    xb = big
+    nm_mol, em_mol = xb["atom_mask"].float(), xb["edge_mask"].float()
+    rng = np.random.default_rng(SEED + 13)
+    xh = torch.from_numpy(rng.standard_normal(tuple(nm_mol.shape[:2]) + (11,)).astype(
+        np.float32)).to(device) * nm_mol
+    t = torch.from_numpy(rng.random((nm_mol.shape[0], 1)).astype(np.float32)).to(device)
+    for label, kw, want in [("gnn_dynamics", {"mode": "gnn_dynamics"}, 2),
+                            ("mean aggregation", {"aggregation_method": "mean"}, 0)]:
+        model = init_weights(CoarseDiffusion(in_node_nf=8, hidden_nf=H, n_layers=2, **kw).to(device),
+                             torch.Generator().manual_seed(SEED)).eval()
+        ek.reset_launch_counts()
+        with torch.no_grad():
+            card = model.phi(xh, t, nm_mol, em_mol)
+            torch.cuda.synchronize()
+            got = dict(ek.launch_counts)
+            cpu = copy.deepcopy(model).cpu().phi(xh.cpu(), t.cpu(), nm_mol.cpu(), em_mol.cpu())
+        _, rel = rel_err(card.cpu(), cpu)
+        ok = rel < TOL and got["fused_gcl"] == want and got["fused_coord_update"] == 0
+        print(f"{label} (4s): H={H}, 2 layers, B={nm_mol.shape[0]} N={nm_mol.shape[1]}: card "
+              f"against CPU rel_err {rel:.3e} (bar {TOL}); launches {got} (fused_gcl expected "
+              f"{want}) {'ok' if ok else 'FAIL'}")
+        options[label] = {"rel_err": rel, "launches": got, "ok": ok}
+    # gnn_dynamics trains through the backward kernel with no edge features
+    # over the all-ones mask; the kernels refuse mean aggregation
+    gnn_layer = init_weights(
+        DenseGCL(H, 0, normalization_factor=cfg.coarse.normalization_factor,
+                 attention=True).to(device), torch.Generator().manual_seed(SEED))
+    hg = h[:, :nm_mol.shape[1]].contiguous()
+    ones = torch.ones(hg.shape[:2] + (hg.shape[1], 1), device=device)
+    options["gnn_dynamics backward"] = pocket_bwd_check(
+        ek, gnn_layer, hg, hg.new_zeros(hg.shape[:2] + (hg.shape[1], 0)), ones,
+        torch.ones_like(hg[..., :1]), sm_clock_hz, n_sms, "gnn_dynamics, E=0, all-ones mask")
+    mean = init_weights(DenseGCL(H, E, aggregation_method="mean").to(device),
+                        torch.Generator().manual_seed(SEED))
+    try:
+        with torch.no_grad():
+            ek.fused_gcl(mean, h, e, em, nm)
+        refused = False
+    except ValueError:
+        refused = True
+    print(f"fused_gcl refuses a mean-aggregation layer: {refused}")
+    options["mean refused by the kernel"] = {"ok": refused}
+    if not (fwd["ok"] and bwd["ok"] and grads["ok"] and all(o["ok"] for o in options.values())):
+        fail(f"pocket training: a kernel or a gradient disagrees: fused_gcl {fwd}, "
+             f"fused_gcl_bwd {bwd}, gradients {grads}, options {options}")
+    return {"steps": POCKET_STEPS, "seconds": train["seconds"],
+            "steps_per_sec": train["steps_per_sec"],
+            "molecules_per_sec": train["molecules_per_sec"], "device_busy": busy,
+            "launches": launches, "fused_gcl": fwd, "fused_gcl_bwd": bwd,
+            "step_gradients": grads, "options": options, "int32_margin": int32_margin,
+            "phase_seconds": time.perf_counter() - t_phase}
+
+
+class PocketProbe:
+    """Hooks on every module's forward while a pocket chain runs: counts the
+    GCL and coordinate-update calls by row count, keeps the first call's
+    inputs (and module) at each row count, and accumulates on the device
+    whether the pocket rows of the network's input ever changed and whether
+    the velocity of a pocket row, before the CoM projection, was ever
+    nonzero (``models/dynamics.remove_mean_with_mask``, wrapped)."""
+
+    def __init__(self):
+        from hierdiff_torch.models import dynamics as dyn
+        from hierdiff_torch.models.dynamics import EGNNDynamics
+        from hierdiff_torch.ops.egnn import DenseEquivariantUpdate, DenseGCL
+
+        self.calls, self.first, self.edge_masks = {}, {}, []
+        self.pocket_first = None
+        self.pocket_changed = None
+        self.pocket_vel = None
+        self.mol_shape = None
+        self.kinds = {DenseGCL: "gcl", DenseEquivariantUpdate: "coord"}
+        self.dyn, self.dyn_cls = dyn, EGNNDynamics
+        self._center = dyn.remove_mean_with_mask
+
+    def pre(self, module, args):
+        kind = self.kinds.get(type(module))
+        if kind is not None:
+            n = args[0].shape[1]
+            self.calls[(kind, n)] = self.calls.get((kind, n), 0) + 1
+            if (kind, n) not in self.first:
+                self.first[(kind, n)] = (module, tuple(a.detach().clone() for a in args))
+        elif isinstance(module, self.dyn_cls):
+            self.mol_shape = args[5] if len(args) > 5 else None
+            if self.mol_shape is not None:
+                pocket = args[1][:, self.mol_shape:]
+                if self.pocket_first is None:
+                    self.pocket_first = pocket.clone()
+                    self.pocket_changed = torch.zeros((), device=pocket.device)
+                    em = args[3]
+                    self.edge_masks.append((em[..., 0] if em.ndim == 4 else em).clone())
+                self.pocket_changed += (pocket != self.pocket_first).sum()
+
+    def center(self, vel, node_mask, *a, **kw):
+        if self.mol_shape is not None:
+            moved = vel[:, self.mol_shape:].abs().sum()
+            self.pocket_vel = moved if self.pocket_vel is None else self.pocket_vel + moved
+        return self._center(vel, node_mask, *a, **kw)
+
+    def __enter__(self):
+        self.handle = torch.nn.modules.module.register_module_forward_pre_hook(self.pre)
+        self.dyn.remove_mean_with_mask = self.center
+        return self
+
+    def __exit__(self, *exc):
+        self.handle.remove()
+        self.dyn.remove_mean_with_mask = self._center
+
+
+def pocket_sample_phase(cli, ek, device, ema: Path, tmp: Path, sm_clock_hz, n_sms) -> dict:
+    """Phase 4t: ``sampling.cli coarse --pocket-pdb`` with 4s's ema.pt on a
+    PDB written from a seed (POCKET_CA residues inside POCKET_RADIUS),
+    POCKET_SAMPLES molecules at POCKET_SAMPLE_STEPS strided steps,
+    crossdock-histogram counts: molecules/s of a plain run; then the same
+    run under ``PocketProbe`` (equal to the first bit for bit): exact
+    launches and their row counts, the pocket rows unchanged at every step,
+    zero pocket velocity; samples finite, masked and CoM-free; a second
+    pocket changes the samples; the mask without cross edges is block
+    diagonal; both forward kernels against their plain versions on the
+    chain's own inputs at n_mol+K, with edge slots against nnz; the samples
+    through ``assemble``."""
+    from hierdiff_torch.config import load_config
+    from hierdiff_torch.ops.masked import mean_zero_max_violation, masking_violation
+
+    t_phase = time.perf_counter()
+    pdbs = [tmp / "site_a.pdb", tmp / "site_b.pdb"]
+    for i, pdb in enumerate(pdbs):
+        write_pocket_pdb(pdb, SEED + 20 + i)
+    k = cli.load_pocket(str(pdbs[0]), "0,0,0", POCKET_RADIUS)["protein_feat"].shape[1]
+    if k != POCKET_CA:
+        fail(f"the written pocket has {k} residues within {POCKET_RADIUS} A, not {POCKET_CA}")
+
+    def sample(pdb: Path, out: Path, config: str = CROSSDOCK, num: int = POCKET_SAMPLES,
+               steps: int = POCKET_SAMPLE_STEPS):
+        return cli.main(["coarse", "--config", config, "--weights", str(ema), "--num", str(num),
+                         "--batch-size", str(num), "--steps", str(steps), "--seed", str(SEED),
+                         "--pocket-pdb", str(pdb), "--pocket-center", "0,0,0", "--pocket-radius",
+                         str(POCKET_RADIUS), "--out", str(out)])
+
+    ek.reset_launch_counts()
+    run = sample(pdbs[0], tmp / "pocket_a.pkl")
+    torch.cuda.synchronize()
+    launches = dict(ek.launch_counts)
+    x, h, nm = run["batches"][0]
+    n_mol = nm.shape[1]
+    n_tot = n_mol + k
+    cfg = load_config(CROSSDOCK).coarse
+    gcls, coords, per_chain = cfg.n_layers * cfg.inv_sublayers, cfg.n_layers, POCKET_SAMPLE_STEPS + 1
+    expect = {"fused_gcl": gcls * per_chain, "fused_coord_update": coords * per_chain,
+              "fused_gcl_bwd": 0, "coord_update_autograd": 0}
+    rate = run["molecules"] / run["seconds"]
+    with PocketProbe() as probe:
+        again = sample(pdbs[0], tmp / "pocket_a2.pkl")
+        torch.cuda.synchronize()
+    repeat = torch.equal(again["batches"][0][0], x) and torch.equal(again["batches"][0][1], h)
+    calls_expect = {("gcl", n_tot): gcls * POCKET_SAMPLE_STEPS, ("gcl", n_mol): gcls,
+                    ("coord", n_tot): coords * POCKET_SAMPLE_STEPS, ("coord", n_mol): coords}
+    pocket_changed = int(probe.pocket_changed.item())
+    pocket_vel = float(probe.pocket_vel.item())
+    finite = bool(torch.isfinite(x).all() and torch.isfinite(h).all())
+    masked = max(masking_violation(x, nm).item(), masking_violation(h, nm).item())
+    com = mean_zero_max_violation(x, nm).item()
+    other = sample(pdbs[1], tmp / "pocket_b.pkl")
+    changed = not torch.equal(other["batches"][0][0], x)
+    em_cross = probe.edge_masks[0]
+    nm_p = torch.ones((nm.shape[0], k), device=device)
+    cross_ok = (torch.equal(em_cross[:, :n_mol, n_mol:], nm[:, :, 0, None] * nm_p[:, None, :])
+                and torch.equal(em_cross[:, n_mol:, :n_mol], em_cross[:, :n_mol, n_mol:].transpose(1, 2)))
+    fill = float((em_cross != 0).float().mean())
+    print(f"pocket sampling (4t): sampling CLI {CROSSDOCK} with 4s's ema.pt, "
+          f"{run['molecules']} molecules, steps={POCKET_SAMPLE_STEPS}, K={k} pocket residues "
+          f"(of {POCKET_CA + POCKET_FAR} in the PDB), n_mol={n_mol}: {run['seconds']:.3f} s wall, "
+          f"{rate:.3f} molecules/s; launches {launches} (expected {expect}); calls by rows "
+          f"{probe.calls} (expected {calls_expect}); repeat bitwise {repeat}; pocket input rows "
+          f"changed {pocket_changed} times, pocket velocity before the CoM projection "
+          f"{pocket_vel}; finite={finite} masking_violation={masked} "
+          f"mean_zero_max_violation={com:.3e}; a second pocket changes the samples: {changed}; "
+          f"cross edges are nm_mol x pocket: {cross_ok}; edge fill {fill:.3f} of "
+          f"(B, {n_tot}, {n_tot})")
+
+    # pocket_cross_edges: false gives the block-diagonal mask
+    no_cross = tmp / "crossdock_no_cross.yaml"
+    no_cross.write_text((Path(CROSSDOCK).read_text()).replace("pocket_cross_edges: true",
+                                                               "pocket_cross_edges: false"))
+    assert not load_config(str(no_cross)).coarse.pocket_cross_edges
+    with PocketProbe() as probe_nc:
+        nc = sample(pdbs[0], tmp / "pocket_nc.pkl", str(no_cross), num=8, steps=2)
+    em_nc = probe_nc.edge_masks[0]
+    n_nc = nc["batches"][0][2].shape[1]
+    block_ok = (not em_nc[:, :n_nc, n_nc:].any() and not em_nc[:, n_nc:, :n_nc].any()
+                and bool(em_nc[:, n_nc:, n_nc:].any()) and bool(em_nc[:, :n_nc, :n_nc].any()))
+    print(f"pocket_cross_edges=false: the edge mask is block diagonal: {block_ok}")
+
+    # both forward kernels on the chain's own inputs at n_mol+K
+    gcl_layer, gcl_args = probe.first[("gcl", n_tot)]
+    coord_layer, coord_args = probe.first[("coord", n_tot)]
+    hh, ee, nn_, em_ = gcl_args
+    shape = f"B={hh.shape[0]} n_mol+K={n_tot} fill {fill:.3f}"
+    ch, cx, cd, ce, cn, cm = coord_args
+    with torch.no_grad():
+        fwd = pocket_kernel_check(
+            ek, f"fused_gcl [4t sampling shape {shape}]",
+            lambda: ek.fused_gcl(gcl_layer, hh, ee, em_, nn_),
+            lambda: ek.gcl_plain(gcl_layer, hh, ee, em_, nn_), hh,
+            gcl_work(*mask_edges_nodes(em_, nn_), hh.shape[0], n_tot), sm_clock_hz, n_sms)
+        coord = pocket_kernel_check(
+            ek, f"fused_coord_update [4t sampling shape {shape}]",
+            lambda: ek.fused_coord_update(coord_layer, ch, ce, cd, cx, cm, cn),
+            lambda: ek.coord_update_plain(coord_layer, ch, ce, cd, cx, cm, cn), cx,
+            coord_work(*mask_edges_nodes(cm, cn), ch.shape[0], n_tot), sm_clock_hz, n_sms)
+        slots = pocket_bwd_check(ek, gcl_layer, hh, ee, em_, nn_, sm_clock_hz, n_sms,
+                                 f"4t sampling shape {shape}")
+
+    # the samples feed the fine stage
+    run_asm = cli.main(["assemble", "--coarse-pkl", str(tmp / "pocket_a.pkl"),
+                        "--denoise-init-seed", "0", "--out", str(tmp / "pocket_trees.pkl")])
+    n_trees = sum(t_ is not None for t_ in run_asm["trees"])
+    asm_s = run_asm["lattice_s"] + run_asm["search_s"]
+    print(f"pocket samples through assemble: {n_trees}/{len(run_asm['blur'])} junction trees in "
+          f"{asm_s:.3f} s ({len(run_asm['blur']) / asm_s:.3f} trees/s)")
+    ok = (launches == expect and probe.calls == calls_expect and repeat and pocket_changed == 0
+          and pocket_vel == 0.0 and finite and masked == 0.0 and com < 1e-2 and changed
+          and cross_ok and block_ok and fwd["ok"] and coord["ok"] and slots["ok"]
+          and n_trees == len(run_asm["blur"]))
+    if not ok:
+        fail("pocket sampling: a check failed (see the lines above)")
+    return {"molecules": run["molecules"], "seconds": run["seconds"], "molecules_per_sec": rate,
+            "n_mol": n_mol, "pocket_residues": k, "edge_fill": fill, "launches": launches,
+            "calls_by_rows": {f"{kind}@{n}": c for (kind, n), c in probe.calls.items()},
+            "fused_gcl": fwd, "fused_coord_update": coord, "fused_gcl_bwd_edge_slots": slots,
+            "trees_per_s": len(run_asm["blur"]) / asm_s,
+            "phase_seconds": time.perf_counter() - t_phase}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--parent", type=Path, default=None,
@@ -2005,7 +2440,7 @@ def main() -> None:
                       f"elementwise={cd or 'float32'}",
                       lambda: ek.fused_gcl(layer, h, e, em, nm),
                       lambda: ek.gcl_plain(layer, h, e, em, nm), h)
-    gcl_flops, gcl_sfu, gcl_bytes = gcl_work(counts, B, N)
+    gcl_flops, gcl_sfu, gcl_bytes = gcl_work(*complete_graphs(counts), B, N)
 
     # fused_gcl on shapes and masks that the prefix masks above never give
     s_counts = sampler_counts(B, SEED)
@@ -2069,7 +2504,7 @@ def main() -> None:
         **sampler_and_repeat(
             "fused_gcl", "node_mlp=random attention=True elementwise=float32",
             lambda *a_: ek.fused_gcl(main_gcl, *a_), lambda *a_: ek.gcl_plain(main_gcl, *a_),
-            gcl_work(s_counts, B, s_n), cases[f"sampler shape B={B} N={s_n}"],
+            gcl_work(*complete_graphs(s_counts), B, s_n), cases[f"sampler shape B={B} N={s_n}"],
             {"kernel shape": (h, e, em, nm), "holey masks": cases[f"holey masks B={B} N={N}"]}),
         "parent": parent_rows("fused_gcl", "attention")}
 
@@ -2124,12 +2559,12 @@ def main() -> None:
                       lambda: ek.fused_coord_update(layer, *c_args),
                       lambda: ek.coord_update_plain(layer, *c_args), c_args[3],
                       timed=at_kernel_shape)
-    coord_flops, coord_sfu, coord_bytes = coord_work(counts, B, N)
+    coord_flops, coord_sfu, coord_bytes = coord_work(*complete_graphs(counts), B, N)
     gcl_extra["fused_coord_update"] = {
         **sampler_and_repeat(
             "fused_coord_update", "tanh=True elementwise=float32",
             lambda *a_: ek.fused_coord_update(equ, *a_),
-            lambda *a_: ek.coord_update_plain(equ, *a_), coord_work(s_counts, B, s_n),
+            lambda *a_: ek.coord_update_plain(equ, *a_), coord_work(*complete_graphs(s_counts), B, s_n),
             coord_cases[f"sampler shape B={B} N={s_n}"],
             {"kernel shape": coord_cases[f"kernel shape B={B} N={N}"],
              "holey masks": coord_cases[f"holey masks B={B} N={N}"]}),
@@ -2274,11 +2709,11 @@ def main() -> None:
                  f"nnz(edge_mask) = {nnz}: want {want}")
     s_ms = time_ms(lambda: ek.fused_gcl_bwd(probe, *s_args, s_g, s_agg))
     s_plain_ms = time_ms(lambda: ek.gcl_plain_vjp(probe, *s_args, s_g), reps=5, warmup=1)
-    s_bound = bound(*bwd_work(s_counts, B, s_n), sm_clock_hz, n_sms)
+    s_bound = bound(*bwd_work(*complete_graphs(s_counts), B, s_n), sm_clock_hz, n_sms)
     print(f"kernel fused_gcl_bwd [sampler shape B={B} N={s_n}, node_mlp=random attention=True "
           f"elementwise=float32]: kernel_ms {s_ms:.4f} plain_ms {s_plain_ms:.4f} bound_ms "
           f"{s_bound[0]:.5f} ({s_bound[1]})")
-    bwd_bound = bound(*bwd_work(counts, B, N), sm_clock_hz, n_sms)
+    bwd_bound = bound(*bwd_work(*complete_graphs(counts), B, N), sm_clock_hz, n_sms)
     gcl_extra["fused_gcl_bwd"] = {
         "sampler_shape": {"B": B, "N": s_n, "ms": s_ms, "plain_ms": s_plain_ms,
                           "bound_ms": s_bound[0], "bound_by": s_bound[1]},
@@ -2382,7 +2817,14 @@ def main() -> None:
             fail(f"kernel forward after an optimizer step disagrees with the plain forward: {cache}")
 
         # ---- 4c. a whole step's gradient, card against CPU
-        step_grads = card_against_cpu(cli, ek, CoarseModelConfig, init_weights, gen, device)
+        from hierdiff_torch.data.collate import collate_coarse
+        from hierdiff_torch.data.synthetic import SyntheticTreeGenerator
+
+        step_grads = card_against_cpu(
+            ek, init_weights(cli.build_coarse_from_cfg(CoarseModelConfig(), "float32", device),
+                             gen()).train(),
+            collate_coarse(SyntheticTreeGenerator(seed=SEED).sample_trees(8)),
+            f"GEOM H={H} f32 elementwise")
         if not step_grads["ok"]:
             fail(f"card and CPU gradients disagree or miss parameters: {step_grads}")
 
@@ -2423,6 +2865,22 @@ def main() -> None:
 
     # ---- 4r. the round-based sampler (vocab_conditioning)
     assembled_ar = ar_phase(cli, ek, coarse_pkl, device)
+
+    # ---- 4s, 4t. the pocket-conditioned (CrossDocked) family: training, then
+    # sampling with the trained ema.pt
+    with tempfile.TemporaryDirectory() as pocket_tmp:
+        pocket_tmp = Path(pocket_tmp)
+        pocket_train = pocket_train_phase(train_cli, cli, ek, device, pocket_tmp / "run",
+                                          sm_clock_hz, n_sms)
+        pocket_sample = pocket_sample_phase(cli, ek, device, pocket_tmp / "run" / "ema.pt",
+                                            pocket_tmp, sm_clock_hz, n_sms)
+    for name, shape, check in [
+            ("fused_gcl", "4s training", pocket_train["fused_gcl"]),
+            ("fused_gcl_bwd", "4s training", pocket_train["fused_gcl_bwd"]),
+            ("fused_gcl", "4t sampling", pocket_sample["fused_gcl"]),
+            ("fused_coord_update", "4t sampling", pocket_sample["fused_coord_update"]),
+            ("fused_gcl_bwd", "4t sampling", pocket_sample["fused_gcl_bwd_edge_slots"])]:
+        results[name].append({"variant": f"pocket, {shape} shape", **check})
 
     with tempfile.TemporaryDirectory() as fine_tmp:
         # ---- 4i, 4j. training of the fine stage's two models at GEOM width
@@ -2470,7 +2928,8 @@ def main() -> None:
              "train_denoise": fine_train["denoise"]["launches"],
              "train_refine": fine_train["refine"]["launches"],
              "generate_gated": generated_gated["stats"]["launches"],
-             "generate_gated_workers_2": generated_gated["stats"]["launches_workers_2"]}
+             "generate_gated_workers_2": generated_gated["stats"]["launches_workers_2"],
+             "train_pocket": pocket_train["launches"], "sample_pocket": pocket_sample["launches"]}
     kernels = []
     for name, runs in results.items():
         main_run = runs[0]   # random weights, attention on, f32: the main path's variant
@@ -2494,7 +2953,8 @@ def main() -> None:
         "train_refine": fine_train["refine"], "fine_step_gradients": fine_grads,
         "planted": planted, "assemble_trained": trained_assemble, "assemble_gated": gated,
         "generate_gated": generated_gated["stats"], "reconstruct_eval": reconstructed,
-        "assemble_gated_refine": gated_refine}))
+        "assemble_gated_refine": gated_refine, "train_pocket": pocket_train,
+        "sample_pocket": pocket_sample}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

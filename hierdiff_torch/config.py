@@ -44,11 +44,12 @@ class CoarseModelConfig:
     aggregation_method: str = "sum"
     condition_time: bool = True
     context_node_nf: int = 0
-    mode: str = "egnn_dynamics"          # 'egnn_dynamics' ('gnn_dynamics' not ported)
+    mode: str = "egnn_dynamics"          # 'egnn_dynamics' | 'gnn_dynamics'
     sin_embedding: bool = False          # sinusoidal distance embedding
     compute_dtype: Optional[str] = None  # 'bfloat16' = bf16 elementwise edge pipeline
     dataset: str = "geom"                # geom | qm9 | crossdock (node-count histogram)
-    pocket: bool = False                 # pocket-conditioned variant (not ported)
+    pocket: bool = False                 # pocket-conditioned (crossdock) variant
+    pocket_cross_edges: bool = True      # mol<->pocket edges (False = reference-exact mask)
 
     @property
     def in_node_nf(self) -> int:
@@ -121,7 +122,7 @@ class RefineConfig:
 class OptimConfig:
     """conf/optim + conf/scheduler equivalents (``build_optimizer``)."""
 
-    optimizer: str = "adamw"             # adamw (adam, sgd: not ported)
+    optimizer: str = "adamw"             # adamw | adam | sgd
     lr: float = 4.0e-4
     weight_decay: float = 4.0e-8
     grad_clip: Optional[float] = 1.0

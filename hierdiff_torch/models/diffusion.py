@@ -14,6 +14,14 @@ not the stray-colon ``net_out[..., 0:8:11]`` of ``diffusion_qm9.py:477``.
 Randomness comes from an explicit ``torch.Generator``; ``t_int``, ``eps`` and
 ``eps0`` can be injected instead (tests hold the loss to the JAX model on the
 same draws, since JAX's threefry stream cannot be reproduced here).
+
+The pocket-conditioned (CrossDocked) variant (``pocket=True``) appends frozen
+pocket rows after the molecule rows: residue tokens embedded by
+``pocket_embed``, C-alpha positions, and an edge mask of the molecule block,
+the pocket block and, with ``pocket_cross_edges``, the molecule<->pocket
+blocks (the reference's block-diagonal mask leaves the conditioning inert;
+``pocket_cross_edges=False`` reproduces it). Noise and loss cover the
+molecule rows only (``mol_shape``).
 """
 
 from __future__ import annotations
@@ -44,6 +52,27 @@ from hierdiff_torch.ops.schedules import (
 )
 
 
+def pocket_edge_mask(node_mask: Tensor, edge_mask: Tensor, pocket_mask: Tensor,
+                     protein_edge_mask: Tensor, cross_edges: bool) -> Tensor:
+    """The (B, n_mol+K, n_mol+K) edge mask of molecule rows followed by the
+    pocket's: the molecule block, the pocket block and, with
+    ``cross_edges``, every molecule node to every pocket node and back.
+    (reference: diffusion_qm9.py:369-371, 714-719;
+    hierdiff_tpu/models/diffusion.py:382-400)"""
+    b, n_mol = node_mask.shape[:2]
+    n_tot = n_mol + pocket_mask.shape[1]
+    if edge_mask.ndim == 4:
+        edge_mask = edge_mask[..., 0]
+    em = node_mask.new_zeros((b, n_tot, n_tot))
+    em[:, :n_mol, :n_mol] = edge_mask
+    em[:, n_mol:, n_mol:] = protein_edge_mask
+    if cross_edges:
+        cross = node_mask[:, :, 0, None] * pocket_mask[:, None, :, 0]
+        em[:, :n_mol, n_mol:] = cross
+        em[:, n_mol:, :n_mol] = cross.transpose(1, 2)
+    return em
+
+
 class CoarseDiffusion(nn.Module):
     """EDM over fragment centres: x in R^3 (CoM-free) + h blur features.
 
@@ -61,7 +90,8 @@ class CoarseDiffusion(nn.Module):
                  aggregation_method: str = "sum", condition_time: bool = True,
                  context_node_nf: int = 0, compute_dtype=None,
                  mode: str = "egnn_dynamics", sin_embedding: bool = False,
-                 int_nf: int = 5, cont_nf: int = 3):
+                 int_nf: int = 5, cont_nf: int = 3, pocket: bool = False,
+                 pocket_cross_edges: bool = True):
         super().__init__()
         self.in_node_nf = in_node_nf
         self.n_dims = n_dims
@@ -72,6 +102,11 @@ class CoarseDiffusion(nn.Module):
         self.context_node_nf = context_node_nf
         self.norm_values = tuple(norm_values)
         self.norm_biases = tuple(norm_biases)
+        self.pocket = pocket
+        self.pocket_cross_edges = pocket_cross_edges
+        if pocket:
+            # 21 tokens: padding 0 + 20 residue types (reference: diffusion_qm9.py:55-56)
+            self.pocket_embed = nn.Embedding(21, in_node_nf)
         if noise_schedule == "learned":
             if loss_type != "vlb":
                 raise ValueError("the learned noise schedule needs loss_type='vlb'")
@@ -195,13 +230,15 @@ class CoarseDiffusion(nn.Module):
 
     def compute_loss(self, generator: Optional[torch.Generator], x: Tensor, h: Tensor,
                      node_mask: Tensor, edge_mask: Tensor, context: Optional[Tensor],
-                     t0_always: bool, train: bool, t_int: Optional[Tensor] = None,
-                     eps: Optional[Tensor] = None, eps0: Optional[Tensor] = None
-                     ) -> Tuple[Tensor, Dict[str, Tensor]]:
-        """VLB / l2 estimator. ``t_int`` (B, 1), ``eps`` and ``eps0``
-        (B, N, n_dims + in_node_nf, already CoM-free and masked) override the
-        draws from ``generator``: t first, then eps, then eps0.
-        (reference: diffusion_qm9.py:530-673)"""
+                     t0_always: bool, train: bool, mol_shape: Optional[int] = None,
+                     t_int: Optional[Tensor] = None, eps: Optional[Tensor] = None,
+                     eps0: Optional[Tensor] = None) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """VLB / l2 estimator; ``mol_shape`` freezes the rows past it (the
+        pocket): they enter the network as they are, and noise and loss
+        cover the first ``mol_shape`` rows. ``t_int`` (B, 1), ``eps`` and
+        ``eps0`` (B, mol rows, n_dims + in_node_nf, already CoM-free and
+        masked) override the draws from ``generator``: t first, then eps,
+        then eps0. (reference: diffusion_qm9.py:530-673)"""
         b = x.shape[0]
         lowest_t = 1 if t0_always else 0
         if t_int is None:
@@ -213,6 +250,21 @@ class CoarseDiffusion(nn.Module):
         s = s_int / self.timesteps
         t = t_int / self.timesteps
 
+        # split off the frozen pocket rows (reference: diffusion_qm9.py:553-557)
+        full_node_mask, full_edge_mask = node_mask, edge_mask
+        xh_fix = None
+        if mol_shape is not None:
+            xh_fix = torch.cat([x[:, mol_shape:], h[:, mol_shape:]], dim=2)
+            x, h = x[:, :mol_shape], h[:, :mol_shape]
+            node_mask = full_node_mask[:, :mol_shape]
+
+        def phi(z: Tensor, t_: Tensor) -> Tensor:
+            if xh_fix is None:
+                return self.phi(z, t_, node_mask, edge_mask, context)
+            out = self.phi(torch.cat([z, xh_fix], dim=1), t_, full_node_mask, full_edge_mask,
+                           context, mol_shape=mol_shape)
+            return out[:, :mol_shape]
+
         gamma_s = self.gamma_of(s)
         gamma_t = self.gamma_of(t)
         alpha_t = inflate(alpha_from_gamma(gamma_t), x.ndim)
@@ -222,7 +274,7 @@ class CoarseDiffusion(nn.Module):
             eps = sample_combined_noise(generator, node_mask, self.n_dims, self.in_node_nf)
         xh = torch.cat([x, h], dim=2)
         z_t = alpha_t * xh + sigma_t * eps
-        net_out = self.phi(z_t, t, node_mask, edge_mask, context)
+        net_out = phi(z_t, t)
         error = self.compute_error(net_out, eps, train)
 
         l2 = train and self.loss_type == "l2"
@@ -245,7 +297,7 @@ class CoarseDiffusion(nn.Module):
             if eps0 is None:
                 eps0 = sample_combined_noise(generator, node_mask, self.n_dims, self.in_node_nf)
             z_0 = alpha_0 * xh + sigma_0 * eps0
-            net_out0 = self.phi(z_0, t_zeros, node_mask, edge_mask, context)
+            net_out0 = phi(z_0, t_zeros)
             loss_term_0 = -self.log_pxh_given_z0_without_constants(
                 h, z_0, gamma_0, eps0, net_out0, node_mask, train=train)
             loss = kl_prior + estimator_loss_terms + neg_log_constants + loss_term_0
@@ -261,35 +313,55 @@ class CoarseDiffusion(nn.Module):
 
     def nll(self, generator: Optional[torch.Generator], x: Tensor, h: Tensor,
             node_mask: Tensor, edge_mask: Tensor, context: Optional[Tensor] = None,
-            train: bool = True, **draws) -> Tuple[Tensor, Dict[str, Tensor]]:
-        """Normalized NLL (training: 1-pass estimator; eval: t0_always).
-        ``draws`` are ``compute_loss``'s injectable t_int / eps / eps0.
-        (reference: diffusion_qm9.py:675-699)"""
-        x, h, delta_log_px = self.normalize(x, h, node_mask)
+            train: bool = True, mol_shape: Optional[int] = None,
+            **draws) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """Normalized NLL (training: 1-pass estimator; eval: t0_always); only
+        the molecule rows are normalized. ``draws`` are ``compute_loss``'s
+        injectable t_int / eps / eps0. (reference: diffusion_qm9.py:675-699)"""
+        if mol_shape is None:
+            x, h, delta_log_px = self.normalize(x, h, node_mask)
+        else:
+            x_n, h_n, delta_log_px = self.normalize(x[:, :mol_shape], h[:, :mol_shape],
+                                                    node_mask[:, :mol_shape])
+            x = torch.cat([x_n, x[:, mol_shape:]], dim=1)
+            h = torch.cat([h_n, h[:, mol_shape:]], dim=1)
         if train and self.loss_type == "l2":
             delta_log_px = torch.zeros_like(delta_log_px)
         loss, info = self.compute_loss(generator, x, h, node_mask, edge_mask, context,
-                                       t0_always=not train, train=train, **draws)
+                                       t0_always=not train, train=train, mol_shape=mol_shape,
+                                       **draws)
         return loss - delta_log_px, info
 
     def forward(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None,
                 train: bool = True, **draws) -> Dict[str, Tensor]:
         """Batch loss, mirroring the reference forward: positions (B,N,3),
         node_feature (B,N,h_nf), atom_mask (B,N,1), edge_mask (B,N,N) or
-        (B,N,N,1), optional context. Returns loss (the batch mean), nll (B,),
+        (B,N,N,1), optional context; with ``pocket`` also protein_pos (B,K,3),
+        protein_feat (B,K) tokens, protein_feat_mask (B,K,1) and
+        protein_edge_mask (B,K,K). Returns loss (the batch mean), nll (B,),
         t (B,) and error (B,). (reference: diffusion_qm9.py:701-751)"""
-        if "protein_pos" in batch:
-            raise NotImplementedError("pocket-conditioned training is not ported")
         x = batch["positions"]
         node_mask = batch["atom_mask"].to(x.dtype)
+        edge_mask = batch["edge_mask"]
         h = batch["node_feature"]
         if h.shape[-1] != self.in_node_nf:
             raise ValueError(f"node_feature has {h.shape[-1]} channels but model was built "
                              f"with in_node_nf={self.in_node_nf}")
         context = batch.get("context") if self.context_node_nf > 0 else None
-        x = remove_mean_with_mask(x, node_mask)
-        nll, info = self.nll(generator, x, h, node_mask, batch["edge_mask"], context,
-                             train=train, **draws)
+        mol_shape = None
+        if self.pocket:
+            # frozen pocket rows after the molecule rows (reference: diffusion_qm9.py:701-726)
+            mol_shape = x.shape[1]
+            pmask = batch["protein_feat_mask"].to(x.dtype)
+            edge_mask = pocket_edge_mask(node_mask, edge_mask, pmask,
+                                         batch["protein_edge_mask"], self.pocket_cross_edges)
+            x = torch.cat([x, batch["protein_pos"].to(x.dtype)], dim=1)
+            h = torch.cat([h, self.pocket_embed(batch["protein_feat"].long())], dim=1)
+            node_mask = torch.cat([node_mask, pmask], dim=1)
+        # the molecule's mean is taken off the pocket rows too
+        x = remove_mean_with_mask(x, node_mask, fix_size=mol_shape)
+        nll, info = self.nll(generator, x, h, node_mask, edge_mask, context,
+                             train=train, mol_shape=mol_shape, **draws)
         return {"loss": nll.mean(), "nll": nll, **info}
 
     # --- reverse-process kernels -------------------------------------------

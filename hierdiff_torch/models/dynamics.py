@@ -4,6 +4,9 @@ Port of ``hierdiff_tpu/models/dynamics.py`` (reference
 endiffusion/models/module/en_dynamics.py): appends the diffusion time (and
 optional global context) as extra node channels, runs the EGNN, turns the
 coordinate output into a CoM-free velocity, and returns cat([vel, h_out]).
+With ``mode="gnn_dynamics"`` a plain GNN (``DenseGNN``) over [x, h] predicts
+[vel, h_out] directly; its output is sized to the whole input width, as the
+JAX package does (PARITY.md #14).
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from typing import Optional
 import torch
 from torch import Tensor, nn
 
-from hierdiff_torch.ops.egnn import DenseEGNN
+from hierdiff_torch.ops.egnn import DenseEGNN, DenseGNN
 from hierdiff_torch.ops.masked import remove_mean_with_mask
 
 
@@ -29,20 +32,29 @@ class EGNNDynamics(nn.Module):
                  compute_dtype=None, mode: str = "egnn_dynamics",
                  sin_embedding: bool = False):
         super().__init__()
-        if mode != "egnn_dynamics":
-            raise NotImplementedError(f"mode={mode!r}: only 'egnn_dynamics' is ported")
         self.in_node_nf = in_node_nf
         self.context_node_nf = context_node_nf
         self.n_dims = n_dims
         self.condition_time = condition_time
+        self.mode = mode
         egnn_in = in_node_nf + context_node_nf + (1 if condition_time else 0)
-        self.egnn = DenseEGNN(
-            egnn_in, hidden_nf=hidden_nf, out_node_nf=egnn_in, n_layers=n_layers,
-            inv_sublayers=inv_sublayers, attention=attention, tanh=tanh,
-            coords_range=coords_range, norm_constant=norm_constant,
-            normalization_factor=normalization_factor,
-            aggregation_method=aggregation_method, compute_dtype=compute_dtype,
-            sin_embedding=sin_embedding)
+        if mode == "gnn_dynamics":
+            # (reference: en_dynamics.py:25-30); out = in, PARITY.md #14
+            self.gnn = DenseGNN(
+                n_dims + egnn_in, hidden_nf=hidden_nf, out_node_nf=n_dims + egnn_in,
+                n_layers=n_layers, attention=attention,
+                normalization_factor=normalization_factor,
+                aggregation_method=aggregation_method, compute_dtype=compute_dtype)
+        elif mode == "egnn_dynamics":
+            self.egnn = DenseEGNN(
+                egnn_in, hidden_nf=hidden_nf, out_node_nf=egnn_in, n_layers=n_layers,
+                inv_sublayers=inv_sublayers, attention=attention, tanh=tanh,
+                coords_range=coords_range, norm_constant=norm_constant,
+                normalization_factor=normalization_factor,
+                aggregation_method=aggregation_method, compute_dtype=compute_dtype,
+                sin_embedding=sin_embedding)
+        else:
+            raise ValueError(f"Wrong mode {mode}")
 
     def forward(self, t: Tensor, xh: Tensor, node_mask: Tensor, edge_mask: Tensor,
                 context: Optional[Tensor] = None, mol_shape: Optional[int] = None) -> Tensor:
@@ -63,12 +75,19 @@ class EGNNDynamics(nn.Module):
         if context is not None and self.context_node_nf > 0:
             h = torch.cat([h, context.reshape(b, n, self.context_node_nf)], dim=-1)
 
-        h_final, x_final = self.egnn(h, x, node_mask, edge_mask)
-        if mol_shape is not None:
-            # freeze pocket coordinates beyond the molecule rows
-            # (reference: en_dynamics.py:83-88)
-            x_final = torch.cat([x_final[:, :mol_shape], x[:, mol_shape:]], dim=1)
-        vel = (x_final - x) * node_mask
+        if self.mode == "gnn_dynamics":
+            # coordinates ride in the node features; no mol_shape freeze on
+            # this branch (the reference has it only on the egnn one)
+            out = self.gnn(torch.cat([x, h], dim=-1), node_mask)
+            vel = out[:, :, : self.n_dims] * node_mask
+            h_final = out[:, :, self.n_dims:]
+        else:
+            h_final, x_final = self.egnn(h, x, node_mask, edge_mask)
+            if mol_shape is not None:
+                # freeze pocket coordinates beyond the molecule rows
+                # (reference: en_dynamics.py:83-88)
+                x_final = torch.cat([x_final[:, :mol_shape], x[:, mol_shape:]], dim=1)
+            vel = (x_final - x) * node_mask
 
         if context is not None and self.context_node_nf > 0:
             h_final = h_final[:, :, : -self.context_node_nf]

@@ -11,7 +11,14 @@ a reference state dict loads with ``strict=True``.
 tensors their plain versions. Under autograd the GCL's CUDA path is
 ``FusedGCLFunction`` (forward and backward kernels), and the coordinate
 update takes its plain, differentiable version: the JAX package trains that
-layer through XLA too, since no Pallas backward exists for it.
+layer through XLA too, since no Pallas backward exists for it. Mean
+aggregation is plain PyTorch on every device, chosen by the configuration:
+the JAX package takes its Pallas kernels for ``"sum"`` only
+(``hierdiff_tpu/ops/egnn.py:199,205,296``), and so do the kernels here.
+
+``DenseGNN`` is the plain (non-equivariant) backbone of
+``mode="gnn_dynamics"``: DenseGCLs with no edge features over an all-ones
+edge mask.
 """
 
 from __future__ import annotations
@@ -23,7 +30,8 @@ import torch
 from torch import Tensor, nn
 
 from hierdiff_torch.ops import egnn_kernels
-from hierdiff_torch.ops.egnn_kernels import coord_update_plain, fused_coord_update, fused_gcl
+from hierdiff_torch.ops.egnn_kernels import (coord_update_plain, fused_coord_update, fused_gcl,
+                                             gcl_plain)
 
 
 def resolve_compute_dtype(compute_dtype) -> Optional[torch.dtype]:
@@ -35,10 +43,10 @@ def resolve_compute_dtype(compute_dtype) -> Optional[torch.dtype]:
     raise ValueError(f"unsupported compute_dtype {compute_dtype!r}")
 
 
-def _sum_aggregation_only(aggregation_method: str) -> None:
-    if aggregation_method != "sum":
-        raise NotImplementedError(
-            f"aggregation_method={aggregation_method!r}: only 'sum' is ported")
+def _aggregation(aggregation_method: str) -> str:
+    if aggregation_method not in ("sum", "mean"):
+        raise ValueError(f"aggregation_method={aggregation_method!r}: 'sum' or 'mean'")
+    return aggregation_method
 
 
 class _KernelLayer(nn.Module):
@@ -104,7 +112,7 @@ class DenseGCL(_KernelLayer):
                  normalization_factor: float = 100.0, aggregation_method: str = "sum",
                  attention: bool = False, compute_dtype=None):
         super().__init__()
-        _sum_aggregation_only(aggregation_method)
+        self.aggregation_method = _aggregation(aggregation_method)
         self.normalization_factor = normalization_factor
         self.attention = attention
         self.compute_dtype = resolve_compute_dtype(compute_dtype)
@@ -117,6 +125,8 @@ class DenseGCL(_KernelLayer):
 
     def forward(self, h: Tensor, edge_attr: Tensor, node_mask: Tensor,
                 edge_mask: Tensor) -> Tensor:
+        if self.aggregation_method == "mean":   # no kernel path, by design
+            return gcl_plain(self, h, edge_attr, edge_mask, node_mask)
         return fused_gcl(self, h, edge_attr, edge_mask, node_mask)
 
 
@@ -129,7 +139,7 @@ class DenseEquivariantUpdate(_KernelLayer):
                  normalization_factor: float = 100.0, aggregation_method: str = "sum",
                  tanh: bool = False, coords_range: float = 10.0, compute_dtype=None):
         super().__init__()
-        _sum_aggregation_only(aggregation_method)
+        self.aggregation_method = _aggregation(aggregation_method)
         self.normalization_factor = normalization_factor
         self.tanh = tanh
         self.coords_range = coords_range
@@ -141,6 +151,8 @@ class DenseEquivariantUpdate(_KernelLayer):
 
     def forward(self, h: Tensor, x: Tensor, coord_diff: Tensor, edge_attr: Tensor,
                 node_mask: Tensor, edge_mask: Tensor) -> Tensor:
+        if self.aggregation_method == "mean":   # no kernel path, by design
+            return coord_update_plain(self, h, edge_attr, coord_diff, x, edge_mask, node_mask)
         # chosen by the autograd mode, never by a failure: the kernel has no
         # backward, so a recorded call takes the plain route and counts it
         if egnn_kernels.records_grad(self, h, x, coord_diff, edge_attr):
@@ -223,3 +235,37 @@ class DenseEGNN(nn.Module):
             h, x = getattr(self, f"e_block_{i}")(h, x, distances0, node_mask, edge_mask)
         h = self.embedding_out(h)
         return h * node_mask, x
+
+
+class DenseGNN(nn.Module):
+    """Plain (non-equivariant) GNN: embed -> ``n_layers`` DenseGCLs with no
+    edge features -> project out; the ``gnn_dynamics`` backbone, whose
+    coordinates ride in the node features. Like the reference GNN, called
+    without an edge mask over an edge list with self-edges
+    (en_dynamics.py:92,124-143), it aggregates over an all-ones mask that
+    includes the diagonal and the padded pairs; the caller masks the node
+    features. (reference: egnn_new.py:208-242; hierdiff_tpu/ops/egnn.py:452)"""
+
+    def __init__(self, in_node_nf: int, hidden_nf: int = 256,
+                 out_node_nf: Optional[int] = None, n_layers: int = 4,
+                 attention: bool = False, normalization_factor: float = 100.0,
+                 aggregation_method: str = "sum", compute_dtype=None):
+        super().__init__()
+        out_node_nf = in_node_nf if out_node_nf is None else out_node_nf
+        self.n_layers = n_layers
+        self.embedding = nn.Linear(in_node_nf, hidden_nf)
+        for i in range(n_layers):
+            self.add_module(f"gcl_{i}", DenseGCL(
+                hidden_nf, 0, normalization_factor=normalization_factor,
+                aggregation_method=aggregation_method, attention=attention,
+                compute_dtype=compute_dtype))
+        self.embedding_out = nn.Linear(hidden_nf, out_node_nf)
+
+    def forward(self, h: Tensor, node_mask: Tensor) -> Tensor:
+        b, n, _ = h.shape
+        edge_attr = h.new_zeros((b, n, n, 0))
+        ones = h.new_ones((b, n, n, 1))
+        h = self.embedding(h)
+        for i in range(self.n_layers):
+            h = getattr(self, f"gcl_{i}")(h, edge_attr, node_mask, ones)
+        return self.embedding_out(h) * node_mask

@@ -90,6 +90,15 @@ def _masked_rowsum(m: Tensor, edge_mask: Tensor) -> Tensor:
     return torch.einsum("bij,bijc->bic", mask.to(m.dtype).float(), m.float())
 
 
+def _aggregate(layer, rowsum: Tensor, edge_mask: Tensor) -> Tensor:
+    """The layer's aggregation of a masked row sum: ``sum`` divides by its
+    normalization factor, ``mean`` by max(sum_j edge_mask_ij, 1)
+    (``hierdiff_tpu/ops/egnn.py:244-250``, :329-335)."""
+    if layer.aggregation_method == "mean":
+        return rowsum / torch.clamp(edge_mask.sum(dim=2), min=1.0)
+    return rowsum / layer.normalization_factor
+
+
 def _pair_weights(linear: torch.nn.Linear):
     """Split a pair linear's (H, 2H + E) weight into (in, out) matrices
     W_src (H, H), W_dst (H, H), W_e (E, H)."""
@@ -109,8 +118,9 @@ def _pair_preact(h: Tensor, edge_attr: Tensor, linear: torch.nn.Linear,
 
 
 def gcl_agg_plain(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor) -> Tensor:
-    """The GCL's aggregated messages sum_j m_ij * emask_ij / norm, (B, N, H)
-    f32: what ``fused_gcl`` saves for its backward."""
+    """The GCL's aggregated messages sum_j m_ij * emask_ij / norm (or, with
+    mean aggregation, over the row's edge count), (B, N, H) f32: what
+    ``fused_gcl`` saves for its backward."""
     dt = layer.compute_dtype
     cast = (lambda v: v.to(dt)) if dt is not None else (lambda v: v)
     e_in, e_out = layer.edge_mlp[0], layer.edge_mlp[2]
@@ -120,7 +130,7 @@ def gcl_agg_plain(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor) -> Ten
         att_lin = layer.att_mlp[0]
         att = torch.sigmoid(_mm(m, att_lin.weight.t(), dt, dt) + cast(att_lin.bias))
         m = m * att
-    return _masked_rowsum(m, edge_mask) / layer.normalization_factor
+    return _aggregate(layer, _masked_rowsum(m, edge_mask), edge_mask)
 
 
 def gcl_plain(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor,
@@ -151,7 +161,7 @@ def coord_update_plain(layer, h: Tensor, edge_attr: Tensor, coord_diff: Tensor,
     scalar = coord_scalar(layer, h, edge_attr)
     if layer.tanh:
         scalar = torch.tanh(scalar) * layer.coords_range
-    agg = _masked_rowsum(coord_diff * scalar, edge_mask) / layer.normalization_factor
+    agg = _aggregate(layer, _masked_rowsum(coord_diff * scalar, edge_mask), edge_mask)
     return (x + agg) * node_mask
 
 
@@ -216,8 +226,11 @@ def gcl_plain_vjp(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor,
         h_ = h.detach().requires_grad_(True)
         e_ = edge_attr.detach().requires_grad_(True)
         params = gcl_parameters(layer)
+        inputs = [h_, e_, *params]
         out = gcl_plain(layer, h_, e_, edge_mask, node_mask)
-        grads = torch.autograd.grad(out, [h_, e_, *params], g)
+        # with no edge features (E = 0) the edge input is unused: its gradient is empty
+        grads = torch.autograd.grad(out, inputs, g, allow_unused=True)
+    grads = [torch.zeros_like(x) if d is None else d for x, d in zip(inputs, grads)]
     return _grads_from_linear(layer, grads[0], grads[1], grads[2:])
 
 
@@ -353,7 +366,11 @@ def _check(name: str, t: Tensor, shape, device: torch.device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_layer(h: Tensor, edge_attr: Tensor, hidden: int) -> None:
+def _check_layer(layer, h: Tensor, edge_attr: Tensor, hidden: int) -> None:
+    if layer.aggregation_method != "sum":
+        raise ValueError(f"the kernels aggregate by sum only, as the Pallas kernels do; "
+                         f"aggregation_method={layer.aggregation_method!r} takes the plain "
+                         f"version (gcl_plain / coord_update_plain)")
     if hidden % 16 != 0 or hidden > MAX_HIDDEN or h.shape[-1] != hidden:
         raise ValueError(f"kernel needs hidden width % 16 == 0 and <= {MAX_HIDDEN} "
                          f"matching h; got layer {hidden}, h {h.shape[-1]}")
@@ -379,7 +396,7 @@ def _check_gcl_inputs(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor,
     _check("edge_attr", edge_attr, (b, n, n, e_nf), device)
     _check("edge_mask", edge_mask, (b, n, n, 1), device)
     _check("node_mask", node_mask, (b, n, 1), device)
-    _check_layer(h, edge_attr, layer.edge_mlp[2].weight.shape[0])
+    _check_layer(layer, h, edge_attr, layer.edge_mlp[2].weight.shape[0])
 
 
 GCL_FLOAT_SCRATCH = ("proj", "z1h", "heads", "agg")
@@ -690,7 +707,7 @@ def fused_coord_update(layer, h: Tensor, edge_attr: Tensor, coord_diff: Tensor,
     _check("x", x, (b, n, 3), device)
     _check("edge_mask", edge_mask, (b, n, n, 1), device)
     _check("node_mask", node_mask, (b, n, 1), device)
-    _check_layer(h, edge_attr, layer.coord_mlp[2].weight.shape[0])
+    _check_layer(layer, h, edge_attr, layer.coord_mlp[2].weight.shape[0])
     out = torch.empty_like(x)
     if b * n == 0:
         return out

@@ -8,8 +8,8 @@ is the global L2 norm before clipping; clipping follows
 ``optax.clip_by_global_norm`` exactly (``g / norm * max_norm`` only when
 ``norm >= max_norm``; torch's ``clip_grad_norm_`` would add 1e-6 to the
 norm); then AdamW with optax's defaults and decoupled weight decay on every
-parameter, the learning rate taken from optax's schedules at the update's
-count; then the EMA, in the model's own ``deepcopy``, after the update. The
+parameter (or Adam, or SGD with momentum 0.9), the learning rate taken from
+optax's schedules at the update's count; then the EMA, in the model's own ``deepcopy``, after the update. The
 JAX package's data-parallel mesh is not ported.
 """
 
@@ -51,13 +51,20 @@ def learning_rate_schedule(cfg: OptimConfig) -> Callable[[int], float]:
 
 
 def build_optimizer(cfg: OptimConfig, params: List[nn.Parameter]) -> torch.optim.Optimizer:
-    """optax.adamw with optax's defaults (the JAX package's ``adam`` and
-    ``sgd`` choices are not ported); the learning rate is set per update
-    by ``TrainState``."""
-    if cfg.optimizer != "adamw":
-        raise NotImplementedError(f"optimizer {cfg.optimizer!r}: only 'adamw' is ported")
-    return torch.optim.AdamW(params, lr=learning_rate_schedule(cfg)(0), betas=(0.9, 0.999),
-                             eps=1e-8, weight_decay=cfg.weight_decay)
+    """The update rule of ``hierdiff_tpu/train/trainer.py:build_optimizer``
+    (:53-58), with optax's defaults: ``adamw`` = optax.adamw(lr,
+    weight_decay), ``adam`` = optax.adam(lr), ``sgd`` = optax.sgd(lr,
+    momentum=0.9) (torch's SGD with dampening 0 keeps optax's trace
+    g + 0.9 t). The learning rate is set per update by ``TrainState``."""
+    lr = learning_rate_schedule(cfg)(0)
+    if cfg.optimizer == "adamw":
+        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=cfg.weight_decay)
+    if cfg.optimizer == "adam":
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    if cfg.optimizer == "sgd":
+        return torch.optim.SGD(params, lr=lr, momentum=0.9, dampening=0.0)
+    raise ValueError(cfg.optimizer)
 
 
 def global_norm(tensors: List[Tensor]) -> Tensor:

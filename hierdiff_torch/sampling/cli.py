@@ -6,6 +6,11 @@ reconstruction to molecules and the pipeline from a histogram to molecules.
         --num 64 --out samples.pkl
     # random GEOM-width weights from a seed, 100 strided reverse steps
     python -m hierdiff_torch.sampling.cli coarse --init-seed 0 --steps 100
+    # pocket-conditioned (CrossDocked family): the residues of site.pdb
+    # within 6 A of the site centre condition every molecule
+    python -m hierdiff_torch.sampling.cli coarse \
+        --config configs/coarse_crossdock.yaml --weights ema.pt \
+        --pocket-pdb site.pdb --pocket-center 1.0,2.0,3.0 --pocket-radius 6
     # stage 2 (ar_sampling_nosize.py equivalent): point sets -> trees
     python -m hierdiff_torch.sampling.cli assemble --coarse-pkl samples.pkl \\
         --denoise-weights denoise.pt --out trees.pkl
@@ -59,7 +64,8 @@ from hierdiff_torch.models.diffusion import CoarseDiffusion
 from hierdiff_torch.models.edge_denoise import EdgeDenoise
 from hierdiff_torch.models.refine import NodeRefine
 from hierdiff_torch.ops.distributions import DistributionNodes
-from hierdiff_torch.sampling.coarse import make_masks_for_counts, sample_coarse
+from hierdiff_torch.sampling.coarse import (make_masks_for_counts, sample_coarse,
+                                            sample_coarse_pocket)
 from hierdiff_torch.sampling.pipeline import (GenerationPipeline, build_fine_sampler,
                                               round_int_features)
 from hierdiff_torch.sampling.refine_hook import RefineHook
@@ -72,8 +78,6 @@ def build_coarse_from_cfg(cfg: CoarseModelConfig, compute_dtype=None,
     """The coarse model of ``cfg`` on ``device`` (default CUDA), with
     PyTorch's default initialisation. ``compute_dtype`` overrides the
     config's elementwise type ('bfloat16' or 'float32')."""
-    if cfg.pocket:
-        raise NotImplementedError("the pocket-conditioned model is not ported")
     device = resolve_device(device)
     model = CoarseDiffusion(
         in_node_nf=cfg.in_node_nf, int_nf=cfg.int_nf, cont_nf=cfg.cont_nf,
@@ -86,7 +90,8 @@ def build_coarse_from_cfg(cfg: CoarseModelConfig, compute_dtype=None,
         aggregation_method=cfg.aggregation_method, condition_time=cfg.condition_time,
         context_node_nf=cfg.context_node_nf,
         compute_dtype=cfg.compute_dtype if compute_dtype is None else compute_dtype,
-        mode=cfg.mode, sin_embedding=cfg.sin_embedding)
+        mode=cfg.mode, sin_embedding=cfg.sin_embedding, pocket=cfg.pocket,
+        pocket_cross_edges=cfg.pocket_cross_edges)
     return model.to(device).eval()
 
 
@@ -117,10 +122,26 @@ def load_state(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def load_pocket(pdb: str, center: str, radius: float) -> dict:
+    """The residues of ``pdb`` within ``radius`` of the site centre ``center``
+    ("x,y,z"), collated as one pocket (numpy). (reference:
+    diffusion_qm9.py:397-418 sample_batches + read_pdb)"""
+    from hierdiff_torch.chem.pocket import collate_pockets, pocket_from_pdb
+
+    site = np.asarray([float(v) for v in center.split(",")])
+    pocket = pocket_from_pdb(pdb, site.reshape(1, 3), radius=radius)
+    if not pocket.residue_type:
+        raise SystemExit(f"no pocket residues within {radius}A of {center} in {pdb}")
+    print(f"pocket: {len(pocket.residue_type)} CA residues")
+    return collate_pockets([pocket])
+
+
 def cmd_coarse(args) -> dict:
-    """Sample ``args.num`` point sets and pickle them as ``[[{"x", "h"}, ...]]``.
-    Returns the padded batches (x, h, node_mask) on the device and the
-    sampling wall time."""
+    """Sample ``args.num`` point sets and pickle them as ``[[{"x", "h"}, ...]]``;
+    with ``--pocket-pdb`` one pocket, repeated over the batch, conditions
+    every molecule (the model must be a pocket model, ``coarse.pocket``).
+    Returns the padded batches (x, h, node_mask) of the molecule rows on the
+    device and the sampling wall time."""
     device = resolve_device(args.device)
     cfg = load_coarse_config(args.config)
     model = build_coarse_from_cfg(cfg, "bfloat16" if args.bf16 else "float32", device)
@@ -130,6 +151,12 @@ def cmd_coarse(args) -> dict:
         init_weights(model, torch.Generator().manual_seed(args.init_seed))
     else:
         raise SystemExit("coarse: pass --weights or --init-seed")
+
+    pocket = None
+    if args.pocket_pdb:
+        if not cfg.pocket:
+            raise SystemExit("--pocket-pdb needs a pocket model (coarse.pocket: true)")
+        pocket = load_pocket(args.pocket_pdb, args.pocket_center, args.pocket_radius)
 
     dist = DistributionNodes(load_histogram(cfg.dataset))
     rng_np = np.random.default_rng(args.seed)
@@ -143,8 +170,17 @@ def cmd_coarse(args) -> dict:
             counts = np.minimum(counts, args.max_nodes)
         nm, em = make_masks_for_counts(counts)
         node_mask = torch.from_numpy(nm).to(device)
-        xh = sample_coarse(model, node_mask, torch.from_numpy(em).to(device), generator,
-                           steps=args.steps or None, packed=True)
+        edge_mask = torch.from_numpy(em).to(device)
+        if pocket is None:
+            xh = sample_coarse(model, node_mask, edge_mask, generator,
+                               steps=args.steps or None, packed=True)
+        else:
+            rep = {key: torch.from_numpy(np.repeat(v, k, axis=0)).to(device)
+                   for key, v in pocket.items()}
+            xh = sample_coarse_pocket(model, node_mask, edge_mask, rep["protein_feat"],
+                                      rep["protein_pos"], rep["protein_feat_mask"],
+                                      rep["protein_edge_mask"], generator,
+                                      steps=args.steps or None, packed=True)
         batches.append((xh[..., :3], xh[..., 3:], node_mask))
         xh_np = xh.cpu().numpy()
         for i, c in enumerate(counts):
@@ -367,6 +403,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="bf16 elementwise edge pipeline. Default f32, unlike the JAX CLI "
                          "(default bf16): on the H100 the bf16 kernels are the slower "
                          "ones (PERF.md)")
+    pc.add_argument("--pocket-pdb", default="",
+                    help="PDB file for pocket-conditioned sampling (crossdock family; the "
+                         "model must be a pocket model, coarse.pocket: true)")
+    pc.add_argument("--pocket-center", default="0,0,0",
+                    help="x,y,z site centre the pocket is extracted around")
+    pc.add_argument("--pocket-radius", type=float, default=6.0)
     pc.add_argument("--device", default=None, help="torch device (default cuda)")
     pc.add_argument("--out", default="sample_results.pkl")
     pc.set_defaults(fn=cmd_coarse)

@@ -1,10 +1,10 @@
 """Coarse-stage ancestral sampler.
 
-Port of ``hierdiff_tpu/sampling/coarse.py:sample_coarse``: gamma is
-tabulated on the T+1 grid once per chain, then the reverse steps run as a
-plain Python loop of ``CoarseDiffusion.sample_zs_stats`` calls, and a final
-draw from p(x | z_0). Batches of different molecule sizes run in lockstep
-through node masks.
+Port of ``hierdiff_tpu/sampling/coarse.py:sample_coarse`` and
+``sample_coarse_pocket``: gamma is tabulated on the T+1 grid once per chain,
+then the reverse steps run as a plain Python loop of
+``CoarseDiffusion.sample_zs_stats`` calls, and a final draw from p(x | z_0).
+Batches of different molecule sizes run in lockstep through node masks.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from hierdiff_torch.models.diffusion import CoarseDiffusion
+from hierdiff_torch.models.diffusion import CoarseDiffusion, pocket_edge_mask
 from hierdiff_torch.ops.masked import combine_noise, remove_mean_with_mask
 
 
@@ -70,15 +70,62 @@ def sample_coarse(model: CoarseDiffusion, node_mask: Tensor, edge_mask: Tensor,
     ``noise[k]`` for reverse step k (1-based) and ``noise[steps + 1]`` for
     the final x draw. Each draw is masked and its x block made CoM-free.
     """
+    node_mask = node_mask.to(torch.float32)
+    edge_mask = edge_mask.to(torch.float32)
+
+    def step_stats(z, gamma_s, gamma_t, t_b):
+        return model.sample_zs_stats(z, gamma_s, gamma_t, node_mask, edge_mask, t_b, context)
+
+    return _chain(model, node_mask, edge_mask, step_stats, generator, steps, packed, context,
+                  noise, "sample_coarse")
+
+
+def sample_coarse_pocket(model: CoarseDiffusion, node_mask: Tensor, edge_mask: Tensor,
+                         protein_feat: Tensor, protein_pos: Tensor, protein_node_mask: Tensor,
+                         protein_edge_mask: Tensor, generator: Optional[torch.Generator] = None,
+                         steps: Optional[int] = None, packed: bool = False,
+                         noise: Optional[Union[Tensor, Sequence[Tensor]]] = None):
+    """Pocket-conditioned sampling: the molecule rows diffuse, the pocket
+    rows (tokens ``protein_feat`` (B, K), positions ``protein_pos`` (B, K,
+    3), masks (B, K, 1) and (B, K, K)) are frozen context appended after
+    them at every reverse step, embedded once per call. Returns the
+    molecule rows only, as ``sample_coarse`` does, with the same noise
+    contract over the molecule rows ((B, n_mol, 3 + h_nf) draws). The final
+    p(x | z_0) runs on the molecule rows alone, with the molecule-only mask
+    and no pocket, as in the JAX package. (reference: diffusion_qm9.py:361-384;
+    hierdiff_tpu/sampling/coarse.py:268-336)"""
+    node_mask = node_mask.to(torch.float32)
+    edge_mask = edge_mask.to(torch.float32)
+    n_mol = node_mask.shape[1]
+    pmask = protein_node_mask.to(torch.float32)
+    with torch.no_grad():
+        pocket_xh = torch.cat([protein_pos.to(torch.float32),
+                               model.pocket_embed(protein_feat.long())], dim=2)
+    nm_cat = torch.cat([node_mask, pmask], dim=1)
+    em_cat = pocket_edge_mask(node_mask, edge_mask, pmask, protein_edge_mask.to(torch.float32),
+                              model.pocket_cross_edges)
+
+    def step_stats(z, gamma_s, gamma_t, t_b):
+        return model.sample_zs_stats(torch.cat([z, pocket_xh], dim=1), gamma_s, gamma_t,
+                                     nm_cat, em_cat, t_b, None, mol_shape=n_mol)
+
+    return _chain(model, node_mask, edge_mask, step_stats, generator, steps, packed, None,
+                  noise, "sample_coarse_pocket")
+
+
+def _chain(model: CoarseDiffusion, node_mask: Tensor, edge_mask: Tensor, step_stats,
+           generator: Optional[torch.Generator], steps: Optional[int], packed: bool,
+           context: Optional[Tensor], noise, name: str):
+    """The reverse chain over the molecule rows: ``step_stats(z, gamma_s,
+    gamma_t, t)`` gives mu and sigma of p(z_s | z_t) for each step of
+    ``coarse_ladder``; then the draw from p(x | z_0) on the molecule rows."""
     if noise is None and generator is None:
-        raise ValueError("sample_coarse needs a generator or injected noise")
+        raise ValueError(f"{name} needs a generator or injected noise")
     b, n = node_mask.shape[:2]
     nd, nf = model.n_dims, model.in_node_nf
     T = model.timesteps
     ladder = coarse_ladder(T, steps)
     n_steps = len(ladder) - 1
-    node_mask = node_mask.to(torch.float32)
-    edge_mask = edge_mask.to(torch.float32)
 
     def draw(k: int) -> Tensor:
         if noise is not None:
@@ -96,8 +143,7 @@ def sample_coarse(model: CoarseDiffusion, node_mask: Tensor, edge_mask: Tensor,
             gamma_s = gamma_grid[s_int].expand(b, 1)
             gamma_t = gamma_grid[t_int].expand(b, 1)
             t_b = t_norm[k - 1].expand(b, 1)
-            mu, sigma = model.sample_zs_stats(z, gamma_s, gamma_t, node_mask, edge_mask,
-                                              t_b, context)
+            mu, sigma = step_stats(z, gamma_s, gamma_t, t_b)
             z_new = mu + sigma * draw(k)
             # re-project x to the CoM-free subspace every step
             # (reference: diffusion_qm9.py:340-344)

@@ -2,6 +2,8 @@
 
     python -m hierdiff_torch.train.cli coarse  [--config c.yaml] [--init-seed S]
         [--weights w.pt] [--device D] [--find-lr] [k=v ...]
+    # the pocket-conditioned family, on synthetic pockets
+    python -m hierdiff_torch.train.cli coarse --config configs/coarse_crossdock.yaml
     python -m hierdiff_torch.train.cli denoise --config configs/denoise_geom.yaml ...
     python -m hierdiff_torch.train.cli refine  --config configs/refine_geom.yaml ...
 

@@ -1,12 +1,12 @@
 """Batch iterators of the three training stages.
 
-Port of ``hierdiff_tpu/train/data_iters.py`` (pocket batches left out): the
-synthetic GEOM-like pool or a directory of preprocessed ``.npz`` trees
+Port of ``hierdiff_tpu/train/data_iters.py``: the synthetic GEOM-like pool or a directory of preprocessed ``.npz`` trees
 (``load_tree_pool``), batches of one bucket each, the bucket drawn in
 proportion to its population and the trees within it with replacement
 (``_sample_bucket_batch``), collated for the coarse stage (``coarse_iter``),
 the edge-denoise stage (``denoise_iter``) or the refine stage
-(``refine_iter``). They take the JAX package's Python and numpy draws in its
+(``refine_iter``); the pocket family's coarse batches carry synthetic
+pockets (``synthetic_pockets``). They take the JAX package's Python and numpy draws in its
 order, so the same seed gives the same batches. A prefetcher collates on a
 thread and copies pinned host tensors to the device with
 ``non_blocking=True``.
@@ -78,15 +78,43 @@ def _sample_bucket_batch(groups: Dict[int, List], rng: random.Random, batch_size
     return bkt, rng.choices(groups[bkt], k=batch_size)
 
 
+POCKET_RESIDUES = 16   # K of the synthetic pockets
+
+
+def synthetic_pockets(rng: np.random.Generator, positions: np.ndarray,
+                      node_mask: np.ndarray, k: int = POCKET_RESIDUES) -> Dict[str, np.ndarray]:
+    """Random C-alpha shells around each molecule: residue tokens 1..20 at
+    pocket-like distances (4-8 A from a random molecule node), in the tensor
+    schema of ``chem.pocket.collate_pockets``. They stand in for CrossDocked
+    pocket data so the pocket family trains without the dataset; the draws
+    are the JAX package's, in its order."""
+    b = positions.shape[0]
+    counts = node_mask[..., 0].sum(axis=1).astype(np.int64)
+    feat = rng.integers(1, 21, (b, k)).astype(np.int32)
+    anchor_idx = rng.integers(0, np.maximum(counts, 1))[:, None]           # (B,1)
+    anchors = np.take_along_axis(positions, anchor_idx[..., None], axis=1)  # (B,1,3)
+    direction = rng.standard_normal((b, k, 3))
+    direction /= np.linalg.norm(direction, axis=-1, keepdims=True) + 1e-9
+    radius = 4.0 + 4.0 * rng.random((b, k, 1))
+    pos = (anchors + direction * radius).astype(np.float32)
+    nm = np.ones((b, k, 1), np.float32)
+    em = np.broadcast_to((1.0 - np.eye(k))[None], (b, k, k)).astype(np.float32)
+    return {"protein_feat": feat, "protein_pos": pos,
+            "protein_feat_mask": nm, "protein_edge_mask": em}
+
+
 def coarse_iter(cfg: Config, pool, seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
-    """Endless numpy batches of the coarse stage."""
-    if cfg.coarse.pocket:
-        raise NotImplementedError("pocket-conditioned training is not ported")
+    """Endless numpy batches of the coarse stage; with ``coarse.pocket``
+    each carries synthetic pockets drawn from ``np.random.default_rng(seed)``."""
     rng = random.Random(seed)
+    np_rng = np.random.default_rng(seed)
     groups = _group_by_bucket(pool, cfg.train.buckets)
     while True:
         bkt, trees = _sample_bucket_batch(groups, rng, cfg.train.batch_size)
-        yield collate_coarse(trees, max_n=bkt)
+        batch = collate_coarse(trees, max_n=bkt)
+        if cfg.coarse.pocket and "protein_pos" not in batch:
+            batch.update(synthetic_pockets(np_rng, batch["positions"], batch["atom_mask"]))
+        yield batch
 
 
 def denoise_iter(cfg: Config, pool, seed: int = 0,

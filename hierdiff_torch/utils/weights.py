@@ -1,8 +1,9 @@
 """Weights for the port's models: JAX/flax params carried across, and a
 seeded random initialisation.
 
-``state_dict_from_flax`` is the port's own copy of the egnn/gamma mapping of
-``hierdiff_tpu/utils/torch_import.py:export_coarse`` (:398-479) and
+``state_dict_from_flax`` is the port's own copy of the coarse mapping of
+``hierdiff_tpu/utils/torch_import.py:export_coarse`` (:398-479: the egnn or
+gnn backbone, the gamma network, the pocket embedding) and
 ``denoise_state_dict_from_flax`` that of ``export_denoise`` (:482, with
 ``_exp_fine_egcl`` :424), ``refine_state_dict_from_flax`` that of
 ``export_refine`` (:501). The keys are the reference DiffusionQM9,
@@ -63,18 +64,28 @@ def flax_to_numpy_state(params: Mapping) -> Dict[str, np.ndarray]:
     top-level ``"params"`` key."""
     if "params" in params:
         params = params["params"]
-    if "egnn" not in params["dynamics"]:
-        raise NotImplementedError("only the egnn_dynamics backbone is ported")
     out: Dict[str, np.ndarray] = {}
-    egnn = params["dynamics"]["egnn"]
-    _linear(out, "dynamics.egnn.embedding", egnn["embedding"])
-    _linear(out, "dynamics.egnn.embedding_out", egnn["embedding_out"])
-    for bname, bp in egnn.items():
-        if not bname.startswith("e_block_"):
-            continue
-        for gname, gp in bp.items():
-            prefix = f"dynamics.egnn.{bname}.{gname}"
-            (_equiv if gname == "gcl_equiv" else _gcl)(out, prefix, gp)
+    if "gnn" in params["dynamics"]:
+        # mode='gnn_dynamics' backbone (egnn_new.py:208-242)
+        gnn = params["dynamics"]["gnn"]
+        _linear(out, "dynamics.gnn.embedding", gnn["embedding"])
+        _linear(out, "dynamics.gnn.embedding_out", gnn["embedding_out"])
+        for gname, gp in gnn.items():
+            if gname.startswith("gcl_"):
+                _gcl(out, f"dynamics.gnn.{gname}", gp)
+    else:
+        egnn = params["dynamics"]["egnn"]
+        _linear(out, "dynamics.egnn.embedding", egnn["embedding"])
+        _linear(out, "dynamics.egnn.embedding_out", egnn["embedding_out"])
+        for bname, bp in egnn.items():
+            if not bname.startswith("e_block_"):
+                continue
+            for gname, gp in bp.items():
+                prefix = f"dynamics.egnn.{bname}.{gname}"
+                (_equiv if gname == "gcl_equiv" else _gcl)(out, prefix, gp)
+    if "pocket_embed" in params:
+        # crossdock pocket variant (diffusion_qm9.py:56)
+        out["pocket_embed.weight"] = np.asarray(params["pocket_embed"]["embedding"])
     if "gamma" in params:
         for name in ("l1", "l2", "l3"):
             _linear(out, f"gamma.{name}", params["gamma"][name])
