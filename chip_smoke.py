@@ -204,10 +204,38 @@ Phases, one output line each, any failure exits non-zero:
      passed the gate and was committed (counted around its hook); every
      returned tree a spanning tree whose every node passes the uncapped
      gate; trees/s, checks, swaps and the gate's counters;
+  4u. ``sampling.cli assemble --fine-bf16 --denoise-init-seed 0`` (bf16
+     in the full and focal layers only) on phase 4's point sets: spanning
+     trees, trees/s beside 4e's f32 rate; every bucket's bf16 lattice
+     against the f32 lattice of the same weights on the card (a focal or
+     attach choice may differ only where the f32 margin is below 5e-2;
+     top_logp within 5e-2 of the step's largest |top_logp|; top-1 types
+     agree at 0.8 of the compared steps or more, the JAX package's bar);
+     4 sets of the fullest bucket card against CPU in bf16 under the same
+     rule; wall and device ms (torch.profiler) of a lattice chunk at
+     buckets 16 and 32, bf16 and f32; ``generate --fine-bf16``, 16
+     molecules, refine off: spanning trees, coarse launches exact;
+  4v. the size variant's per-node vocab restriction
+     (``data/denoise.array_dict_allowed_fn``) on phase 4's point sets,
+     beam 5: every type inside its node's support, the Python search on
+     the same lattices bitwise the native one, the whole vocabulary as
+     support bitwise the unrestricted trees; the ``ARSampler`` at 4r's
+     configuration restricted the same way; trees/s restricted and not;
+  4w. one coarse training step at 4b's configuration (bf16, batch 64, a
+     fixed pool batch, injected t and noise) with ``remat`` /
+     ``remat_edges`` off, each and both: losses bitwise, gradients within
+     1e-6 of their largest value, launches per step exact (12 fused_gcl +
+     12 fused_gcl_bwd + 6 plain coordinate updates; with remat 24 + 12 +
+     12: the recompute), peak memory and the median ms of 5 steps; a
+     no-grad forward in each setting the plain one with the sampler's
+     launches; peak memory off and with remat_edges at 4s's pocket shapes;
+     ``train.cli
+     coarse`` 5 steps with both flags, its parameters bitwise those with
+     both off;
   5. the kernel list as JSON (``launches_by_path`` counts every path above:
      the two fine-stage training paths, both gated generate runs, the
-     serial generate runs, run_streamed and the ARSampler included), then
-     the result JSON as the last line.
+     serial generate runs, run_streamed, the ARSampler and 4u's and 4w's
+     runs included), then the result JSON as the last line.
 """
 
 from __future__ import annotations
@@ -1895,6 +1923,464 @@ def ar_phase(cli, ek, coarse_pkl: bytes, device) -> dict:
     return res
 
 
+# ---- 4u-4w: --fine-bf16, the per-node vocab restriction, remat / remat_edges
+
+# 4u: a bf16 lattice's focal or attach choice may differ from the
+# reference's only where the reference's best two candidates (focal
+# probabilities, attach logits) are closer than this share of the step's
+# largest |candidate score|: untrained GEOM-width weights give attach logits
+# of ~1e3, where bf16's ~1% rounding moves a margin by tens. top_logp is
+# printed, not gated: the rule holds the choices and the top-1 types
+BF16_MARGIN = 5e-2
+BF16_TOP1 = 0.8                       # tests/test_fine_stage.py:553
+BF16_CPU_SETS = 4                     # card against CPU, bf16: sets of the fullest bucket
+LATTICE_TIMED_BUCKETS = (16, 32)
+GENERATE_BF16 = 16
+REMAT_SETTINGS = {"off": (False, False), "remat_edges": (False, True), "remat": (True, False),
+                  "both": (True, True)}
+REMAT_STEPS = 5                       # 4w: timed steps per setting, and train CLI steps
+
+
+def _lattice_run(model, blur, chunk, nb, device):
+    """``ar_lattice`` on the molecules ``chunk`` padded to bucket nb and a
+    pow2 batch: its outputs (margins included) as numpy, and
+    ``focal_scale`` / ``target_scale``: each step's largest |score| of
+    that head over the molecule's nodes (its outputs, caught by hooks),
+    with the margins divided by them in ``*_margin_rel``."""
+    from hierdiff_torch.sampling.lattice import _next_pow2, pad_blur
+
+    arrays = pad_blur(blur, chunk, _next_pow2(len(chunk)), nb)
+    caught = {"focal": [], "target": []}
+    hooks = [model.focal_predict.register_forward_hook(
+                 lambda _m, _i, o: caught["focal"].append(o[..., 0].abs())),
+             model.edge_predict.register_forward_hook(
+                 lambda _m, _i, o: caught["target"].append(o[..., 0].abs()))]
+    try:
+        out = model.ar_lattice(*(torch.from_numpy(a).to(device) for a in arrays))
+    finally:
+        for h_ in hooks:
+            h_.remove()
+    res = {k: v[:len(chunk)].cpu().numpy() for k, v in out.items()}
+    nmask = torch.from_numpy(arrays[2][..., 0]).to(device) > 0
+    for c in ("focal", "target"):
+        scale = torch.stack([torch.where(nmask, a.float(), torch.zeros_like(a.float())).amax(1)
+                             for a in caught[c]], dim=1)
+        res[f"{c}_scale"] = scale[:len(chunk)].cpu().numpy()
+        res[f"{c}_margin_rel"] = res[f"{c}_margin"] / np.maximum(res[f"{c}_scale"], 1e-30)
+    return res
+
+
+def _relative(lattice: dict) -> dict:
+    """A lattice whose margins are the relative ones, for compare_lattices."""
+    out = dict(lattice)
+    for c in ("focal", "target"):
+        out[f"{c}_margin"] = lattice[f"{c}_margin_rel"]
+    return out
+
+
+def lattice_device_ms(model, blur, chunk, nb, device) -> dict:
+    """Wall and device ms (torch.profiler) of one lattice chunk, after a warm run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _lattice_run(model, blur, chunk, nb, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _lattice_run(model, blur, chunk, nb, device)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _lattice_run(model, blur, chunk, nb, device)
+        torch.cuda.synchronize()
+    return {"wall_ms": wall_ms, "device_ms": profiled_device_ms(prof)}
+
+
+def fine_bf16_phase(cli, ek, coarse_pkl: bytes, device, f32_rate: float) -> dict:
+    """Phase 4u: ``sampling.cli assemble --fine-bf16 --denoise-init-seed 0``
+    on phase 4's point sets: spanning trees and trees/s beside 4e's f32
+    rate; every bucket's bf16 lattice against the f32 lattice of the same
+    weights on the card (a choice may differ only where the f32 margin is
+    under BF16_MARGIN; top-1 types agree at BF16_TOP1 of the compared steps
+    or more); BF16_CPU_SETS sets of the fullest bucket, card against CPU in
+    bf16 under the same rule; wall and device ms of one lattice chunk at
+    buckets 16 and 32, bf16 and f32; ``generate --fine-bf16`` on
+    GENERATE_BF16 molecules, refine off: spanning trees, exact coarse
+    launches."""
+    from hierdiff_torch.config import EdgeDenoiseConfig
+    from hierdiff_torch.data.collate import bucket_for
+    from hierdiff_torch.tools.lattice_check import compare_lattices
+    from hierdiff_torch.utils.weights import init_weights
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = Path(tmp) / "coarse.pkl", Path(tmp) / "trees.pkl"
+        src.write_bytes(coarse_pkl)
+        run = cli.main(["assemble", "--coarse-pkl", str(src), "--denoise-init-seed", "0",
+                        "--fine-bf16", "--out", str(out)])
+        with open(out, "rb") as f:
+            trees = pickle.load(f)["trees"]
+    blur, sampler = run["blur"], run["sampler"]
+    model16 = sampler.model
+    dtypes = {name: getattr(model16, name).compute_dtype
+              for name in ("gcl_full_0", "gcl_focal_0", "gcl_edge", "gcl_denoise")}
+    sizes = [b["h"].shape[0] for b in blur]
+    faults = spanning_tree_faults(trees, sizes)
+    rate = len(blur) / (run["lattice_s"] + run["search_s"])
+    print(f"assemble --fine-bf16 (4u): GEOM denoise H={model16.hidden_nf}, {len(blur)} "
+          f"molecules: lattices {run['lattice_s']:.3f} s, search {run['search_s']:.3f} s, "
+          f"{rate:.3f} trees/s (4e's f32 {f32_rate:.3f}); layer dtypes {dtypes}; faults {faults}")
+    if faults:
+        fail(f"4u: assemble --fine-bf16 gave trees that are missing or invalid: {faults}")
+    if dtypes != {"gcl_full_0": "bfloat16", "gcl_focal_0": "bfloat16", "gcl_edge": None,
+                  "gcl_denoise": None}:
+        fail(f"4u: --fine-bf16 set the wrong layers to bf16: {dtypes}")
+
+    # every bucket's bf16 lattice against the f32 one of the same weights
+    model32 = model16.clone(compute_dtype=None)
+    by_bucket = {}
+    for i, n in enumerate(sizes):
+        by_bucket.setdefault(bucket_for(n, sampler.buckets), []).append(i)
+    cuts, fails, steps, agree, total, worst, margin_moves = [], [], 0, 0, 0, 0.0, []
+    for nb, idxs in sorted(by_bucket.items()):
+        f32 = _lattice_run(model32, blur, idxs, nb, device)
+        b16 = _lattice_run(model16, blur, idxs, nb, device)
+        n_steps = [sizes[i] for i in idxs]
+        # logp_tol 1: top_logp and top_wid are not gated, the choices are
+        rep = compare_lattices(_relative(f32), b16, n_steps, margin=BF16_MARGIN, logp_tol=1.0,
+                               relative=True)
+        cuts += [(idxs[r], t, c, m) for r, t, c, m in rep["cut"]]
+        fails += [(idxs[f[0]],) + tuple(f[1:]) for f in rep["failures"]]
+        steps += rep["steps_compared"]
+        worst = max(worst, rep["max_logp_rel_err"])
+        cut_at = {r: t for r, t, _c, _m in rep["cut"]}
+        for r, n in enumerate(n_steps):
+            for t in range(min(n, cut_at.get(r, n))):
+                total += 1
+                agree += int(f32["top_wid"][r, t, 0] == b16["top_wid"][r, t, 0])
+                for c in ("focal", "target"):
+                    if math.isfinite(f32[f"{c}_margin"][r, t]):
+                        margin_moves.append(abs(float(b16[f"{c}_margin"][r, t]
+                                                      - f32[f"{c}_margin"][r, t]))
+                                            / max(float(f32[f"{c}_scale"][r, t]), 1e-30))
+    top1 = agree / max(total, 1)
+    moves = np.quantile(margin_moves, [0.5, 0.99, 1.0]).tolist() if margin_moves else []
+    against_f32 = {"steps_compared": steps, "cut": cuts, "molecules_cut": len({c[0] for c in cuts}),
+                   "failures": fails[:5], "top1_agreement": top1, "max_logp_rel_err": worst,
+                   "relative_margin_change_q50_q99_max": moves}
+    print(f"bf16 against f32 lattices on the card (4u), margin bar {BF16_MARGIN} of the step's "
+          f"largest |score|: {json.dumps(against_f32)}")
+    if fails or top1 < BF16_TOP1:
+        fail(f"4u: the bf16 lattices disagree with the f32 ones: {against_f32}")
+
+    # bf16, card against CPU, on BF16_CPU_SETS sets of the fullest bucket
+    nb = max(by_bucket, key=lambda k: len(by_bucket[k]))
+    chunk = by_bucket[nb][:BF16_CPU_SETS]
+    cpu16 = init_weights(cli.build_denoise_from_cfg(EdgeDenoiseConfig(), "cpu", "bfloat16"),
+                         torch.Generator().manual_seed(0)).clone(dynamic_depth=True)
+    cpu = _lattice_run(cpu16, blur, chunk, nb, torch.device("cpu"))
+    card = _lattice_run(model16, blur, chunk, nb, device)
+    rep = compare_lattices(_relative(cpu), card, [sizes[i] for i in chunk], margin=BF16_MARGIN,
+                           logp_tol=1.0, relative=True)
+    against_cpu = {"bucket": nb, "molecules": len(chunk), "steps_compared": rep["steps_compared"],
+                   "cut": rep["cut"], "failures": rep["failures"][:5],
+                   "max_logp_rel_err": rep["max_logp_rel_err"]}
+    print(f"bf16 lattice, card against CPU (4u): {json.dumps(against_cpu)}")
+    if not rep["ok"]:
+        fail(f"4u: the card's bf16 lattice disagrees with the CPU's: {against_cpu}")
+
+    # one lattice chunk's times at buckets 16 and 32, bf16 and f32
+    timed = []
+    for nb in LATTICE_TIMED_BUCKETS:
+        chunk = [i for i in range(len(blur)) if sizes[i] <= nb][-16:]
+        for name, model in (("bf16", model16), ("f32", model32)):
+            row = {"bucket": nb, "molecules": len(chunk), "dtype": name,
+                   **lattice_device_ms(model, blur, chunk, nb, device)}
+            timed.append(row)
+            print(f"lattice chunk (4u): bucket {nb}, {len(chunk)} molecules, {name}: wall "
+                  f"{row['wall_ms']:.1f} ms, device {row['device_ms']:.1f} ms (torch.profiler)")
+
+    # generate --fine-bf16, refine off
+    steps = 100
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "generated.pkl"
+        ek.reset_launch_counts()
+        gen = cli.main(["generate", "--init-seed", "0", "--denoise-init-seed", "0",
+                        "--fine-bf16", "--num", str(GENERATE_BF16), "--sample-steps", str(steps),
+                        "--seed", str(SEED), "--out", str(out)])
+        torch.cuda.synchronize()
+        launches = dict(ek.launch_counts)
+        with open(out, "rb") as f:
+            gen_trees = pickle.load(f)["trees"]
+    result, pipe = gen["result"], gen["pipeline"]
+    gen_sizes = [b["h"].shape[0] for b in result.blur]
+    n_chunks = len(pipe._plan_chunks(np.asarray(gen_sizes)))
+    expect = {"fused_gcl": n_chunks * (steps + 1) * 12,
+              "fused_coord_update": n_chunks * (steps + 1) * 6,
+              "fused_gcl_bwd": 0, "coord_update_autograd": 0}
+    gen_faults = spanning_tree_faults(gen_trees, gen_sizes)
+    generated = {"molecules": GENERATE_BF16, "seconds": gen["seconds"],
+                 "molecules_per_s": GENERATE_BF16 / gen["seconds"], "coarse_chunks": n_chunks,
+                 "t_coarse": result.stats["t_coarse"], "t_fine": result.stats["t_fine"],
+                 "launches": launches, "faults": gen_faults,
+                 "bf16": pipe.sampler.model.gcl_full_0.compute_dtype == "bfloat16"}
+    print(f"generate --fine-bf16 (4u): {json.dumps(generated)} (expected launches {expect})")
+    if launches != expect or gen_faults or not generated["bf16"]:
+        fail(f"4u: generate --fine-bf16: launches {launches} != {expect}, or faults "
+             f"{gen_faults}, or not bf16")
+    return {"molecules": len(blur), "lattice_s": run["lattice_s"], "search_s": run["search_s"],
+            "trees_per_s": rate, "f32_trees_per_s": f32_rate, "against_f32": against_f32,
+            "against_cpu": against_cpu, "chunks": timed, "generate": generated,
+            "phase_seconds": time.perf_counter() - t_phase}
+
+
+def allowed_phase(cli, coarse_pkl: bytes, device) -> dict:
+    """Phase 4v: the size variant's per-node vocab restriction
+    (``data/denoise.array_dict_allowed_fn``: each node's support is the
+    array dict's bucket nearest its feature prefix) on phase 4's point sets
+    at GEOM width, beam 5: every type inside its node's support; the Python
+    search on the same lattices bitwise the native one; an allowed_fn of the
+    whole vocabulary bitwise the unrestricted trees; the ``ARSampler`` at
+    4r's configuration under the same restriction (spanning trees, types in
+    their supports); trees/s restricted and unrestricted."""
+    from hierdiff_torch.config import EdgeDenoiseConfig
+    from hierdiff_torch.data.collate import SAMPLING_BUCKETS, bucket_for
+    from hierdiff_torch.data.denoise import array_dict_allowed_fn
+    from hierdiff_torch.sampling.ar import ARSampler
+    from hierdiff_torch.sampling.lattice import LatticeSampler
+    from hierdiff_torch.sampling.pipeline import round_int_features
+    from hierdiff_torch.utils.weights import init_weights
+
+    t_phase = time.perf_counter()
+    blur = [{"x": np.asarray(b["x"], np.float32),
+             "h": round_int_features(np.asarray(b["h"], np.float32), 5)}
+            for b in cli._flatten_blur_pkl(pickle.loads(coarse_pkl))]
+    sizes = [b["h"].shape[0] for b in blur]
+    model = init_weights(cli.build_denoise_from_cfg(EdgeDenoiseConfig(), device),
+                         torch.Generator().manual_seed(0))
+    fn = array_dict_allowed_fn()
+    supports = [fn(b["h"]) for b in blur]
+    every = np.arange(780)
+
+    def run(allowed_fn, native=True):
+        s_ = LatticeSampler(model, beam_size=5, buckets=SAMPLING_BUCKETS, rng=random.Random(2022),
+                            native_search=native, allowed_fn=allowed_fn)
+        t0 = time.perf_counter()
+        lattices = s_.compute_lattices(blur)
+        t1 = time.perf_counter()
+        trees = s_._search(blur, lattices)
+        return {"sampler": s_, "lattices": lattices, "trees": trees, "lattice_s": t1 - t0,
+                "search_s": time.perf_counter() - t1,
+                "trees_per_s": len(blur) / (time.perf_counter() - t0)}
+
+    restricted = run(fn)
+    python = LatticeSampler(model, beam_size=5, buckets=SAMPLING_BUCKETS, rng=random.Random(2022),
+                            native_search=False, allowed_fn=fn)._search(blur,
+                                                                        restricted["lattices"])
+    plain = run(None)
+    full = run(lambda feats: [every] * feats.shape[0])
+    outside = [(i, node, int(w)) for i, t in enumerate(restricted["trees"]) if t is not None
+               for node, w in enumerate(t.wids) if int(w) not in supports[i][node]]
+    faults = spanning_tree_faults([None if t is None else {"wids": t.wids, "adj": t.adj,
+                                                           "logp": t.logp}
+                                   for t in restricted["trees"]], sizes)
+    res = {"molecules": len(blur), "restricted_trees_per_s": restricted["trees_per_s"],
+           "restricted_lattice_s": restricted["lattice_s"],
+           "restricted_search_s": restricted["search_s"],
+           "unrestricted_trees_per_s": plain["trees_per_s"],
+           "unrestricted_lattice_s": plain["lattice_s"],
+           "support_sizes": [min(len(s) for m in supports for s in m),
+                             max(len(s) for m in supports for s in m)],
+           "outside_support": outside[:5], "faults": faults,
+           "native_equals_python": same_trees(restricted["trees"], python),
+           "full_vocab_equals_unrestricted": same_trees(full["trees"], plain["trees"]),
+           "restriction_changed_trees": not same_trees(restricted["trees"], plain["trees"])}
+
+    # the round-based sampler at 4r's configuration, restricted
+    ar_blur = [b for b in blur if bucket_for(b["h"].shape[0], SAMPLING_BUCKETS)
+               == AR_BUCKET][:AR_MOLECULES]
+    ar_model = init_weights(cli.build_denoise_from_cfg(
+        EdgeDenoiseConfig(vocab_conditioning=True), device), torch.Generator().manual_seed(0))
+    ar_sampler = ARSampler(ar_model, beam_size=5, buckets=SAMPLING_BUCKETS,
+                           rng=random.Random(2022), allowed_fn=fn)
+    t0 = time.perf_counter()
+    ar_trees = ar_sampler.sample(ar_blur)
+    ar_s = time.perf_counter() - t0
+    ar_sup = [fn(b["h"]) for b in ar_blur]
+    ar_outside = [(i, node, int(w)) for i, t in enumerate(ar_trees) if t is not None
+                  for node, w in enumerate(t.wids) if int(w) not in ar_sup[i][node]]
+    ar_faults = spanning_tree_faults([None if t is None else {"wids": t.wids, "adj": t.adj,
+                                                              "logp": t.logp} for t in ar_trees],
+                                     [b["h"].shape[0] for b in ar_blur])
+    res["ar"] = {"molecules": len(ar_blur), "steps": ar_sampler.expander.stats["steps"],
+                 "seconds": ar_s, "trees_per_s": len(ar_blur) / ar_s,
+                 "outside_support": ar_outside[:5], "faults": ar_faults}
+    res["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"allowed_fn (4v): array-dict restriction, GEOM denoise, {len(blur)} molecules, beam "
+          f"5: {json.dumps(res)}")
+    if outside or faults or ar_outside or ar_faults:
+        fail(f"4v: a type outside its support or a bad tree: {outside[:5]} {faults} "
+             f"{ar_outside[:5]} {ar_faults}")
+    if not (res["native_equals_python"] and res["full_vocab_equals_unrestricted"]):
+        fail(f"4v: native != Python under the restriction, or the full vocabulary changed the "
+             f"trees: {res}")
+    return res
+
+
+def _remat_step(model, batch, t_int, eps):
+    """One forward and backward of the coarse loss with injected draws."""
+    model.zero_grad(set_to_none=True)
+    out = model(batch, None, train=True, t_int=t_int, eps=eps)
+    out["loss"].backward()
+    return out["loss"].detach()
+
+
+def _peak_step(ek, model, batch, t_int, eps, device):
+    """Launches and peak memory of one step, from a clean peak."""
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    ek.reset_launch_counts()
+    loss = _remat_step(model, batch, t_int, eps)
+    torch.cuda.synchronize()
+    return loss, dict(ek.launch_counts), (torch.cuda.max_memory_allocated(device) - base) / 2**30
+
+
+def remat_phase(train_cli, cli, ek, device) -> dict:
+    """Phase 4w: one coarse training step at 4b's configuration (GEOM,
+    bf16 elementwise, batch 64, a fixed pool batch, injected t and noise)
+    with ``remat`` / ``remat_edges`` off, each, and both: losses bitwise
+    equal, every gradient within 1e-6 of its largest value, launches per
+    step exact (off and remat_edges 12 fused_gcl + 12 fused_gcl_bwd + 6
+    plain coordinate updates; remat 24 + 12 + 12), peak memory above the
+    step's start and the median ms of REMAT_STEPS steps (forward and
+    backward); the same loss under no_grad with the sampler's launches (12
+    fused_gcl + 6 fused_coord_update) in every setting; peak memory off and
+    with remat_edges at 4s's pocket shapes;
+    ``train.cli coarse`` for REMAT_STEPS steps with both flags on, its
+    parameters bitwise those of the same steps with both off."""
+    from hierdiff_torch.config import load_config
+    from hierdiff_torch.ops.masked import combine_noise
+    from hierdiff_torch.train.data_iters import coarse_iter, finite, load_tree_pool, to_device
+    from hierdiff_torch.utils.weights import init_weights
+
+    t_phase = time.perf_counter()
+    over = ["coarse.compute_dtype=bfloat16", "train.batch_size=64", "train.num_train_trees=512",
+            f"train.seed={SEED}"]
+    cfg = load_config(None, over)
+    pool = load_tree_pool(cfg, seed=SEED)
+    # the widest of the stream's first 8 batches (buckets 8-32)
+    np_batch = max(finite(coarse_iter(cfg, pool, seed=SEED + 5), 8),
+                   key=lambda b_: b_["atom_mask"].shape[1])
+    batch = to_device(np_batch, device)
+    b, n = np_batch["atom_mask"].shape[:2]
+    rng = np.random.default_rng(SEED + 1)
+    t_int = torch.from_numpy(rng.integers(0, cfg.coarse.timesteps + 1, size=(b, 1))).to(device)
+    eps = combine_noise(torch.from_numpy(rng.standard_normal((b, n, 11)).astype(np.float32)),
+                        torch.from_numpy(np_batch["atom_mask"]), 3).to(device)
+    settings = {}
+    for name, (remat, remat_edges) in REMAT_SETTINGS.items():
+        c = copy.deepcopy(cfg.coarse)
+        c.remat, c.remat_edges = remat, remat_edges
+        model = init_weights(cli.build_coarse_from_cfg(c, device=device),
+                             torch.Generator().manual_seed(SEED)).train()
+        loss, launches, peak = _peak_step(ek, model, batch, t_int, eps, device)
+        grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+        times = []
+        for _ in range(REMAT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _remat_step(model, batch, t_int, eps)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        settings[name] = {"loss": loss, "grads": grads, "launches": launches, "peak_gib": peak,
+                          "step_ms": float(np.median(times))}
+        # no gradient recorded: the checkpoints are plain calls, the kernels as in sampling
+        ek.reset_launch_counts()
+        with torch.no_grad():
+            nograd_loss = model(batch, None, train=True, t_int=t_int, eps=eps)["loss"]
+        torch.cuda.synchronize()
+        settings[name]["no_grad_launches"] = dict(ek.launch_counts)
+        settings[name]["no_grad_loss"] = nograd_loss
+        del model
+    base = settings["off"]
+    per_step = {name: {"fused_gcl": 24 if REMAT_SETTINGS[name][0] else 12, "fused_gcl_bwd": 12,
+                       "coord_update_autograd": 12 if REMAT_SETTINGS[name][0] else 6,
+                       "fused_coord_update": 0} for name in REMAT_SETTINGS}
+    no_grad_expect = {"fused_gcl": 12, "fused_coord_update": 6, "fused_gcl_bwd": 0,
+                      "coord_update_autograd": 0}
+    report = {}
+    for name, s in settings.items():
+        dev = max(float((s["grads"][k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                  for k, g in base["grads"].items())
+        report[name] = {"loss": float(s["loss"]), "loss_bitwise": torch.equal(s["loss"], base["loss"]),
+                        "grad_max_rel_dev": dev, "launches": s["launches"],
+                        "launches_ok": s["launches"] == per_step[name],
+                        "no_grad_launches": s["no_grad_launches"],
+                        "no_grad_ok": (s["no_grad_launches"] == no_grad_expect
+                                       and torch.equal(s["no_grad_loss"], base["no_grad_loss"])),
+                        "peak_gib": s["peak_gib"], "step_ms": s["step_ms"]}
+    print(f"remat (4w): GEOM H={H} bf16, batch {b}, N={n}, one step, injected t and noise: "
+          f"{json.dumps(report)}")
+    bad = {k: r for k, r in report.items()
+           if not (r["loss_bitwise"] and r["grad_max_rel_dev"] <= 1e-6 and r["launches_ok"]
+                   and r["no_grad_ok"])}
+    if bad:
+        fail(f"4w: remat changed the step, or its launches are not exact: {bad}")
+
+    # peak memory at 4s's pocket shapes, off and with remat_edges
+    pcfg = load_config(CROSSDOCK, [f"train.seed={SEED}"])
+    ppool = load_tree_pool(pcfg, seed=SEED)
+    pbatch = to_device(next(coarse_iter(pcfg, ppool, seed=SEED + 7)), device)
+    pocket = {}
+    for name in ("off", "remat_edges"):
+        c = copy.deepcopy(pcfg.coarse)
+        c.remat_edges = name == "remat_edges"
+        model = init_weights(cli.build_coarse_from_cfg(c, device=device),
+                             torch.Generator().manual_seed(SEED)).train()
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        start = torch.cuda.memory_allocated(device)
+        loss, _ = train_cli.coarse_loss(model, pbatch,
+                                        torch.Generator(device=device).manual_seed(SEED))
+        loss.backward()
+        torch.cuda.synchronize()
+        pocket[name] = {"peak_gib": (torch.cuda.max_memory_allocated(device) - start) / 2**30,
+                        "loss": loss.item()}
+        del model
+    n_tot = int(pbatch["atom_mask"].shape[1] + pbatch["protein_feat_mask"].shape[1])
+    print(f"remat_edges at 4s's pocket shapes (4w): B={pbatch['atom_mask'].shape[0]} "
+          f"n_mol+K={n_tot}: {json.dumps(pocket)}")
+    if pocket["off"]["loss"] != pocket["remat_edges"]["loss"]:
+        fail(f"4w: remat_edges changed the pocket loss: {pocket}")
+
+    # the train CLI with both flags, against both off
+    params, runs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, flags in (("off", []), ("both", ["coarse.remat=true",
+                                                   "coarse.remat_edges=true"])):
+            ek.reset_launch_counts()
+            run = train_cli.main(["coarse", "--init-seed", "0", f"train.workdir={tmp}/{name}",
+                                  *over, f"train.max_steps={REMAT_STEPS}", "train.log_every=1",
+                                  "train.eval_every=1000", "train.checkpoint_every=1000",
+                                  *flags])
+            torch.cuda.synchronize()
+            params[name] = run["trainer"].state.model.state_dict()
+            runs[name] = {"steps_per_sec": run["steps_per_sec"], "launches": dict(ek.launch_counts)}
+    differ = sorted(k for k, v in params["off"].items() if not torch.equal(v, params["both"][k]))
+    egnn = runs["both"]
+    print(f"train.cli coarse, {REMAT_STEPS} steps, remat and remat_edges on against off (4w): "
+          f"{json.dumps(runs)}; parameters that differ {differ}")
+    if differ:
+        fail(f"4w: training with remat gave other parameters: {differ}")
+    if egnn["launches"]["fused_gcl"] != 24 * REMAT_STEPS:
+        fail(f"4w: the train CLI did not recompute the blocks: {egnn['launches']}")
+    return {"batch": b, "n": n, "settings": report, "pocket": pocket, "pocket_n_tot": n_tot,
+            "train_cli": runs, "phase_seconds": time.perf_counter() - t_phase,
+            "launches": settings["both"]["launches"]}
+
+
 # ---- 4s, 4t: the pocket-conditioned (CrossDocked) family
 #
 # configs/coarse_crossdock.yaml at its published width (H=256, 6 blocks of 2
@@ -2866,6 +3352,11 @@ def main() -> None:
     # ---- 4r. the round-based sampler (vocab_conditioning)
     assembled_ar = ar_phase(cli, ek, coarse_pkl, device)
 
+    # ---- 4u, 4v, 4w. --fine-bf16, the per-node vocab restriction, remat / remat_edges
+    fine_bf16 = fine_bf16_phase(cli, ek, coarse_pkl, device, assembled["trees_per_s"])
+    allowed = allowed_phase(cli, coarse_pkl, device)
+    remat = remat_phase(train_cli, cli, ek, device)
+
     # ---- 4s, 4t. the pocket-conditioned (CrossDocked) family: training, then
     # sampling with the trained ema.pt
     with tempfile.TemporaryDirectory() as pocket_tmp:
@@ -2929,7 +3420,11 @@ def main() -> None:
              "train_refine": fine_train["refine"]["launches"],
              "generate_gated": generated_gated["stats"]["launches"],
              "generate_gated_workers_2": generated_gated["stats"]["launches_workers_2"],
-             "train_pocket": pocket_train["launches"], "sample_pocket": pocket_sample["launches"]}
+             "train_pocket": pocket_train["launches"], "sample_pocket": pocket_sample["launches"],
+             "generate_fine_bf16": fine_bf16["generate"]["launches"],
+             "train_step_remat": remat["launches"],
+             "train_remat": remat["train_cli"]["both"]["launches"],
+             "train_remat_off": remat["train_cli"]["off"]["launches"]}
     kernels = []
     for name, runs in results.items():
         main_run = runs[0]   # random weights, attention on, f32: the main path's variant
@@ -2954,7 +3449,8 @@ def main() -> None:
         "planted": planted, "assemble_trained": trained_assemble, "assemble_gated": gated,
         "generate_gated": generated_gated["stats"], "reconstruct_eval": reconstructed,
         "assemble_gated_refine": gated_refine, "train_pocket": pocket_train,
-        "sample_pocket": pocket_sample}))
+        "sample_pocket": pocket_sample, "assemble_fine_bf16": fine_bf16, "allowed": allowed,
+        "remat": remat}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -46,6 +46,8 @@ class CoarseModelConfig:
     context_node_nf: int = 0
     mode: str = "egnn_dynamics"          # 'egnn_dynamics' | 'gnn_dynamics'
     sin_embedding: bool = False          # sinusoidal distance embedding
+    remat: bool = False                  # recompute each EGNN block in the backward
+    remat_edges: bool = False            # recompute only the (B, N, N, H) edge chains
     compute_dtype: Optional[str] = None  # 'bfloat16' = bf16 elementwise edge pipeline
     dataset: str = "geom"                # geom | qm9 | crossdock (node-count histogram)
     pocket: bool = False                 # pocket-conditioned (crossdock) variant
@@ -64,19 +66,26 @@ class CoarseModelConfig:
         return 3 if self.node_coarse_type == "prop" else 0
 
 
+# keys of the JAX package's coarse config that select its Pallas kernels; the
+# port launches its kernels on every CUDA tensor, so they are read and ignored
+IGNORED_COARSE_KEYS = ("use_pallas", "pallas_vjp")
+
+
 def load_coarse_config(path: Optional[str] = None) -> CoarseModelConfig:
     """GEOM defaults, overridden by the ``coarse:`` section of a YAML file.
 
-    Keys of the JAX package's config that this port does not model (its
-    TPU-side switches such as ``use_pallas`` or ``remat``) are ignored."""
+    ``IGNORED_COARSE_KEYS`` are skipped; any other key this config does not
+    hold raises KeyError, as the JAX package's loader does."""
     cfg = CoarseModelConfig()
     if not path:
         return cfg
     section = read_yaml(path).get("coarse") or {}
     names = {f.name: f for f in dataclasses.fields(cfg)}
     for key, value in section.items():
-        if key not in names:
+        if key in IGNORED_COARSE_KEYS:
             continue
+        if key not in names:
+            raise KeyError(f"unknown config key 'coarse.{key}'")
         cur = getattr(cfg, key)
         if isinstance(cur, tuple):
             value = tuple(type(cur[0])(v) for v in value)
@@ -276,13 +285,15 @@ def load_config(path: Optional[str] = None, overrides: Sequence[str] = ()) -> Co
     cfg = Config()
     if path:
         raw = read_yaml(path)
-        names = {f.name for f in dataclasses.fields(CoarseModelConfig)}
-        raw["coarse"] = {k: v for k, v in (raw.get("coarse") or {}).items() if k in names}
+        raw["coarse"] = {k: v for k, v in (raw.get("coarse") or {}).items()
+                         if k not in IGNORED_COARSE_KEYS}
         _update_from_dict(cfg, raw)
     for ov in overrides:
         key, sep, val = ov.partition("=")
         if not sep:
             raise ValueError(f"override {ov!r} is not key=value")
+        if key.strip() in tuple(f"coarse.{k}" for k in IGNORED_COARSE_KEYS):
+            continue
         _apply(cfg, key.strip(), parse_value(val))
     return cfg
 

@@ -38,6 +38,20 @@ def find_array_bucket(feat: np.ndarray, arrays: List[np.ndarray]) -> int:
     return int(np.argmin(diffs))
 
 
+def array_dict_allowed_fn():
+    """The size variant's per-node vocab restriction at sampling time, an
+    ``allowed_fn`` for the fine samplers: each node's support is the array
+    dict's bucket nearest its feature prefix, as ``make_denoise_example``
+    restricts the node head in training (reference ar_sampling.py:62-118)."""
+    arrays, indices = load_array_dict()
+    width = arrays[0].shape[0]
+
+    def allowed_fn(feats: np.ndarray) -> List[List[int]]:
+        return [indices[find_array_bucket(f[:width], arrays)] for f in feats]
+
+    return allowed_fn
+
+
 def make_denoise_example(tree, rng: random.Random, vocab_size: int = 780,
                          use_array_dict: bool = False,
                          sampling: Optional[int] = None) -> Dict[str, np.ndarray]:

@@ -77,7 +77,9 @@ class CoarseDiffusion(nn.Module):
     """EDM over fragment centres: x in R^3 (CoM-free) + h blur features.
 
     Module names follow the reference DiffusionQM9 (``gamma.*``,
-    ``dynamics.egnn.*``), so its state dict loads with ``strict=True``."""
+    ``dynamics.egnn.*``), so its state dict loads with ``strict=True``.
+    ``remat`` / ``remat_edges`` are the EGNN's memory switches of training
+    (``ops/egnn.py``); ``gnn_dynamics`` ignores them, as the JAX package does."""
 
     def __init__(self, in_node_nf: int = 8, n_dims: int = 3, timesteps: int = 1000,
                  loss_type: str = "vlb", noise_schedule: str = "learned",
@@ -91,7 +93,8 @@ class CoarseDiffusion(nn.Module):
                  context_node_nf: int = 0, compute_dtype=None,
                  mode: str = "egnn_dynamics", sin_embedding: bool = False,
                  int_nf: int = 5, cont_nf: int = 3, pocket: bool = False,
-                 pocket_cross_edges: bool = True):
+                 pocket_cross_edges: bool = True, remat: bool = False,
+                 remat_edges: bool = False):
         super().__init__()
         self.in_node_nf = in_node_nf
         self.n_dims = n_dims
@@ -119,7 +122,8 @@ class CoarseDiffusion(nn.Module):
             attention=attention, tanh=tanh, coords_range=coords_range,
             norm_constant=norm_constant, normalization_factor=normalization_factor,
             aggregation_method=aggregation_method, condition_time=condition_time,
-            compute_dtype=compute_dtype, mode=mode, sin_embedding=sin_embedding)
+            compute_dtype=compute_dtype, mode=mode, sin_embedding=sin_embedding,
+            remat=remat, remat_edges=remat_edges)
 
     # --- schedule access ---------------------------------------------------
 

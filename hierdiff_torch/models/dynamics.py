@@ -30,7 +30,7 @@ class EGNNDynamics(nn.Module):
                  norm_constant: float = 0.0, normalization_factor: float = 10.0,
                  aggregation_method: str = "sum", condition_time: bool = True,
                  compute_dtype=None, mode: str = "egnn_dynamics",
-                 sin_embedding: bool = False):
+                 sin_embedding: bool = False, remat: bool = False, remat_edges: bool = False):
         super().__init__()
         self.in_node_nf = in_node_nf
         self.context_node_nf = context_node_nf
@@ -52,7 +52,7 @@ class EGNNDynamics(nn.Module):
                 coords_range=coords_range, norm_constant=norm_constant,
                 normalization_factor=normalization_factor,
                 aggregation_method=aggregation_method, compute_dtype=compute_dtype,
-                sin_embedding=sin_embedding)
+                sin_embedding=sin_embedding, remat=remat, remat_edges=remat_edges)
         else:
             raise ValueError(f"Wrong mode {mode}")
 

@@ -22,6 +22,17 @@ deliberate divergence #6): the reference's gate sums the focal BCE over
 (usually) the first sample of a batch only (edge_denoise.py:124-126 with
 split_edges :500-505); here it is summed over every sample that has
 discovered edges.
+
+``compute_dtype='bfloat16'`` runs the dense full and focal passes
+(``gcl_full_*``, ``gcl_focal_*``) in bf16 (``ops/gcl.py``); the depth passes
+(``gcl_edge``, ``gcl_denoise``), the embeddings and the heads stay f32, as
+in the JAX package (hierdiff_tpu/models/edge_denoise.py:82-108).
+
+``allowed_bucket`` (B, N) and ``allowed_table`` (K, V) restrict each new
+node's type to a support: row ``allowed_bucket[b, target]`` of the table
+(``sampling/lattice.build_allowed_arrays``), the size variant's restricted
+softmax (reference ar_sampling.py:62-118). Types outside it get a
+log-probability of ~NEG_INF, which the searches skip.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from typing import Dict, Optional
 import torch
 from torch import Tensor, nn
 
+from hierdiff_torch.ops.egnn import resolve_compute_dtype
 from hierdiff_torch.ops.gcl import DenseEGCL, coord2radial_dense, compute_parents
 from hierdiff_torch.ops.graph import bfs_depths
 from hierdiff_torch.ops.masked import (binary_cross_entropy, masked_cross_entropy,
@@ -63,10 +75,8 @@ class EdgeDenoise(nn.Module):
                  max_depth: Optional[int] = None, max_depth_node: Optional[int] = None,
                  dynamic_depth: bool = False, compute_dtype: Optional[str] = None):
         super().__init__()
-        if compute_dtype not in (None, "float32"):
-            raise NotImplementedError(
-                "EdgeDenoise runs in float32 only: fine-stage bf16 (--fine-bf16) is queued in "
-                "ROADMAP.md, Queue 1")
+        resolve_compute_dtype(compute_dtype)
+        self.compute_dtype = compute_dtype
         h = hidden_nf
         self.vocab_size, self.out_node_nf, self.in_node_nf = vocab_size, out_node_nf, in_node_nf
         self.hidden_nf, self.n_layers_full, self.n_layers_focal = h, n_layers_full, n_layers_focal
@@ -87,10 +97,12 @@ class EdgeDenoise(nn.Module):
         self.node_embedding = nn.Linear(2 * h, h)
         for i in range(n_layers_full):
             setattr(self, f"gcl_full_{i}", DenseEGCL(h, edges_in_d=h, attention=True,
-                                                     edge_update=True, gated=gated))
+                                                     edge_update=True, gated=gated,
+                                                     compute_dtype=compute_dtype))
         for i in range(n_layers_focal):
             setattr(self, f"gcl_focal_{i}", DenseEGCL(h, edges_in_d=h, attention=False,
-                                                      edge_update=True, gated=gated))
+                                                      edge_update=True, gated=gated,
+                                                      compute_dtype=compute_dtype))
         self.gcl_edge = DenseEGCL(h, edges_in_d=1, gated=gated)
         self.gcl_denoise = DenseEGCL(h, edges_in_d=1, gated=gated)
         self.focal_predict = nn.Sequential(nn.Linear(h + 1, h), nn.SiLU(), nn.Linear(h, 1),
@@ -99,11 +111,20 @@ class EdgeDenoise(nn.Module):
         self.node_predict = nn.Sequential(nn.Linear(h, h), nn.SiLU(), nn.Linear(h, out_node_nf))
 
     def clone(self, **changes) -> "EdgeDenoise":
-        """A view of this model with other settings (``dynamic_depth``) that
-        shares its parameters."""
+        """A view of this model with other settings (``dynamic_depth``,
+        ``compute_dtype``) that shares its parameters."""
         view = copy.copy(self)
         for name, value in changes.items():
             setattr(view, name, value)
+        if "compute_dtype" in changes:
+            resolve_compute_dtype(view.compute_dtype)
+            # the dense layers as views too: their own dtype, the same parameters
+            view._modules = dict(self._modules)
+            for name in ([f"gcl_full_{i}" for i in range(self.n_layers_full)]
+                         + [f"gcl_focal_{i}" for i in range(self.n_layers_focal)]):
+                layer = copy.copy(self._modules[name])
+                layer.compute_dtype = view.compute_dtype
+                view._modules[name] = layer
         return view
 
     # --- shared trunk --------------------------------------------------------
@@ -260,12 +281,16 @@ class EdgeDenoise(nn.Module):
     # --- autoregressive sampling ---------------------------------------------
 
     def _expand_core(self, feats: Tensor, disc_flag: Tensor, vocab_idx: Tensor, pos: Tensor,
-                     adj_clean: Tensor, node_mask: Tensor):
+                     adj_clean: Tensor, node_mask: Tensor,
+                     allowed_bucket: Optional[Tensor] = None,
+                     allowed_table: Optional[Tensor] = None):
         """One expansion of B padded tree states: the focal node (argmax over
         the discovered), the attached node (argmax over the undiscovered) and
         the top-k types of the new node. (reference: edge_denoise.py:250-419)
 
-        disc_flag (B, N) int 0/1. Returns (outputs, new_adj, new_disc). Besides
+        disc_flag (B, N) int 0/1. allowed_bucket (B, N) int and allowed_table
+        (K, V): the new node's type support is the table's row at its bucket
+        (None: the whole vocabulary). Returns (outputs, new_adj, new_disc). Besides
         the JAX package's outputs, ``focal_margin`` and ``target_margin`` hold
         the gap between the best and the runner-up candidate of each choice,
         which says how near a tie the argmax was."""
@@ -308,7 +333,14 @@ class EdgeDenoise(nn.Module):
         hn, _ = self.depth_mp(self.gcl_denoise, he, xe, new_adj, t_onehot.to(feats.dtype),
                               node_mask, self.max_depth or n)
         logits = self.node_logits(hn, target)
-        logp = masked_log_softmax(logits, torch.ones_like(logits))
+        if allowed_bucket is not None and allowed_table is not None:
+            # the restricted, renormalised softmax over the new node's support
+            # (ar_sampling.py:158-159, LogSoftmax over array_inds)
+            bkt = torch.gather(allowed_bucket.long(), 1, target[:, None])[:, 0]
+            support = allowed_table[bkt]
+        else:
+            support = torch.ones_like(logits)
+        logp = masked_log_softmax(logits, support)
         # the k best, ties in index order as jax.lax.top_k (torch.topk does
         # not order ties)
         k = min(TOP_K, logp.shape[-1])
@@ -321,24 +353,30 @@ class EdgeDenoise(nn.Module):
 
     @torch.no_grad()
     def ar_step(self, feats: Tensor, discovered: Tensor, vocab_idx: Tensor, pos: Tensor,
-                adj: Tensor, node_mask: Tensor) -> Dict[str, Tensor]:
+                adj: Tensor, node_mask: Tensor, allowed_bucket: Optional[Tensor] = None,
+                allowed_table: Optional[Tensor] = None) -> Dict[str, Tensor]:
         """One batched expansion of B tree states. adj may carry the root
         marker self-loop at (0, 0); discovery is read from its row sums before
         the diagonal is stripped. ``discovered`` is unused, as in the JAX
-        package. (reference: ar_sampling_nosize.py:196-202)"""
+        package. The support as ``_expand_core``'s.
+        (reference: ar_sampling_nosize.py:196-202)"""
         n = feats.shape[1]
         disc_flag = (adj.sum(-1) > 0).to(torch.int32)
         adj_clean = adj * (1.0 - torch.eye(n, device=adj.device))[None]
-        return self._expand_core(feats, disc_flag, vocab_idx, pos, adj_clean, node_mask)[0]
+        return self._expand_core(feats, disc_flag, vocab_idx, pos, adj_clean, node_mask,
+                                 allowed_bucket, allowed_table)[0]
 
     @torch.no_grad()
-    def ar_lattice(self, feats: Tensor, pos: Tensor, node_mask: Tensor) -> Dict[str, Tensor]:
+    def ar_lattice(self, feats: Tensor, pos: Tensor, node_mask: Tensor,
+                   allowed_bucket: Optional[Tensor] = None,
+                   allowed_table: Optional[Tensor] = None) -> Dict[str, Tensor]:
         """All N expansion steps of a batch, from the empty tree.
 
         Without vocab conditioning the focal and attach choices, so the whole
         growth trajectory, do not depend on the types the beam picks: one
         run yields every step's choices and top-k types for the host search.
-        Returns each output stacked as (B, N_steps, ...)."""
+        The support as ``_expand_core``'s. Returns each output stacked as
+        (B, N_steps, ...)."""
         if self.vocab_conditioning:
             raise ValueError("ar_lattice needs a type-independent trajectory; "
                              "vocab_conditioning=True needs the round-based sampler")
@@ -347,6 +385,7 @@ class EdgeDenoise(nn.Module):
         disc = torch.zeros((b, n), dtype=torch.int32, device=feats.device)
         steps = []
         for _ in range(n):
-            out, adj, disc = self._expand_core(feats, disc, disc, pos, adj, node_mask)
+            out, adj, disc = self._expand_core(feats, disc, disc, pos, adj, node_mask,
+                                               allowed_bucket, allowed_table)
             steps.append(out)
         return {k: torch.stack([s[k] for s in steps], dim=1) for k in steps[0]}

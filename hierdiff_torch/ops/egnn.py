@@ -16,6 +16,15 @@ aggregation is plain PyTorch on every device, chosen by the configuration:
 the JAX package takes its Pallas kernels for ``"sum"`` only
 (``hierdiff_tpu/ops/egnn.py:199,205,296``), and so do the kernels here.
 
+Memory switches of training (``hierdiff_tpu/ops/egnn.py:160-168, 411``):
+``remat_edges`` recomputes each layer's (B, N, N, H) edge chain in the
+backward instead of saving it (``egnn_kernels.checkpointed``; it changes the
+plain routes, which on the card are the coordinate update under autograd and
+mean aggregation: ``FusedGCLFunction`` saves no edge tensor anyway), and
+``remat`` recomputes each whole block, ``fused_gcl`` launches included.
+Both act only while a gradient is recorded; a no-grad call runs as without
+them. The block keeps its name (``e_block_{i}``), so weights map as before.
+
 ``DenseGNN`` is the plain (non-equivariant) backbone of
 ``mode="gnn_dynamics"``: DenseGCLs with no edge features over an all-ones
 edge mask.
@@ -30,8 +39,8 @@ import torch
 from torch import Tensor, nn
 
 from hierdiff_torch.ops import egnn_kernels
-from hierdiff_torch.ops.egnn_kernels import (coord_update_plain, fused_coord_update, fused_gcl,
-                                             gcl_plain)
+from hierdiff_torch.ops.egnn_kernels import (checkpointed, coord_update_plain,
+                                             fused_coord_update, fused_gcl, gcl_plain)
 
 
 def resolve_compute_dtype(compute_dtype) -> Optional[torch.dtype]:
@@ -110,12 +119,13 @@ class DenseGCL(_KernelLayer):
 
     def __init__(self, hidden_nf: int, in_edge_nf: int,
                  normalization_factor: float = 100.0, aggregation_method: str = "sum",
-                 attention: bool = False, compute_dtype=None):
+                 attention: bool = False, compute_dtype=None, remat_edges: bool = False):
         super().__init__()
         self.aggregation_method = _aggregation(aggregation_method)
         self.normalization_factor = normalization_factor
         self.attention = attention
         self.compute_dtype = resolve_compute_dtype(compute_dtype)
+        self.remat_edges = remat_edges
         h = hidden_nf
         self.edge_mlp = nn.Sequential(nn.Linear(2 * h + in_edge_nf, h), nn.SiLU(),
                                       nn.Linear(h, h), nn.SiLU())
@@ -137,13 +147,15 @@ class DenseEquivariantUpdate(_KernelLayer):
 
     def __init__(self, hidden_nf: int, in_edge_nf: int,
                  normalization_factor: float = 100.0, aggregation_method: str = "sum",
-                 tanh: bool = False, coords_range: float = 10.0, compute_dtype=None):
+                 tanh: bool = False, coords_range: float = 10.0, compute_dtype=None,
+                 remat_edges: bool = False):
         super().__init__()
         self.aggregation_method = _aggregation(aggregation_method)
         self.normalization_factor = normalization_factor
         self.tanh = tanh
         self.coords_range = coords_range
         self.compute_dtype = resolve_compute_dtype(compute_dtype)
+        self.remat_edges = remat_edges
         h = hidden_nf
         self.coord_mlp = nn.Sequential(nn.Linear(2 * h + in_edge_nf, h), nn.SiLU(),
                                        nn.Linear(h, h), nn.SiLU(),
@@ -170,7 +182,7 @@ class DenseEquivariantBlock(nn.Module):
                  attention: bool = True, tanh: bool = False, coords_range: float = 15.0,
                  norm_constant: float = 1.0, normalization_factor: float = 100.0,
                  aggregation_method: str = "sum", compute_dtype=None,
-                 sin_embedding: bool = False):
+                 sin_embedding: bool = False, remat_edges: bool = False):
         super().__init__()
         self.n_layers = n_layers
         self.norm_constant = norm_constant
@@ -179,11 +191,11 @@ class DenseEquivariantBlock(nn.Module):
             self.add_module(f"gcl_{i}", DenseGCL(
                 hidden_nf, in_edge_nf, normalization_factor=normalization_factor,
                 aggregation_method=aggregation_method, attention=attention,
-                compute_dtype=compute_dtype))
+                compute_dtype=compute_dtype, remat_edges=remat_edges))
         self.gcl_equiv = DenseEquivariantUpdate(
             hidden_nf, in_edge_nf, normalization_factor=normalization_factor,
             aggregation_method=aggregation_method, tanh=tanh,
-            coords_range=coords_range, compute_dtype=compute_dtype)
+            coords_range=coords_range, compute_dtype=compute_dtype, remat_edges=remat_edges)
 
     def forward(self, h: Tensor, x: Tensor, distances0: Tensor, node_mask: Tensor,
                 edge_mask: Tensor):
@@ -201,18 +213,22 @@ class DenseEGNN(nn.Module):
     """Embed -> ``n_layers`` equivariant blocks -> project out.
 
     h (B, N, in_node_nf), x (B, N, 3), node_mask (B, N, 1), edge_mask
-    (B, N, N, 1), all float32. Returns (h, x). (reference: egnn_new.py:155-205)"""
+    (B, N, N, 1), all float32. Returns (h, x). ``remat``: each block under a
+    checkpoint while a gradient is recorded; ``remat_edges``: see the module
+    docstring. (reference: egnn_new.py:155-205)"""
 
     def __init__(self, in_node_nf: int, hidden_nf: int = 256,
                  out_node_nf: Optional[int] = None, n_layers: int = 6,
                  inv_sublayers: int = 2, attention: bool = True, tanh: bool = True,
                  coords_range: float = 30.0, norm_constant: float = 1.0,
                  normalization_factor: float = 100.0, aggregation_method: str = "sum",
-                 compute_dtype=None, sin_embedding: bool = False):
+                 compute_dtype=None, sin_embedding: bool = False, remat: bool = False,
+                 remat_edges: bool = False):
         super().__init__()
         out_node_nf = in_node_nf if out_node_nf is None else out_node_nf
         self.n_layers = n_layers
         self.sin_embedding = sin_embedding
+        self.remat = remat
         # radial + distances0, each 12 sinusoid features with sin_embedding
         in_edge_nf = 2 * sinusoids_embedding(torch.zeros(1)).shape[-1] if sin_embedding else 2
         self.embedding = nn.Linear(in_node_nf, hidden_nf)
@@ -222,7 +238,7 @@ class DenseEGNN(nn.Module):
                 tanh=tanh, coords_range=float(coords_range) / n_layers,
                 norm_constant=norm_constant, normalization_factor=normalization_factor,
                 aggregation_method=aggregation_method, compute_dtype=compute_dtype,
-                sin_embedding=sin_embedding))
+                sin_embedding=sin_embedding, remat_edges=remat_edges))
         self.embedding_out = nn.Linear(hidden_nf, out_node_nf)
 
     def forward(self, h: Tensor, x: Tensor, node_mask: Tensor, edge_mask: Tensor):
@@ -232,7 +248,8 @@ class DenseEGNN(nn.Module):
             distances0 = sinusoids_embedding(distances0)
         h = self.embedding(h)
         for i in range(self.n_layers):
-            h, x = getattr(self, f"e_block_{i}")(h, x, distances0, node_mask, edge_mask)
+            h, x = checkpointed(self.remat, getattr(self, f"e_block_{i}"), h, x, distances0,
+                                node_mask, edge_mask)
         h = self.embedding_out(h)
         return h * node_mask, x
 

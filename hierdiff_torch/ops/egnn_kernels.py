@@ -19,6 +19,19 @@ Autograd: when a gradient is being recorded, ``fused_gcl`` on CUDA runs as
 counterpart of ``gcl_vjp``); ``fused_coord_update`` has no backward kernel,
 as in the JAX package, and raises rather than return a detached result.
 
+``remat_edges`` on a layer puts a non-reentrant ``torch.utils.checkpoint``
+around its (B,N,N,H) edge chain in the plain versions, where a gradient is
+recorded (``jax.checkpoint`` in ``hierdiff_tpu/ops/egnn.py:239,326``):
+``gcl_agg_plain`` in ``gcl_plain``, and the coordinate MLP up to its row sum
+in ``coord_update_plain``; autograd then saves the (B,N,·) inputs and
+recomputes the chain in the backward. ``FusedGCLFunction`` already saves only
+its inputs and agg, and its backward kernel recomputes the edge MLP, so
+``remat_edges`` changes nothing there. Block-level ``remat``
+(``ops/egnn.DenseEGNN``) recomputes whole blocks, ``fused_gcl`` launches
+included; in that recompute (``recompute_context``) the forward reuses the
+bf16 weight copies the first forward built, since the parameters have not
+changed in between.
+
 Each wrapper adds one to ``launch_counts[name]`` per kernel launch and
 nowhere else; ``coord_update_autograd`` counts the coordinate updates that
 took the plain, differentiable route (``ops/egnn.py``). ``reset_launch_counts``
@@ -27,6 +40,7 @@ sets them all to zero.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -34,6 +48,7 @@ from typing import Dict, List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import Tensor
 
 from hierdiff_torch.ops import _build
@@ -54,6 +69,39 @@ GCL_LIST_ROWS = 32
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+# > 0 while a checkpoint recomputes a block (``recompute_context``)
+_recomputing = 0
+
+
+@contextlib.contextmanager
+def recompute_context():
+    """The context of a checkpoint's recompute: the GCL forward keeps the
+    bf16 weight copies of the first forward instead of rebuilding them."""
+    global _recomputing
+    _recomputing += 1
+    try:
+        yield
+    finally:
+        _recomputing -= 1
+
+
+def checkpoint_context():
+    """``torch.utils.checkpoint``'s ``context_fn``: nothing in the first
+    forward, ``recompute_context`` in the recompute."""
+    return contextlib.nullcontext(), recompute_context()
+
+
+def checkpointed(on: bool, fn, *args):
+    """``fn(*args)``, under a non-reentrant checkpoint when ``on`` and a
+    gradient is recorded (no-grad calls run as they always did). No random
+    number is drawn inside, so the RNG state is not kept."""
+    if not (on and torch.is_grad_enabled()):
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False,
+                                             context_fn=checkpoint_context)
 
 
 # --------------------------------------------------------------------------
@@ -137,7 +185,7 @@ def gcl_plain(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor,
               node_mask: Tensor) -> Tensor:
     """Plain version of ``fused_gcl``: one DenseGCL forward."""
     dt = layer.compute_dtype
-    agg = gcl_agg_plain(layer, h, edge_attr, edge_mask)
+    agg = checkpointed(layer.remat_edges, gcl_agg_plain, layer, h, edge_attr, edge_mask)
     n_in, n_out = layer.node_mlp[0], layer.node_mlp[2]
     out = F.silu(_mm(torch.cat([h, agg], dim=-1), n_in.weight.t(), dt) + n_in.bias)
     out = _mm(out, n_out.weight.t(), dt) + n_out.bias
@@ -155,14 +203,22 @@ def coord_scalar(layer, h: Tensor, edge_attr: Tensor) -> Tensor:
     return _mm(m, c_head.weight.t(), dt)
 
 
-def coord_update_plain(layer, h: Tensor, edge_attr: Tensor, coord_diff: Tensor,
-                       x: Tensor, edge_mask: Tensor, node_mask: Tensor) -> Tensor:
-    """Plain version of ``fused_coord_update``: one DenseEquivariantUpdate."""
+def coord_rowsum_plain(layer, h: Tensor, edge_attr: Tensor, coord_diff: Tensor,
+                       edge_mask: Tensor) -> Tensor:
+    """The coordinate update's edge chain: sum_j coord_diff_ij s_ij emask_ij,
+    (B, N, 3), s the (tanh-bounded) scalar of the coordinate MLP."""
     scalar = coord_scalar(layer, h, edge_attr)
     if layer.tanh:
         scalar = torch.tanh(scalar) * layer.coords_range
-    agg = _aggregate(layer, _masked_rowsum(coord_diff * scalar, edge_mask), edge_mask)
-    return (x + agg) * node_mask
+    return _masked_rowsum(coord_diff * scalar, edge_mask)
+
+
+def coord_update_plain(layer, h: Tensor, edge_attr: Tensor, coord_diff: Tensor,
+                       x: Tensor, edge_mask: Tensor, node_mask: Tensor) -> Tensor:
+    """Plain version of ``fused_coord_update``: one DenseEquivariantUpdate."""
+    rowsum = checkpointed(layer.remat_edges, coord_rowsum_plain, layer, h, edge_attr,
+                          coord_diff, edge_mask)
+    return (x + _aggregate(layer, rowsum, edge_mask)) * node_mask
 
 
 class GclGrads(NamedTuple):
@@ -468,7 +524,11 @@ def _launch_gcl(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor, node_mas
         return out
     if agg_out is not None:
         _check("agg_out", agg_out, h.shape, device)
-    w = _cached_weights(layer, _gcl_kernel_weights, device, rebuild=agg_out is not None)
+    # a recorded forward rebuilds the weight copies (a fused optimizer step
+    # leaves the version counters as they were); its recompute under a
+    # checkpoint comes before any step and keeps them
+    w = _cached_weights(layer, _gcl_kernel_weights, device,
+                        rebuild=agg_out is not None and not _recomputing)
     # the float buffers first, each a multiple of 4 elements so each starts
     # 16-byte aligned for float4 reads, then the int32 work list
     names = [k for k in GCL_FLOAT_SCRATCH + GCL_INT_SCRATCH if k != "agg" or agg_out is None]

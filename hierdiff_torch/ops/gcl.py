@@ -19,6 +19,16 @@ Messages flow along the edge direction i -> j and are summed at the target j
   (a float ``index_add_`` on CUDA sums in atomics' order, run to run
   different). The gather's backward is that sum too (``parent_gather``):
   autograd's own is a ``scatter_add``, atomics again.
+
+``compute_dtype='bfloat16'`` runs the (B, N, N, H) message, coordinate and
+edge MLPs in bf16 as the JAX layer does (``nn.Dense(dtype=bf16)``): each
+linear casts its input and weight to bf16, rounds its product to bf16 and
+then adds the bias in bf16 (two roundings, ``_dense``); the message is
+masked in bf16, its row sum accumulates in f32, the coordinate scalar
+returns to f32 (after tanh) before it multiplies the differences, and the
+edge update concatenates [m, radial, e] in bf16 and returns bf16. The node
+MLP and the residual state stay f32; parameters stay f32 and are cast per
+call.
 """
 
 from __future__ import annotations
@@ -28,6 +38,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
+
+from hierdiff_torch.ops.egnn import resolve_compute_dtype
 
 
 def coord2radial_dense(x: Tensor) -> Tuple[Tensor, Tensor]:
@@ -51,6 +63,16 @@ def compute_parents(adj: Tensor, depth: Tensor) -> Tensor:
     parent = torch.argmax(ok, dim=2)     # the first maximum, as jnp.argmax
     self_idx = torch.arange(n, device=adj.device).expand_as(parent)
     return torch.where(has, parent, self_idx)
+
+
+def _dense(x: Tensor, weight: Tensor, bias: Optional[Tensor], dt: Optional[torch.dtype]) -> Tensor:
+    """x W^T + b, or with ``dt`` a flax ``Dense(dtype=dt)``: operands cast
+    to ``dt``, the product rounded to ``dt``, then the bias added in ``dt``
+    (F.linear's bias would join the product before its one rounding)."""
+    if dt is None:
+        return F.linear(x, weight, bias)
+    y = F.linear(x.to(dt), weight.to(dt))
+    return y if bias is None else y + bias.to(dt)
 
 
 def parent_onehot(parent: Tensor, n: int, dtype: torch.dtype) -> Tensor:
@@ -100,10 +122,8 @@ class DenseEGCL(nn.Module):
                  edge_update: bool = False, recurrent: bool = True, gated: bool = True,
                  compute_dtype: Optional[str] = None):
         super().__init__()
-        if compute_dtype not in (None, "float32"):
-            raise NotImplementedError(
-                "the fine stage runs in float32 only: its bf16 pipeline is queued in "
-                "ROADMAP.md, Queue 1 (fine-stage bf16, --fine-bf16)")
+        resolve_compute_dtype(compute_dtype)
+        self.compute_dtype = compute_dtype
         h = hidden_nf
         self.hidden_nf, self.edges_in_d = h, edges_in_d
         self.attention, self.tanh, self.coords_range = attention, tanh, coords_range
@@ -121,28 +141,40 @@ class DenseEGCL(nn.Module):
             self.edge_mlp = nn.Sequential(nn.Linear(h + 1 + edges_in_d, h), nn.SiLU(),
                                           nn.Linear(h, h))
 
+    @property
+    def _dt(self) -> Optional[torch.dtype]:
+        return resolve_compute_dtype(self.compute_dtype)
+
     # --- shared pieces (any aligned leading shape) ---------------------------
 
     def _pre(self, h_src: Tensor, h_dst: Tensor) -> Tuple[Tensor, Tensor]:
         """h_src W_src + b and h_dst W_dst: the message's node terms."""
         w, h = self.mes_mlp[0].weight, self.hidden_nf
-        return F.linear(h_src, w[:, :h], self.mes_mlp[0].bias), F.linear(h_dst, w[:, h:2 * h])
+        return (_dense(h_src, w[:, :h], self.mes_mlp[0].bias, self._dt),
+                _dense(h_dst, w[:, h:2 * h], None, self._dt))
 
     def message(self, pre_src: Tensor, pre_dst: Tensor, radial: Tensor,
                 edge_attr: Optional[Tensor]) -> Tensor:
         """m = MLP([h_src, h_dst, radial, e]) from the node terms of ``_pre``.
         (reference: gcl.py:91-107)"""
+        dt = self._dt
         w, h = self.mes_mlp[0].weight, self.hidden_nf
-        pre = pre_src + pre_dst + radial * w[:, 2 * h]
+        w_rad = w[:, 2 * h]
+        rad = radial * w_rad if dt is None else radial.to(dt) * w_rad.to(dt)
+        pre = pre_src + pre_dst + rad
         if self.edges_in_d > 0 and edge_attr is not None:
-            pre = pre + F.linear(edge_attr, w[:, 2 * h + 1:])
-        m = F.silu(self.mes_mlp[2](F.silu(pre)))
+            pre = pre + _dense(edge_attr, w[:, 2 * h + 1:], None, dt)
+        out = self.mes_mlp[2]
+        m = F.silu(_dense(F.silu(pre), out.weight, out.bias, dt))
         if self.attention:
-            m = m * self.att_mlp(m)
+            att = self.att_mlp[0]
+            m = m * torch.sigmoid(_dense(m, att.weight, att.bias, dt))
         return m
 
     def coord_scalar(self, m: Tensor) -> Tensor:
-        s = self.coord_mlp(m)
+        dt = self._dt
+        c_in, c_head = self.coord_mlp[0], self.coord_mlp[2]
+        s = _dense(F.silu(_dense(m, c_in.weight, c_in.bias, dt)), c_head.weight, None, dt)
         return torch.tanh(s) * self.coords_range if self.tanh else s
 
     def node_update(self, h: Tensor, agg: Tensor, recv: Optional[Tensor]) -> Tensor:
@@ -158,14 +190,19 @@ class DenseEGCL(nn.Module):
                 edge_attr: Optional[Tensor] = None, node_mask: Optional[Tensor] = None):
         if dir_mask.dim() == 3:
             dir_mask = dir_mask[..., None]
+        dt = self._dt
         radial, coord_diff = coord2radial_dense(x)
         pre_src, pre_dst = self._pre(h, h)
-        m = self.message(pre_src[:, :, None], pre_dst[:, None], radial, edge_attr) * dir_mask
+        m = self.message(pre_src[:, :, None], pre_dst[:, None], radial, edge_attr)
+        # in bf16 the mask is bf16 too, so the product does not promote
+        m = m * (dir_mask if dt is None else dir_mask.to(dt))
 
         if self.coord_update:
             # x_j += sum_i (x_i - x_j) / (d + 1) * phi(m_ij) (reference: gcl.py:131-155)
-            x = x + (coord_diff * self.coord_scalar(m) * dir_mask).sum(1)
-        agg = m.sum(1)
+            scal = self.coord_scalar(m).to(x.dtype)
+            x = x + (coord_diff * scal * dir_mask).sum(1)
+        # bf16 messages are summed in f32, the node state's type
+        agg = m.sum(1) if dt is None else m.sum(1, dtype=h.dtype)
         recv = (dir_mask.sum(1) > 0).to(h.dtype) if self.gated else None
         h = self.node_update(h, agg, recv)
         if node_mask is not None:
@@ -173,13 +210,20 @@ class DenseEGCL(nn.Module):
             x = x * node_mask
 
         if self.edge_update:
-            # e' = edge_mlp([m, radial, e]) with edge_mlp.0 split by columns
-            # (reference: gcl.py:109-115)
+            # e' = edge_mlp([m, radial, e]) (reference: gcl.py:109-115)
             w, hd = self.edge_mlp[0].weight, self.hidden_nf
-            eu = F.linear(m, w[:, :hd], self.edge_mlp[0].bias) + radial * w[:, hd]
-            if edge_attr is not None:
-                eu = eu + F.linear(edge_attr, w[:, hd + 1:])
-            return h, x, self.edge_mlp[2](F.silu(eu)) * dir_mask
+            e_out = self.edge_mlp[2]
+            if dt is None:
+                # edge_mlp.0 split by columns: no (B, N, N, H + 1 + E) concat
+                eu = F.linear(m, w[:, :hd], self.edge_mlp[0].bias) + radial * w[:, hd]
+                if edge_attr is not None:
+                    eu = eu + F.linear(edge_attr, w[:, hd + 1:])
+                return h, x, e_out(F.silu(eu)) * dir_mask
+            # bf16: one product over the concatenation, as the JAX layer
+            cat = torch.cat([m, radial.to(dt)] + ([edge_attr.to(dt)] if edge_attr is not None
+                                                   else []), dim=-1)
+            eu = F.silu(_dense(cat, w[:, :cat.shape[-1]], self.edge_mlp[0].bias, dt))
+            return h, x, _dense(eu, e_out.weight, e_out.bias, dt) * dir_mask.to(dt)
         return h, x
 
     # --- tree pass -----------------------------------------------------------

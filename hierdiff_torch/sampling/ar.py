@@ -13,9 +13,11 @@ chunk, and ``build_fine_sampler`` picks it.
 
 The fleet is packed by ``runtime.pack_ar_fleet_native`` when the treekit
 library is built, else by the Python packer (``pack_fleet_python``); both
-give the same arrays bit for bit. Not ported: the per-node vocab
-restriction (``allowed_fn``, ROADMAP.md Queue 1) and the size variant's fp
-replacement (``vocab_fps``), which no caller sets.
+give the same arrays bit for bit. ``allowed_fn`` restricts each node's type
+to a support as in the lattice sampler; each fleet carries its own union
+table (``build_allowed_arrays``), unpadded: the JAX package pads it to a
+power of two only to keep its jit key stable. Not ported: the size
+variant's fp replacement (``vocab_fps``), which no caller sets.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import torch
 from hierdiff_torch.data.collate import DEFAULT_BUCKETS, bucket_for
 from hierdiff_torch.models.edge_denoise import EdgeDenoise
 from hierdiff_torch.sampling.beam import Expansion, PQBeamSearch, TreeState
-from hierdiff_torch.sampling.lattice import LATTICE_KEYS, HostCopy, LatticeSampler, _next_pow2
+from hierdiff_torch.sampling.lattice import (LATTICE_KEYS, HostCopy, LatticeSampler, _next_pow2,
+                                             build_allowed_arrays)
 
 UNDISCOVERED_TOKEN = 780
 
@@ -79,11 +82,13 @@ class DeviceExpander:
     dense pass costs the square of its bucket, but every extra call costs its
     launches)."""
 
-    def __init__(self, model: EdgeDenoise, buckets: Optional[Sequence[int]] = None):
+    def __init__(self, model: EdgeDenoise, buckets: Optional[Sequence[int]] = None,
+                 allowed_fn: Optional[Callable[[np.ndarray], List[np.ndarray]]] = None):
         if model.gated and not model.dynamic_depth:
             # inference: bound the depth loops by the trees' actual depth
             model = model.clone(dynamic_depth=True)
         self.model = model
+        self.allowed_fn = allowed_fn
         self.buckets = tuple(buckets) if buckets else DEFAULT_BUCKETS
         self.stats = {"steps": 0, "native_packs": 0}
 
@@ -104,8 +109,13 @@ class DeviceExpander:
         feats, pos, adj, vocab, disc, nmask = arrays
         device = next(self.model.parameters()).device
         on = lambda a, dtype=None: torch.from_numpy(a).to(device, dtype)  # noqa: E731
+        allowed = ()
+        if self.allowed_fn is not None:
+            allowed = tuple(map(on, build_allowed_arrays([s.feats for s in states],
+                                                         self.allowed_fn, bp, nb,
+                                                         self.model.out_node_nf)))
         out = self.model.ar_step(on(feats), on(disc), on(vocab, torch.int64), on(pos), on(adj),
-                                 on(nmask))
+                                 on(nmask), *allowed)
         host = HostCopy([out[k] for k in LATTICE_KEYS]).wait()
         self.stats["steps"] += 1
         return {k: v[:b] for k, v in zip(LATTICE_KEYS, host)}
@@ -141,15 +151,13 @@ class ARSampler:
                  rng: Optional[random.Random] = None,
                  buckets: Optional[Sequence[int]] = None):
         """rng: the search's tiebreak stream (None: ``random.Random(2022)``).
-        allowed_fn must be None (not ported yet)."""
-        if allowed_fn is not None:
-            raise NotImplementedError("allowed_fn (the per-node vocab restriction) is not "
-                                      "ported yet (ROADMAP.md, Queue 1)")
+        allowed_fn(feats (n, F)) -> each node's allowed vocab indices (None:
+        the whole vocabulary)."""
         self.model = model
         self.beam_size = beam_size
         self.can_assemble = can_assemble
         self.refine_hook = refine_hook
-        self.expander = DeviceExpander(model, buckets=buckets)
+        self.expander = DeviceExpander(model, buckets=buckets, allowed_fn=allowed_fn)
         self.rng = rng
 
     def sample(self, blur_sets: Sequence[Dict[str, np.ndarray]]) -> List[Optional[TreeState]]:

@@ -77,7 +77,8 @@ def build_coarse_from_cfg(cfg: CoarseModelConfig, compute_dtype=None,
                           device=None) -> CoarseDiffusion:
     """The coarse model of ``cfg`` on ``device`` (default CUDA), with
     PyTorch's default initialisation. ``compute_dtype`` overrides the
-    config's elementwise type ('bfloat16' or 'float32')."""
+    config's elementwise type ('bfloat16' or 'float32'). ``remat`` and
+    ``remat_edges`` act only where a gradient is recorded (training)."""
     device = resolve_device(device)
     model = CoarseDiffusion(
         in_node_nf=cfg.in_node_nf, int_nf=cfg.int_nf, cont_nf=cfg.cont_nf,
@@ -91,19 +92,22 @@ def build_coarse_from_cfg(cfg: CoarseModelConfig, compute_dtype=None,
         context_node_nf=cfg.context_node_nf,
         compute_dtype=cfg.compute_dtype if compute_dtype is None else compute_dtype,
         mode=cfg.mode, sin_embedding=cfg.sin_embedding, pocket=cfg.pocket,
-        pocket_cross_edges=cfg.pocket_cross_edges)
+        pocket_cross_edges=cfg.pocket_cross_edges, remat=cfg.remat,
+        remat_edges=cfg.remat_edges)
     return model.to(device).eval()
 
 
-def build_denoise_from_cfg(cfg: EdgeDenoiseConfig, device=None) -> EdgeDenoise:
+def build_denoise_from_cfg(cfg: EdgeDenoiseConfig, device=None,
+                           compute_dtype=None) -> EdgeDenoise:
     """The edge-denoise model of ``cfg`` on ``device`` (default CUDA), with
-    PyTorch's default initialisation."""
+    PyTorch's default initialisation; ``compute_dtype='bfloat16'`` runs its
+    dense full and focal passes in bf16 (``--fine-bf16``)."""
     return EdgeDenoise(vocab_size=cfg.vocab_size, out_node_nf=cfg.out_node_nf,
                        in_node_nf=cfg.in_node_nf, hidden_nf=cfg.hidden_nf,
                        n_layers_full=cfg.n_layers_full, n_layers_focal=cfg.n_layers_focal,
                        focal_weight=cfg.focal_loss, edge_weight=cfg.edge_loss,
-                       node_weight=cfg.node_loss, vocab_conditioning=cfg.vocab_conditioning
-                       ).to(resolve_device(device)).eval()
+                       node_weight=cfg.node_loss, vocab_conditioning=cfg.vocab_conditioning,
+                       compute_dtype=compute_dtype).to(resolve_device(device)).eval()
 
 
 def build_refine_from_cfg(cfg: RefineConfig, device=None) -> NodeRefine:
@@ -210,10 +214,14 @@ def _fine_stage_setup(args, device):
     with RDKit the vocabulary and the assembly gate (memoized per fragment
     and neighbour set; reference ar_sampling_nosize.py:199-200, 396-403),
     and, with refine weights or a seed for them, the refine hook (its
-    fleets padded to the same buckets, its swaps and final repair gated)."""
+    fleets padded to the same buckets, its swaps and final repair gated).
+    ``--fine-bf16`` builds the edge-denoise model's dense passes in bf16, on
+    any device (``cli.py:169-176`` of the JAX package)."""
     cfg = load_config(None, args.overrides)
-    denoise = _weights(build_denoise_from_cfg(cfg.denoise, device), args.denoise_weights,
-                       args.denoise_init_seed, "--denoise-weights or --denoise-init-seed")
+    denoise = _weights(build_denoise_from_cfg(cfg.denoise, device,
+                                              "bfloat16" if args.fine_bf16 else None),
+                       args.denoise_weights, args.denoise_init_seed,
+                       "--denoise-weights or --denoise-init-seed")
     buckets = DEFAULT_BUCKETS if args.default_buckets else SAMPLING_BUCKETS
     vocab, gate = None, None
     if has_rdkit():
@@ -422,6 +430,9 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--refine-init-seed", type=int, default=None,
                         help="random refine weights from this seed")
         sp.add_argument("--beam", type=int, default=5)
+        sp.add_argument("--fine-bf16", action="store_true",
+                        help="bf16 dense passes (gcl_full_*, gcl_focal_*) in the edge-denoise "
+                             "model; default f32")
         sp.add_argument("--default-buckets", action="store_true",
                         help="pad to the coarser DEFAULT_BUCKETS instead of SAMPLING_BUCKETS")
         sp.add_argument("--device", default=None, help="torch device (default cuda)")

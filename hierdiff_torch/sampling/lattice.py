@@ -32,8 +32,11 @@ search.
 ``GenerationPipeline.run``): each chunk's lattices are enqueued at once, and
 refine on, full groups join the native loop while later coarse chunks run.
 
-Not ported yet (ROADMAP.md, Queue 1): the data mesh and the per-node vocab
-restriction (``allowed_fn``).
+``allowed_fn`` restricts each node's type to a per-node support (the size
+variant's restriction, reference ar_sampling.py:62-118): every chunk carries
+the union table of its supports (``build_allowed_arrays``) to the device, and
+types outside a support get a log-probability of ~NEG_INF, which both
+searches skip. Not ported yet (ROADMAP.md, Queue 1): the data mesh.
 """
 
 from __future__ import annotations
@@ -148,6 +151,29 @@ def pow2_chunks(n: int, cap: int, min_chunk: int = 4):
         n -= min(p, n)
 
 
+def build_allowed_arrays(feats_list: Sequence[np.ndarray],
+                         allowed_fn: Callable[[np.ndarray], List[np.ndarray]],
+                         b: int, nb: int, v: int):
+    """The union table of a batch's per-node supports and each node's row in
+    it: (bucket (b, nb) int32, table (K, v) float32). ``allowed_fn(feats)``
+    gives each node of one molecule its allowed vocab indices. Row 0 is the
+    whole vocabulary, the row of padding nodes and rows; equal supports
+    share a row (keyed by their bytes). (hierdiff_tpu/sampling/lattice.py:114)"""
+    rows: List[np.ndarray] = [np.ones(v, np.float32)]
+    row_key: Dict[bytes, int] = {}
+    bucket = np.zeros((b, nb), np.int32)
+    for row, feats in enumerate(feats_list):
+        for node, allowed in enumerate(allowed_fn(feats)):
+            mask = np.zeros(v, np.float32)
+            mask[np.asarray(allowed, np.int64)] = 1.0
+            key = mask.tobytes()
+            if key not in row_key:
+                row_key[key] = len(rows)
+                rows.append(mask)
+            bucket[row, node] = row_key[key]
+    return bucket, np.stack(rows)
+
+
 def pad_blur(blur_sets, chunk, b: int, nb: int):
     """feats (b, nb, F), pos (b, nb, 3) and node mask (b, nb, 1) of the
     molecules ``chunk``, zero-padded, as numpy float32."""
@@ -171,7 +197,8 @@ class LatticeSampler:
                  can_assemble: Optional[Callable[[TreeState, int], bool]] = None,
                  rng: Optional[random.Random] = None, refine_group_cap: int = 32,
                  refine_merge: int = 1, native_search: bool = True,
-                 retry_final_gate: bool = True):
+                 retry_final_gate: bool = True,
+                 allowed_fn: Optional[Callable[[np.ndarray], List[np.ndarray]]] = None):
         """buckets: pad buckets (None: ``DEFAULT_BUCKETS``); the lattice's
         work grows with the cube of the pad. refine_hook: a ``RefineHook``
         or None. can_assemble: the search's assembly gate or None. rng: the
@@ -187,7 +214,9 @@ class LatticeSampler:
         native_search: search in C++ when the treekit library is built and
         the gate, if any, is verdict-style (bitwise the Python search).
         retry_final_gate: a completed tree that fails the final gate does
-        not end its molecule's search (``beam.PQBeamSearch``)."""
+        not end its molecule's search (``beam.PQBeamSearch``).
+        allowed_fn(blur feats (n, F)) -> each node's allowed vocab indices
+        (the size variant's restriction); None: the whole vocabulary."""
         if model.gated and not model.dynamic_depth:
             # inference: bound the depth loops by the trees' actual depth
             # (exact under gated=True; see EdgeDenoise.depth_mp)
@@ -202,6 +231,7 @@ class LatticeSampler:
         self.refine_merge = refine_merge
         self.native_search = native_search
         self.retry_final_gate = retry_final_gate
+        self.allowed_fn = allowed_fn
 
     # --- device side ---------------------------------------------------------
 
@@ -229,7 +259,12 @@ class LatticeSampler:
             for take in pow2_chunks(len(idxs), self._max_batch(nb)):
                 chunk = idxs[c0: c0 + take]
                 c0 += take
-                arrays = pad_blur(blur_sets, chunk, _next_pow2(len(chunk)), nb)
+                b = _next_pow2(len(chunk))
+                arrays = pad_blur(blur_sets, chunk, b, nb)
+                if self.allowed_fn is not None:
+                    arrays += build_allowed_arrays([blur_sets[i]["h"] for i in chunk],
+                                                   self.allowed_fn, b, nb,
+                                                   self.model.out_node_nf)
                 out = self.model.ar_lattice(*(torch.from_numpy(a).to(device) for a in arrays))
                 pending.append((chunk, HostCopy([out[k] for k in LATTICE_KEYS])))
         return pending

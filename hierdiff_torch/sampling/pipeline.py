@@ -58,16 +58,18 @@ from hierdiff_torch.sampling.lattice import HostCopy, LatticeSampler, _next_pow2
 
 def build_fine_sampler(denoise_model: EdgeDenoise, *, beam_size: int = 5,
                        buckets: Optional[Sequence[int]] = None, can_assemble=None,
-                       refine_hook=None):
+                       refine_hook=None, allowed_fn=None):
     """Stage-2 sampler for a denoise model, with the assembly gate
-    ``can_assemble`` and the refine hook's checks in its search when they
-    are given: the lattice sampler, or the round-based ``ARSampler`` when
-    type choices feed back into the trajectory (``vocab_conditioning``)."""
+    ``can_assemble``, the refine hook's checks and the per-node vocab
+    restriction ``allowed_fn`` in its search when they are given: the
+    lattice sampler, or the round-based ``ARSampler`` when type choices feed
+    back into the trajectory (``vocab_conditioning``)."""
     if denoise_model.vocab_conditioning:
         return ARSampler(denoise_model, beam_size=beam_size, can_assemble=can_assemble,
-                         refine_hook=refine_hook, buckets=buckets)
+                         refine_hook=refine_hook, allowed_fn=allowed_fn, buckets=buckets)
     return LatticeSampler(denoise_model, beam_size=beam_size, buckets=buckets,
-                          can_assemble=can_assemble, refine_hook=refine_hook)
+                          can_assemble=can_assemble, refine_hook=refine_hook,
+                          allowed_fn=allowed_fn)
 
 
 def round_int_features(h: np.ndarray, int_nf: int) -> np.ndarray:
@@ -156,13 +158,15 @@ class GenerationPipeline:
                  histogram: Mapping[int, float], beam_size: int = 5, int_nf: int = 5,
                  max_n_cap: Optional[int] = None, sample_steps: Optional[int] = None,
                  sample_buckets: Optional[Sequence[int]] = None, refine_hook=None,
-                 vocab=None, can_assemble=None):
+                 vocab=None, can_assemble=None, allowed_fn=None):
         """sample_steps: strided reverse-chain length (None: the model's T).
         sample_buckets: pad buckets of the coarse chunks, the lattices and
         the refine hook's fleets (None: ``SAMPLING_BUCKETS``, the JAX
         pipeline's default). refine_hook: a ``RefineHook`` or None. vocab: the
         ``chem.mol_tree.Vocab`` that reconstruction reads (None: no
-        reconstruction). can_assemble: the search's assembly gate or None."""
+        reconstruction). can_assemble: the search's assembly gate or None.
+        allowed_fn: the per-node vocab restriction of the fine sampler
+        (``LatticeSampler``) or None."""
         self.coarse_model = coarse_model
         self.nodes_dist = DistributionNodes(histogram)
         self.sample_buckets = tuple(sample_buckets or SAMPLING_BUCKETS)
@@ -172,7 +176,7 @@ class GenerationPipeline:
             refine_hook.buckets = self.sample_buckets
         self.sampler = build_fine_sampler(denoise_model, beam_size=beam_size,
                                           buckets=self.sample_buckets, can_assemble=can_assemble,
-                                          refine_hook=refine_hook)
+                                          refine_hook=refine_hook, allowed_fn=allowed_fn)
         self.vocab = vocab
         self.int_nf = int_nf
         self.max_n_cap = max_n_cap

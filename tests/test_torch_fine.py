@@ -509,14 +509,17 @@ def test_generate_cli_writes_the_jax_layout(tmp_path):
 
 
 def test_vocab_conditioning_and_bf16_are_refused():
-    """Refused: the fine stage's bf16 and the per-node vocab restriction
-    (both still queued). ``vocab_conditioning`` builds the round-based
-    sampler since it was ported."""
+    """Nothing of these is refused any more: ``vocab_conditioning`` builds
+    the round-based sampler, which takes the per-node vocab restriction,
+    and the model takes bf16 (tests/test_torch_options.py holds both to the
+    JAX package). Only an unknown compute dtype is refused."""
     from hierdiff_torch.sampling.ar import ARSampler
 
     conditioned = PortDenoise(hidden_nf=16, vocab_conditioning=True)
     assert isinstance(port_pipeline.build_fine_sampler(conditioned), ARSampler)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ARSampler(conditioned, allowed_fn=lambda feats: [])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PortDenoise(hidden_nf=16, compute_dtype="bfloat16")
+    restrict = lambda feats: [[0]] * feats.shape[0]   # noqa: E731
+    assert ARSampler(conditioned, allowed_fn=restrict).expander.allowed_fn is restrict
+    assert PortDenoise(hidden_nf=16, compute_dtype="bfloat16").gcl_full_0.compute_dtype == \
+        "bfloat16"
+    with pytest.raises(ValueError, match="compute_dtype"):
+        PortDenoise(hidden_nf=16, compute_dtype="float16")
