@@ -232,10 +232,27 @@ Phases, one output line each, any failure exits non-zero:
      ``train.cli
      coarse`` 5 steps with both flags, its parameters bitwise those with
      both off;
+ 4x. data parallelism on the one card: ``train.cli coarse --data-parallel``
+     for those 5 steps in a world-1 NCCL group, its parameters bitwise 4w's
+     plain run and its launches exact; one bf16 step of 4b's model at
+     world 2 over gloo (two spawned ranks, both on the card: NCCL refuses
+     two ranks on one device) on 64 molecules with injected t and noise,
+     the gradient the update took within 4c's bar (global relative L2 <
+     2e-2) of the single-process step's, the ranks' parameters bitwise
+     equal, 12 fused_gcl + 12 fused_gcl_bwd + 6 plain coordinate updates
+     per rank;
+ 4y. ``generate`` of 16 molecules at 100 steps at world 2 over gloo: point
+     sets and trees bitwise those of a world-1 run in a spawned process of
+     its own (serial), each rank's coarse launches exact for its share of
+     the chunks, molecules/s beside world 1's;
+ 4z. ``entry.dryrun_multichip(2, backend="gloo")`` on the card: one DP
+     step, sharded generation, refine + gate + reconstruction, every rank
+     with a share of both generation checks and its launches exact for it;
   5. the kernel list as JSON (``launches_by_path`` counts every path above:
      the two fine-stage training paths, both gated generate runs, the
-     serial generate runs, run_streamed, the ARSampler and 4u's and 4w's
-     runs included), then the result JSON as the last line.
+     serial generate runs, run_streamed, the ARSampler, 4u's and 4w's
+     runs, and 4x-4z's ranks (``train_dp``, ``generate_dp``,
+     ``dryrun_dp``) included), then the result JSON as the last line.
 """
 
 from __future__ import annotations
@@ -536,10 +553,15 @@ def spanning_tree_faults(trees, sizes) -> list:
 
 def profiled_device_ms(prof) -> float:
     """Device time of every CUDA activity (kernels, copies) under ``prof``."""
+    return device_ms_of(prof.key_averages())
+
+
+def device_ms_of(averages) -> float:
+    """Device time of every CUDA activity in a profile's ``key_averages()``."""
     from torch.autograd import DeviceType
 
     total = 0.0
-    for evt in prof.key_averages():
+    for evt in averages:
         if evt.device_type == DeviceType.CUDA:
             t = getattr(evt, "self_device_time_total", None)
             total += evt.self_cuda_time_total if t is None else t
@@ -609,7 +631,7 @@ def assemble_phase(cli, coarse_pkl: bytes, device) -> dict:
 
             def lattice():
                 lattices = {}
-                for c, o in sampler._dispatch_lattices(blur, chunk):
+                for c, o in sampler._dispatch_lattices(blur, [(nb, chunk)]):
                     sampler._collect_lattice(c, o, blur, lattices)
 
             torch.cuda.synchronize()
@@ -1036,14 +1058,17 @@ def profile_fine_steps(train_cli, stage: str, trainer, device) -> list:
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         wall_ms = float(np.median(walls))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the card's activity alone: the host's op events, several a kernel,
+        # made most of this phase's wall at 20k-44k kernels a step
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             train_step(trainer.state, loss_fn, batch, None)
             torch.cuda.synchronize()
-        kernels = sum(e.count for e in prof.key_averages()
+        averages = prof.key_averages()
+        kernels = sum(e.count for e in averages
                       if e.device_type == DeviceType.CUDA and not e.key.startswith("Memcpy")
                       and not e.key.startswith("Memset"))
         row = {"bucket": nb, "batch": int(batch["feats"].shape[0]), "wall_ms": wall_ms,
-               "device_ms": profiled_device_ms(prof), "kernels": kernels,
+               "device_ms": device_ms_of(averages), "kernels": kernels,
                **step_split(trainer.state, loss_fn, batch, inner)}
         row["device_share"] = row["device_ms"] / wall_ms
         rows.append(row)
@@ -1161,6 +1186,7 @@ def fine_grad_check(train_cli, stage: str, device) -> dict:
     from hierdiff_torch.data.denoise import make_denoise_batch
     from hierdiff_torch.data.refine import make_refine_batch
     from hierdiff_torch.data.synthetic import SyntheticTreeGenerator
+    from hierdiff_torch.parallel.train_step import reduce_metrics
     from hierdiff_torch.utils.weights import init_weights
 
     cfg = load_config(fine_config(stage))
@@ -1177,7 +1203,7 @@ def fine_grad_check(train_cli, stage: str, device) -> dict:
         b = {k: v.to(dtype) if v.is_floating_point() else v for k, v in b.items()}
         loss, metrics = loss_fn(m, b, None)
         loss.backward()
-        terms = {"loss": loss.item(), **{k: v.item() for k, v in metrics.items()}}
+        terms = {"loss": loss.item(), **{k: v.item() for k, v in reduce_metrics(metrics).items()}}
         grads = {k: (p.grad.detach().double().cpu() if p.grad is not None
                      else torch.zeros(p.shape, dtype=torch.float64))
                  for k, p in m.named_parameters()}
@@ -1939,6 +1965,9 @@ GENERATE_BF16 = 16
 REMAT_SETTINGS = {"off": (False, False), "remat_edges": (False, True), "remat": (True, False),
                   "both": (True, True)}
 REMAT_STEPS = 5                       # 4w: timed steps per setting, and train CLI steps
+# 4b's training configuration at the widest batches of 4w and 4x
+TRAIN_OVER = ["coarse.compute_dtype=bfloat16", "train.batch_size=64", "train.num_train_trees=512",
+              f"train.seed={SEED}"]
 
 
 def _lattice_run(model, blur, chunk, nb, device):
@@ -2245,7 +2274,7 @@ def _peak_step(ek, model, batch, t_int, eps, device):
     return loss, dict(ek.launch_counts), (torch.cuda.max_memory_allocated(device) - base) / 2**30
 
 
-def remat_phase(train_cli, cli, ek, device) -> dict:
+def remat_phase(train_cli, cli, ek, device) -> tuple:
     """Phase 4w: one coarse training step at 4b's configuration (GEOM,
     bf16 elementwise, batch 64, a fixed pool batch, injected t and noise)
     with ``remat`` / ``remat_edges`` off, each, and both: losses bitwise
@@ -2257,15 +2286,15 @@ def remat_phase(train_cli, cli, ek, device) -> dict:
     fused_gcl + 6 fused_coord_update) in every setting; peak memory off and
     with remat_edges at 4s's pocket shapes;
     ``train.cli coarse`` for REMAT_STEPS steps with both flags on, its
-    parameters bitwise those of the same steps with both off."""
+    parameters bitwise those of the same steps with both off. Returns the
+    report and the parameters of that plain run (4x holds its run to them)."""
     from hierdiff_torch.config import load_config
     from hierdiff_torch.ops.masked import combine_noise
     from hierdiff_torch.train.data_iters import coarse_iter, finite, load_tree_pool, to_device
     from hierdiff_torch.utils.weights import init_weights
 
     t_phase = time.perf_counter()
-    over = ["coarse.compute_dtype=bfloat16", "train.batch_size=64", "train.num_train_trees=512",
-            f"train.seed={SEED}"]
+    over = TRAIN_OVER
     cfg = load_config(None, over)
     pool = load_tree_pool(cfg, seed=SEED)
     # the widest of the stream's first 8 batches (buckets 8-32)
@@ -2366,7 +2395,7 @@ def remat_phase(train_cli, cli, ek, device) -> dict:
                                   "train.eval_every=1000", "train.checkpoint_every=1000",
                                   *flags])
             torch.cuda.synchronize()
-            params[name] = run["trainer"].state.model.state_dict()
+            params[name] = {k: v.cpu() for k, v in run["trainer"].state.model.state_dict().items()}
             runs[name] = {"steps_per_sec": run["steps_per_sec"], "launches": dict(ek.launch_counts)}
     differ = sorted(k for k, v in params["off"].items() if not torch.equal(v, params["both"][k]))
     egnn = runs["both"]
@@ -2378,7 +2407,7 @@ def remat_phase(train_cli, cli, ek, device) -> dict:
         fail(f"4w: the train CLI did not recompute the blocks: {egnn['launches']}")
     return {"batch": b, "n": n, "settings": report, "pocket": pocket, "pocket_n_tot": n_tot,
             "train_cli": runs, "phase_seconds": time.perf_counter() - t_phase,
-            "launches": settings["both"]["launches"]}
+            "launches": settings["both"]["launches"]}, params["off"]
 
 
 # ---- 4s, 4t: the pocket-conditioned (CrossDocked) family
@@ -2804,6 +2833,234 @@ def pocket_sample_phase(cli, ek, device, ema: Path, tmp: Path, sm_clock_hz, n_sm
             "fused_gcl": fwd, "fused_coord_update": coord, "fused_gcl_bwd_edge_slots": slots,
             "trees_per_s": len(run_asm["blur"]) / asm_s,
             "phase_seconds": time.perf_counter() - t_phase}
+
+
+# ---- 4x, 4y, 4z: data parallelism
+#
+# The card is one, so the data-parallel paths run in a world-1 NCCL group
+# (the train CLI, in this process) and in world-2 gloo groups whose two
+# ranks share the card (NCCL refuses two ranks on one device). Each rank is
+# a spawned process (parallel/mesh.spawn) that loads the libraries built
+# above and returns its own launch counts.
+
+DP_MOLECULES, DP_STEPS = 16, 100       # 4y: generate at world 2 and at world 1
+
+
+def _dp_step_inputs():
+    """4x: the world-2 step's global batch (the first of 4b's training
+    stream, 64 molecules) and its injected t and noise, as numpy."""
+    from hierdiff_torch.config import load_config
+    from hierdiff_torch.ops.masked import combine_noise
+    from hierdiff_torch.train.data_iters import coarse_iter, load_tree_pool
+
+    cfg = load_config(None, TRAIN_OVER)
+    batch = next(coarse_iter(cfg, load_tree_pool(cfg, seed=SEED), seed=SEED + 9))
+    b, n = batch["atom_mask"].shape[:2]
+    rng = np.random.default_rng(SEED + 9)
+    t_int = rng.integers(0, cfg.coarse.timesteps + 1, size=(b, 1))
+    eps = combine_noise(torch.from_numpy(rng.standard_normal((b, n, 11)).astype(np.float32)),
+                        torch.from_numpy(batch["atom_mask"]), 3).numpy()
+    return batch, {"t_int": t_int, "eps": eps}
+
+
+def _dp_step(batch: dict, draws: dict, device) -> tuple:
+    """One step of 4b's model (GEOM, bf16 elementwise, weights from SEED,
+    AdamW unclipped) on ``batch`` with ``draws``: (the gradient the update
+    took, by name, on the host; the model; launches)."""
+    from hierdiff_torch.config import load_config
+    from hierdiff_torch.ops import egnn_kernels as ek
+    from hierdiff_torch.parallel import mesh
+    from hierdiff_torch.parallel.train_step import TrainState, train_step
+    from hierdiff_torch.sampling import cli
+    from hierdiff_torch.utils.weights import init_weights
+
+    cfg = load_config(None, TRAIN_OVER + ["optim.grad_clip=null"])
+    model = init_weights(cli.build_coarse_from_cfg(cfg.coarse, device=device),
+                         torch.Generator().manual_seed(SEED)).train()
+    state = TrainState(mesh.replicate(model), cfg.optim)
+    tensors = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+    draws = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in draws.items()}
+
+    def loss_fn(m, b, _):
+        out = m(b, None, train=True, **draws)
+        return out["loss"], {"error": out["error"].mean()}
+
+    ek.reset_launch_counts()
+    metrics = train_step(state, loss_fn, tensors, None)   # unclipped: p.grad is what it took
+    torch.cuda.synchronize()
+    launches = dict(ek.launch_counts)
+    grads = {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
+    return grads, model, launches, float(metrics["loss"])
+
+
+def dp_rank(batch: dict, draws: dict, tmp: str) -> dict:
+    """One rank of 4x's step and 4y's generate, at world 2 or, for 4y's
+    reference, at world 1 (a fresh process too, so that the two rates have
+    the same history)."""
+    from hierdiff_torch.ops import egnn_kernels as ek
+    from hierdiff_torch.parallel import mesh
+    from hierdiff_torch.sampling import cli
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, size = mesh.world()
+    device = torch.device("cuda")
+    grads, model, step_launches, loss = _dp_step(mesh.shard_batch(batch, rank, size),
+                                                 mesh.shard_batch(draws, rank, size), device)
+    params = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu().numpy()
+    del model
+    ek.reset_launch_counts()
+    run = cli.main(["generate", "--init-seed", "0", "--denoise-init-seed", "0",
+                    "--num", str(DP_MOLECULES), "--sample-steps", str(DP_STEPS), "--beam", "5",
+                    "--seed", str(SEED), "--out", str(Path(tmp) / "generate_dp.pkl")])
+    torch.cuda.synchronize()
+    out = {"step_launches": step_launches, "params": params, "loss": loss,
+           "generate_launches": dict(ek.launch_counts)}
+    if rank == 0:
+        out["grads"] = {k: v.numpy() for k, v in grads.items()}
+        out["generate"] = {"blur": run["result"].blur, "trees": run["result"].trees,
+                           "seconds": run["seconds"],
+                           "chunks": len(run["pipeline"]._plan_chunks(np.asarray(
+                               [b_["h"].shape[0] for b_ in run["result"].blur])))}
+    return out
+
+
+def dp_phases(train_cli, cli, ek, device, off_params: dict) -> dict:
+    """Phases 4x-4z. 4x: ``train.cli coarse --data-parallel`` for
+    REMAT_STEPS steps at 4w's configuration in a world-1 NCCL group: its
+    parameters bitwise 4w's plain run, its launches exact; one step of 4b's
+    model at world 2 over gloo, both ranks on this card, on 64 molecules
+    with injected t and noise: the gradient the update took against the
+    single-process step's under 4c's bar (global relative L2 < 2e-2), the
+    two ranks' parameters bitwise equal, 12 fused_gcl + 12 fused_gcl_bwd per
+    rank. 4y: ``generate`` of DP_MOLECULES molecules at DP_STEPS steps at
+    world 2 over gloo: point sets and trees bitwise those of a world-1 run
+    in a spawned process of its own (serial, as in any group), each rank's
+    coarse launches exact for its chunks, molecules/s beside world 1's. 4z:
+    ``entry.dryrun_multichip(2, backend="gloo")``, every rank with a share of
+    both generation checks and its launches exact for it."""
+    import torch.distributed as dist
+
+    from hierdiff_torch import entry
+    from hierdiff_torch.parallel import mesh
+
+    t_phase = time.perf_counter()
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 4x (a): the train CLI in a world-1 NCCL group
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_rendezvous", rank=0,
+                                world_size=1)
+        try:
+            ek.reset_launch_counts()
+            run = train_cli.main(["coarse", "--data-parallel", "--init-seed", "0",
+                                  f"train.workdir={tmp}/dp", *TRAIN_OVER,
+                                  f"train.max_steps={REMAT_STEPS}", "train.log_every=1",
+                                  "train.eval_every=1000", "train.checkpoint_every=1000"])
+            torch.cuda.synchronize()
+            cli_launches = dict(ek.launch_counts)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+        params = run["trainer"].state.model.state_dict()
+        differ = sorted(k for k, v in off_params.items() if not torch.equal(v, params[k].cpu()))
+        expect = {"fused_gcl": 12 * REMAT_STEPS, "fused_gcl_bwd": 12 * REMAT_STEPS,
+                  "coord_update_autograd": 6 * REMAT_STEPS, "fused_coord_update": 0}
+        report["train_cli_world1"] = {"backend": backend, "steps": run["steps"],
+                                      "steps_per_sec": run["steps_per_sec"],
+                                      "launches": cli_launches, "parameters_that_differ": differ}
+        print(f"4x: train.cli coarse --data-parallel in a world-1 {backend} group, {REMAT_STEPS} "
+              f"steps at 4w's configuration: {run['steps_per_sec']:.4f} steps/s after the first; "
+              f"launches {cli_launches} (expected {expect}); parameters that differ from 4w's "
+              f"plain run {differ}")
+        if backend != "nccl" or differ or cli_launches != expect:
+            fail(f"4x: the world-1 NCCL run is not the plain run: {report['train_cli_world1']}")
+        del run, params
+
+        # 4x (b) and 4y: the world-2 ranks, then the single-process references
+        batch, draws = _dp_step_inputs()
+        t0 = time.perf_counter()
+        ranks = mesh.spawn(dp_rank, 2, "gloo", init_file=f"{tmp}/gloo_rendezvous",
+                           args=(batch, draws, tmp), timeout=600)
+        spawn_s = time.perf_counter() - t0
+        ref_grads, ref_model, ref_launches, ref_loss = _dp_step(batch, draws, device)
+        del ref_model
+        diff2 = sum(float(((torch.from_numpy(ranks[0]["grads"][k]) - g) ** 2).sum())
+                    for k, g in ref_grads.items())
+        glob = math.sqrt(diff2 / sum(float((g ** 2).sum()) for g in ref_grads.values()))
+        in_sync = bool(np.array_equal(ranks[0]["params"], ranks[1]["params"]))
+        step_expect = {"fused_gcl": 12, "fused_gcl_bwd": 12, "coord_update_autograd": 6,
+                       "fused_coord_update": 0}
+        step_ok = (glob < 2e-2 and in_sync and ref_launches == step_expect
+                   and all(r["step_launches"] == step_expect for r in ranks))
+        report["step_world2"] = {
+            "batch": int(batch["atom_mask"].shape[0]), "n": int(batch["atom_mask"].shape[1]),
+            "global_rel_l2": glob, "ranks_bitwise_equal": in_sync,
+            "loss_by_rank": [r["loss"] for r in ranks], "single_process_loss": ref_loss,
+            "launches_by_rank": [r["step_launches"] for r in ranks], "ok": step_ok}
+        print(f"4x: one step of 4b's model at world 2 (gloo, both ranks on this card), "
+              f"B={batch['atom_mask'].shape[0]} N={batch['atom_mask'].shape[1]}: the gradient "
+              f"against the single-process step's, global relative L2 {glob:.3e} (bar 2e-2); "
+              f"ranks bitwise equal {in_sync}; launches by rank "
+              f"{[r['step_launches'] for r in ranks]} (expected {step_expect} each)")
+        if not step_ok:
+            fail(f"4x: the world-2 step is not the single-process step: {report['step_world2']}")
+
+        world1 = Path(tmp) / "world1"
+        world1.mkdir()
+        solo = mesh.spawn(dp_rank, 1, "gloo", init_file=f"{tmp}/gloo1_rendezvous",
+                          args=(batch, draws, str(world1)), timeout=600)[0]
+        one, two = solo["generate"], ranks[0]["generate"]
+        chunks = two["chunks"]
+
+        def gen_expect(chunks_):
+            return {"fused_gcl": chunks_ * (DP_STEPS + 1) * 12,
+                    "fused_coord_update": chunks_ * (DP_STEPS + 1) * 6,
+                    "fused_gcl_bwd": 0, "coord_update_autograd": 0}
+
+        expect_2 = [gen_expect(len(range(r, chunks, 2))) for r in range(2)]
+        same_blur = all(np.array_equal(a["x"], b_["x"]) and np.array_equal(a["h"], b_["h"])
+                        for a, b_ in zip(one["blur"], two["blur"]))
+        same = same_trees(one["trees"], two["trees"])
+        rates = {"world_1": DP_MOLECULES / one["seconds"], "world_2": DP_MOLECULES / two["seconds"]}
+        gen_launches = [r["generate_launches"] for r in ranks]
+        report["generate_world2"] = {
+            "molecules": DP_MOLECULES, "steps": DP_STEPS, "coarse_chunks": chunks,
+            "same_blur": same_blur, "same_trees": same, "molecules_per_s": rates,
+            "launches_by_rank": gen_launches, "spawn_and_ranks_s": spawn_s,
+            "trees": sum(t is not None for t in two["trees"])}
+        print(f"4y: generate, {DP_MOLECULES} molecules at {DP_STEPS} steps, {chunks} coarse "
+              f"chunks, at world 2 (gloo, both ranks on this card) against world 1 (a spawned "
+              f"process, serial): point sets bitwise {same_blur}, trees bitwise {same}; "
+              f"molecules/s {rates}; launches by rank {gen_launches} (expected {expect_2}), "
+              f"at world 1 {solo['generate_launches']}; the spawn and both ranks' work "
+              f"{spawn_s:.1f} s")
+        if not (same_blur and same and gen_launches == expect_2
+                and solo["generate_launches"] == gen_expect(chunks)
+                and one["chunks"] == chunks):
+            fail(f"4y: data-parallel generate is not the world-1 run: {report['generate_world2']}")
+
+    # 4z: the dry run's three checks at world 2 over gloo on this card
+    t0 = time.perf_counter()
+    dry = entry.dryrun_multichip(2, backend="gloo")
+    dry_expect = [entry.expected_launches(c) for c in dry["coarse_chunks"]]
+    report["dryrun"] = {"lines": dry["lines"], "launches_by_rank": dry["launches"],
+                        "coarse_chunks_by_rank": dry["coarse_chunks"],
+                        "seconds": time.perf_counter() - t0}
+    print(f"4z: dryrun_multichip(2, backend='gloo') on this card in {report['dryrun']['seconds']:.1f}"
+          f" s; coarse chunks by rank {dry['coarse_chunks']}; launches by rank {dry['launches']} "
+          f"(expected {dry_expect})")
+    if min(dry["coarse_chunks"]) == 0 or dry["launches"] != dry_expect:
+        fail(f"4z: a dry-run rank's launches are not its share's: {report['dryrun']}")
+    report["phase_seconds"] = time.perf_counter() - t_phase
+
+    def total(counts):
+        return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+    return {"report": report,
+            "train_dp_launches": total([cli_launches] + [r["step_launches"] for r in ranks]),
+            "generate_dp_launches": total(gen_launches),
+            "dryrun_dp_launches": total(dry["launches"])}
 
 
 def main() -> None:
@@ -3355,7 +3612,12 @@ def main() -> None:
     # ---- 4u, 4v, 4w. --fine-bf16, the per-node vocab restriction, remat / remat_edges
     fine_bf16 = fine_bf16_phase(cli, ek, coarse_pkl, device, assembled["trees_per_s"])
     allowed = allowed_phase(cli, coarse_pkl, device)
-    remat = remat_phase(train_cli, cli, ek, device)
+    remat, remat_off_params = remat_phase(train_cli, cli, ek, device)
+
+    # ---- 4x, 4y, 4z. data parallelism: the train CLI in a world-1 NCCL group,
+    # a world-2 step and generate over gloo (both ranks on this card), the dry
+    # run; before 4n-4q install the fake-RDKit harness in this process
+    dp = dp_phases(train_cli, cli, ek, device, remat_off_params)
 
     # ---- 4s, 4t. the pocket-conditioned (CrossDocked) family: training, then
     # sampling with the trained ema.pt
@@ -3424,7 +3686,9 @@ def main() -> None:
              "generate_fine_bf16": fine_bf16["generate"]["launches"],
              "train_step_remat": remat["launches"],
              "train_remat": remat["train_cli"]["both"]["launches"],
-             "train_remat_off": remat["train_cli"]["off"]["launches"]}
+             "train_remat_off": remat["train_cli"]["off"]["launches"],
+             "train_dp": dp["train_dp_launches"], "generate_dp": dp["generate_dp_launches"],
+             "dryrun_dp": dp["dryrun_dp_launches"]}
     kernels = []
     for name, runs in results.items():
         main_run = runs[0]   # random weights, attention on, f32: the main path's variant
@@ -3450,7 +3714,7 @@ def main() -> None:
         "generate_gated": generated_gated["stats"], "reconstruct_eval": reconstructed,
         "assemble_gated_refine": gated_refine, "train_pocket": pocket_train,
         "sample_pocket": pocket_sample, "assemble_fine_bf16": fine_bf16, "allowed": allowed,
-        "remat": remat}))
+        "remat": remat, "data_parallel": dp["report"]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -38,7 +38,7 @@ log-probability of ~NEG_INF, which the searches skip.
 from __future__ import annotations
 
 import copy
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import Tensor, nn
@@ -211,7 +211,15 @@ class EdgeDenoise(nn.Module):
         """The three losses of one training batch (``data/denoise.py``) and
         their accuracies; ``total_loss`` is their weighted sum over the batch
         size. (hierdiff_tpu/models/edge_denoise.py:235-307; reference:
-        edge_denoise.py:124-234)
+        edge_denoise.py:124-234)"""
+        return self.loss_terms(batch)[0]
+
+    def loss_terms(self, batch: Dict[str, Tensor]
+                   ) -> Tuple[Dict[str, Tensor], Dict[str, Tuple[Tensor, Tensor]]]:
+        """``forward``'s outputs, and the two accuracies that divide by a
+        count of valid rows as (hits, valid rows): ``focal_accuracy`` over
+        the samples with discovered edges, ``edge_accuracy`` over the steps
+        past the root. A data-parallel step sums each part over ranks.
 
         focal: BCE of the focal score over the discovered nodes, averaged
         over them and summed over the samples with discovered edges; edge:
@@ -246,7 +254,8 @@ class EdgeDenoise(nn.Module):
         focal_loss = (bce.sum(1) / n_cand * focal_valid).sum()
         top = torch.argmax(torch.where(cand > 0, scores, neg_inf), dim=1)
         hit = torch.gather(focal_label, 1, top[:, None])[:, 0]
-        focal_acc = (hit * focal_valid).sum() / torch.clamp(focal_valid.sum(), min=1e-8)
+        focal_parts = ((hit * focal_valid).sum(), focal_valid.sum())
+        focal_acc = focal_parts[0] / torch.clamp(focal_parts[1], min=1e-8)
 
         # ---- edge: which undiscovered node attaches to the last one
         last_onehot = (idx[None] == last_ind[:, None]).to(feats.dtype)
@@ -256,8 +265,9 @@ class EdgeDenoise(nn.Module):
         edge_valid = ((predict_idx != 0) & (last_ind >= 0)).to(e_logits.dtype)
         edge_loss = (masked_cross_entropy(e_logits, predict_idx, undiscovered) * edge_valid).sum()
         e_pred = torch.argmax(torch.where(undiscovered > 0, e_logits, neg_inf), dim=1)
-        edge_acc = (((e_pred == predict_idx).to(e_logits.dtype) * edge_valid).sum()
-                    / torch.clamp(edge_valid.sum(), min=1e-8))
+        edge_parts = (((e_pred == predict_idx).to(e_logits.dtype) * edge_valid).sum(),
+                      edge_valid.sum())
+        edge_acc = edge_parts[0] / torch.clamp(edge_parts[1], min=1e-8)
 
         # ---- node type: a pass over search_adj plus the (last, predict) edge
         add = last_onehot[:, :, None] * (idx[None, None, :] == predict_idx[:, None, None])
@@ -273,10 +283,11 @@ class EdgeDenoise(nn.Module):
 
         total = (self.focal_weight * focal_loss + self.edge_weight * edge_loss
                  + self.node_weight * node_loss) / b
-        return {"total_loss": total,
-                "focal_loss": focal_loss / b, "focal_accuracy": focal_acc,
-                "edge_loss": edge_loss / b, "edge_accuracy": edge_acc,
-                "node_loss": node_loss / b, "node_accuracy": node_acc}
+        return ({"total_loss": total,
+                 "focal_loss": focal_loss / b, "focal_accuracy": focal_acc,
+                 "edge_loss": edge_loss / b, "edge_accuracy": edge_acc,
+                 "node_loss": node_loss / b, "node_accuracy": node_acc},
+                {"focal_accuracy": focal_parts, "edge_accuracy": edge_parts})
 
     # --- autoregressive sampling ---------------------------------------------
 

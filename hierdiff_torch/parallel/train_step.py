@@ -9,21 +9,32 @@ is the global L2 norm before clipping; clipping follows
 ``norm >= max_norm``; torch's ``clip_grad_norm_`` would add 1e-6 to the
 norm); then AdamW with optax's defaults and decoupled weight decay on every
 parameter (or Adam, or SGD with momentum 0.9), the learning rate taken from
-optax's schedules at the update's count; then the EMA, in the model's own ``deepcopy``, after the update. The
-JAX package's data-parallel mesh is not ported.
+optax's schedules at the update's count; then the EMA, in the model's own ``deepcopy``, after the update.
+
+Inside a ``torch.distributed`` group (``parallel/mesh.py``) each rank holds
+its rows of the global batch, and the step all-reduces the gradients in one
+flattened call (the JAX step's single all-reduce) right after the missing
+ones are filled with zeros: ``grad_norm``, clipping, the optimizer and the
+EMA see the global mean gradient, and the parameters stay bitwise equal on
+every rank. The metrics are reduced too: the mean over ranks (the losses
+are means over molecules or sums over the batch size, so the mean of equal
+shards' values is the global one), and a ``Ratio`` by its numerator and
+denominator, so that it is the global ratio.
 """
 
 from __future__ import annotations
 
 import copy
 import math
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import Tensor, nn
 
 from hierdiff_torch.config import OptimConfig
 from hierdiff_torch.ops.egnn import drop_kernel_caches
+from hierdiff_torch.parallel.mesh import in_group
 
 
 def _cosine(init_value: float, decay_steps: int, alpha: float = 0.0) -> Callable[[int], float]:
@@ -106,6 +117,8 @@ class TrainState:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
+        if in_group():
+            all_reduce_mean(grads)
         norm = global_norm(grads)
         if self.grad_clip:
             # g if norm < max_norm else g / norm * max_norm, on the device
@@ -146,30 +159,71 @@ class TrainState:
             self.ema.load_state_dict(state["ema"], strict=True)
 
 
+def all_reduce_mean(tensors: List[Tensor]) -> None:
+    """Each tensor replaced, in place, by its mean over the group's ranks:
+    one all-reduce of their flattened concatenation."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat)
+    flat /= dist.get_world_size()
+    torch._foreach_copy_(tensors, [v.view_as(t) for v, t in
+                                   zip(flat.split([t.numel() for t in tensors]), tensors)])
+
+
+class Ratio(NamedTuple):
+    """A metric num / max(den, 1e-8) of two sums over the batch (an
+    accuracy over the valid rows): reduced over ranks by its parts, so that
+    it is the global batch's ratio."""
+    num: Tensor
+    den: Tensor
+
+    def value(self) -> Tensor:
+        return self.num / torch.clamp(self.den, min=1e-8)
+
+
+Metric = Union[Tensor, Ratio]
+
+
+def reduce_metrics(metrics: Dict[str, Metric]) -> Dict[str, Tensor]:
+    """Detached metric tensors; inside a group the global batch's (one
+    all-reduce): plain metrics averaged over ranks, a ``Ratio`` from its
+    parts summed over ranks."""
+    metrics = {k: (Ratio(v.num.detach(), v.den.detach()) if isinstance(v, Ratio) else v.detach())
+               for k, v in metrics.items()}
+    if in_group():
+        size = dist.get_world_size()
+        parts = [p for v in metrics.values() for p in (v if isinstance(v, Ratio) else (v,))]
+        flat = torch.stack([p.to(torch.float32).reshape(()) for p in parts])
+        dist.all_reduce(flat)
+        it = iter(flat)
+        metrics = {k: (Ratio(next(it), next(it)) if isinstance(v, Ratio) else next(it) / size)
+                   for k, v in metrics.items()}
+    return {k: v.value() if isinstance(v, Ratio) else v for k, v in metrics.items()}
+
+
 # loss_fn(model, batch, generator) -> (loss, metrics): a scalar to minimise
-# and device scalars to report, as the JAX package's
+# and device scalars (or ``Ratio``s) to report, as the JAX package's
 # loss_fn(params, batch, rng) (hierdiff_tpu/parallel/train_step.py:66)
 LossFn = Callable[[nn.Module, Dict[str, Tensor], Optional[torch.Generator]],
-                  Tuple[Tensor, Dict[str, Tensor]]]
+                  Tuple[Tensor, Dict[str, Metric]]]
 
 
 def train_step(state: TrainState, loss_fn: LossFn, batch: Dict[str, Tensor],
                generator: Optional[torch.Generator]) -> Dict[str, Tensor]:
     """Loss, gradients and one update (``make_train_step``). Returns device
     scalars, not synchronised: ``loss``, the loss function's metrics and
-    ``grad_norm``."""
+    ``grad_norm``; inside a group, the global batch's."""
     loss, metrics = loss_fn(state.model, batch, generator)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     grad_norm = state.apply_gradients()
-    return {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()},
-            "grad_norm": grad_norm}
+    return {**reduce_metrics({"loss": loss, **metrics}), "grad_norm": grad_norm}
 
 
 def eval_step(model: nn.Module, loss_fn: LossFn, batch: Dict[str, Tensor],
               generator: Optional[torch.Generator]) -> Dict[str, Tensor]:
     """``loss`` and the metrics of ``model`` on a batch, without gradients
-    (``make_eval_step``; the coarse loss runs with train=True there too)."""
+    (``make_eval_step``; the coarse loss runs with train=True there too);
+    inside a group, the global batch's."""
     with torch.no_grad():
         loss, metrics = loss_fn(model, batch, generator)
-    return {"loss": loss, **metrics}
+    return reduce_metrics({"loss": loss, **metrics})

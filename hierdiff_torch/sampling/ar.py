@@ -30,6 +30,7 @@ import torch
 
 from hierdiff_torch.data.collate import DEFAULT_BUCKETS, bucket_for
 from hierdiff_torch.models.edge_denoise import EdgeDenoise
+from hierdiff_torch.parallel import mesh
 from hierdiff_torch.sampling.beam import Expansion, PQBeamSearch, TreeState
 from hierdiff_torch.sampling.lattice import (LATTICE_KEYS, HostCopy, LatticeSampler, _next_pow2,
                                              build_allowed_arrays)
@@ -165,9 +166,13 @@ class ARSampler:
 
         blur_sets: per molecule {'x': (n, 3), 'h': (n, F)}, h integer-rounded
         (ar_sampling_nosize.py:388). Returns the best completed tree per
-        molecule (None on failure)."""
+        molecule (None on failure). In a process group it runs on rank 0
+        alone, as the JAX package's does on a mesh, and returns None on the
+        other ranks."""
         if not blur_sets:
             return []
+        if mesh.world()[0] != 0:
+            return None
         init = LatticeSampler._init_states(blur_sets, range(len(blur_sets)))
         search = PQBeamSearch(self.expander, beam_size=self.beam_size,
                               can_assemble=self.can_assemble, refine_hook=self.refine_hook,

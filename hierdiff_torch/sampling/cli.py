@@ -38,6 +38,13 @@ otherwise; ``generate``'s coarse model runs f32 elementwise, as ``coarse``
 does by default. Runs on CUDA unless ``--device``
 names another device.
 
+``assemble`` and ``generate`` take ``--data-parallel`` (the default, as in
+the JAX CLI): inside a ``torch.distributed`` group (the one this process is
+in, ``torchrun``'s, or on a machine with D > 1 visible cards D NCCL ranks
+that the CLI spawns) every rank runs its share of the coarse and lattice
+chunks and rank 0 alone searches, reconstructs, prints the rate line and
+writes the pickle; the trees are bitwise those of one process.
+
 With RDKit present, ``assemble`` and ``generate`` gate the search (and the
 refine hook's swaps and its final repair) with ``chem.assemble_gate``, and
 ``generate`` reconstructs each tree into a molecule, as the JAX CLI does.
@@ -64,6 +71,7 @@ from hierdiff_torch.models.diffusion import CoarseDiffusion
 from hierdiff_torch.models.edge_denoise import EdgeDenoise
 from hierdiff_torch.models.refine import NodeRefine
 from hierdiff_torch.ops.distributions import DistributionNodes
+from hierdiff_torch.parallel import mesh
 from hierdiff_torch.sampling.coarse import (make_masks_for_counts, sample_coarse,
                                             sample_coarse_pocket)
 from hierdiff_torch.sampling.pipeline import (GenerationPipeline, build_fine_sampler,
@@ -303,12 +311,16 @@ def cmd_assemble(args) -> dict:
                                  can_assemble=gate, refine_hook=hook)
     t0 = time.perf_counter()
     if hasattr(sampler, "compute_lattices"):
-        lattices = sampler.compute_lattices(blur)
+        lattices = sampler.compute_lattices(blur)     # in a process group: sharded
         t1 = time.perf_counter()
+        if mesh.world()[0] != 0:
+            return None
         trees = sampler._search(blur, lattices)
     else:   # the round-based sampler: a model step per search round
         lattices, t1 = None, t0
         trees = sampler.sample(blur)
+        if trees is None:   # it runs on rank 0 alone
+            return None
     if hook is not None:
         trees = [hook.finalize(t) if t is not None else None for t in trees]
     t2 = time.perf_counter()
@@ -343,6 +355,8 @@ def cmd_generate(args) -> dict:
                                    n_workers=args.workers)
     else:
         result = pipe.run(args.seed, args.num, reconstruct=has_rdkit(), n_workers=args.workers)
+    if result is None:   # a rank other than 0
+        return None
     seconds = time.perf_counter() - t0
     ok = sum(t is not None for t in result.trees)
     st = result.stats
@@ -436,6 +450,10 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--default-buckets", action="store_true",
                         help="pad to the coarser DEFAULT_BUCKETS instead of SAMPLING_BUCKETS")
         sp.add_argument("--device", default=None, help="torch device (default cuda)")
+        sp.add_argument("--data-parallel", action=argparse.BooleanOptionalAction, default=True,
+                        help="shard the coarse and lattice chunks over every rank: the process "
+                             "group this runs in, torchrun's, or one spawned rank per visible "
+                             "card")
         sp.add_argument("--out", default=out)
         sp.add_argument("overrides", nargs="*",
                         help="dotted overrides, in one run: denoise.hidden_nf=32 "
@@ -479,6 +497,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[list] = None):
     args = build_parser().parse_args(argv)
+    if getattr(args, "data_parallel", False):
+        args.device, spawned = mesh.run_cli_ranks(main, argv, resolve_device(args.device))
+        if spawned:
+            return {"ranks": spawned}
+    elif hasattr(args, "data_parallel") and mesh.in_group():
+        raise SystemExit("--no-data-parallel runs one process, not a rank of a process group")
     return args.fn(args)
 
 

@@ -36,7 +36,14 @@ refine on, full groups join the native loop while later coarse chunks run.
 variant's restriction, reference ar_sampling.py:62-118): every chunk carries
 the union table of its supports (``build_allowed_arrays``) to the device, and
 types outside a support get a log-probability of ~NEG_INF, which both
-searches skip. Not ported yet (ROADMAP.md, Queue 1): the data mesh.
+searches skip.
+
+Inside a ``torch.distributed`` group (``parallel/mesh.py``) the lattices
+are sharded over its ranks: every rank plans the chunks as one process
+would, runs its share (chunks r, r + size, ...) and the lattices are
+gathered on every rank; rank 0 alone searches (the refine hook's checks run
+on its card), so the trees are bitwise those of one process. The JAX
+package shards each chunk's rows over its mesh instead.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ import torch
 
 from hierdiff_torch.data.collate import DEFAULT_BUCKETS, bucket_for
 from hierdiff_torch.models.edge_denoise import EdgeDenoise
+from hierdiff_torch.parallel import mesh
 from hierdiff_torch.sampling.beam import Expansion, PQBeamSearch, TreeState
 
 LATTICE_KEYS = ("focal", "target", "did_attach", "top_wid", "top_logp")
@@ -198,7 +206,8 @@ class LatticeSampler:
                  rng: Optional[random.Random] = None, refine_group_cap: int = 32,
                  refine_merge: int = 1, native_search: bool = True,
                  retry_final_gate: bool = True,
-                 allowed_fn: Optional[Callable[[np.ndarray], List[np.ndarray]]] = None):
+                 allowed_fn: Optional[Callable[[np.ndarray], List[np.ndarray]]] = None,
+                 max_chunk: Optional[int] = None):
         """buckets: pad buckets (None: ``DEFAULT_BUCKETS``); the lattice's
         work grows with the cube of the pad. refine_hook: a ``RefineHook``
         or None. can_assemble: the search's assembly gate or None. rng: the
@@ -216,7 +225,9 @@ class LatticeSampler:
         retry_final_gate: a completed tree that fails the final gate does
         not end its molecule's search (``beam.PQBeamSearch``).
         allowed_fn(blur feats (n, F)) -> each node's allowed vocab indices
-        (the size variant's restriction); None: the whole vocabulary."""
+        (the size variant's restriction); None: the whole vocabulary.
+        max_chunk: molecules per lattice chunk at most (None: MAX_CHUNK;
+        the device memory budget may set fewer)."""
         if model.gated and not model.dynamic_depth:
             # inference: bound the depth loops by the trees' actual depth
             # (exact under gated=True; see EdgeDenoise.depth_mp)
@@ -232,6 +243,7 @@ class LatticeSampler:
         self.native_search = native_search
         self.retry_final_gate = retry_final_gate
         self.allowed_fn = allowed_fn
+        self.max_chunk = max_chunk
 
     # --- device side ---------------------------------------------------------
 
@@ -241,32 +253,38 @@ class LatticeSampler:
         # molecules per chunk helped, 1024 did not); on the H100 they are
         # defaults, not measured optima.
         per_item = nb * nb * self.model.hidden_nf * 4 * 6
-        return int(min(MAX_CHUNK, max(4, CHUNK_BUDGET_BYTES // per_item)))
+        return int(min(self.max_chunk or MAX_CHUNK, max(4, CHUNK_BUDGET_BYTES // per_item)))
 
-    def _dispatch_lattices(self, blur_sets, indices) -> List[tuple]:
-        """Run ``ar_lattice`` on each (bucket, pow2 chunk) of ``indices``;
-        returns [(chunk, HostCopy of its outputs), ...]. The device works
-        through them in order; the dynamic depth loops read one number back
-        per depth pass, so the host stays close behind."""
+    def _plan_lattices(self, blur_sets, indices) -> List[tuple]:
+        """The lattice chunks of ``indices``: [(bucket, chunk), ...], each
+        bucket's molecules split into pow2 chunks."""
         by_bucket: Dict[int, List[int]] = {}
         for i in indices:
             by_bucket.setdefault(
                 bucket_for(blur_sets[i]["h"].shape[0], self.buckets), []).append(i)
-        device = next(self.model.parameters()).device
-        pending = []
+        plan = []
         for nb, idxs in sorted(by_bucket.items()):
             c0 = 0
             for take in pow2_chunks(len(idxs), self._max_batch(nb)):
-                chunk = idxs[c0: c0 + take]
+                plan.append((nb, idxs[c0: c0 + take]))
                 c0 += take
-                b = _next_pow2(len(chunk))
-                arrays = pad_blur(blur_sets, chunk, b, nb)
-                if self.allowed_fn is not None:
-                    arrays += build_allowed_arrays([blur_sets[i]["h"] for i in chunk],
-                                                   self.allowed_fn, b, nb,
-                                                   self.model.out_node_nf)
-                out = self.model.ar_lattice(*(torch.from_numpy(a).to(device) for a in arrays))
-                pending.append((chunk, HostCopy([out[k] for k in LATTICE_KEYS])))
+        return plan
+
+    def _dispatch_lattices(self, blur_sets, plan: List[tuple]) -> List[tuple]:
+        """Run ``ar_lattice`` on each (bucket, chunk) of ``plan``
+        (``_plan_lattices``); returns [(chunk, HostCopy of its outputs), ...].
+        The device works through them in order; the dynamic depth loops read
+        one number back per depth pass, so the host stays close behind."""
+        device = next(self.model.parameters()).device
+        pending = []
+        for nb, chunk in plan:
+            b = _next_pow2(len(chunk))
+            arrays = pad_blur(blur_sets, chunk, b, nb)
+            if self.allowed_fn is not None:
+                arrays += build_allowed_arrays([blur_sets[i]["h"] for i in chunk],
+                                               self.allowed_fn, b, nb, self.model.out_node_nf)
+            out = self.model.ar_lattice(*(torch.from_numpy(a).to(device) for a in arrays))
+            pending.append((chunk, HostCopy([out[k] for k in LATTICE_KEYS])))
         return pending
 
     @staticmethod
@@ -285,12 +303,14 @@ class LatticeSampler:
 
     def compute_lattices(self, blur_sets: Sequence[Dict[str, np.ndarray]]
                          ) -> Dict[int, MoleculeLattice]:
-        """Group molecules by size bucket, pad, and run the lattice per chunk."""
-        pending = self._dispatch_lattices(blur_sets, range(len(blur_sets)))
+        """Group molecules by size bucket, pad, and run the lattice per
+        chunk; in a process group, this rank's share of the chunks, the
+        lattices gathered on every rank."""
+        plan = mesh.my_share(self._plan_lattices(blur_sets, range(len(blur_sets))))
         lattices: Dict[int, MoleculeLattice] = {}
-        for chunk, out in pending:
+        for chunk, out in self._dispatch_lattices(blur_sets, plan):
             self._collect_lattice(chunk, out, blur_sets, lattices)
-        return lattices
+        return mesh.all_gather_dict(lattices)
 
     # --- host search ---------------------------------------------------------
 
@@ -299,10 +319,14 @@ class LatticeSampler:
 
         blur_sets: per molecule {'x': (n, 3), 'h': (n, F)}, h integer-rounded
         (ar_sampling_nosize.py:388). Returns the best completed tree per
-        molecule (None on failure)."""
+        molecule (None on failure); in a process group, None on ranks other
+        than 0, which only compute their lattices."""
         if not blur_sets:
             return []
-        return self._search(blur_sets, self.compute_lattices(blur_sets))
+        lattices = self.compute_lattices(blur_sets)
+        if mesh.world()[0] != 0:
+            return None
+        return self._search(blur_sets, lattices)
 
     def sample_streamed(self, feeder) -> List[Optional[TreeState]]:
         """The overlapped assembly: take coarse chunks from ``feeder`` as
@@ -342,7 +366,8 @@ class LatticeSampler:
 
         def on_chunks(chunks):
             for idxs in chunks:
-                pending_lat.extend(self._dispatch_lattices(blur_sets, idxs))
+                pending_lat.extend(self._dispatch_lattices(
+                    blur_sets, self._plan_lattices(blur_sets, idxs)))
 
         # per-bucket pools: a group leaves when ``cap`` members are in; the
         # remainders wait until every lattice has landed (a group per

@@ -25,6 +25,16 @@ coarse chain (a workaround for the TPU's queue) is not carried over.
 Integer blur features are rounded at the hand-off between the stages, as in
 the reference (ar_sampling_nosize.py:388).
 
+Inside a ``torch.distributed`` group (``parallel/mesh.py``) the device
+work is sharded over its ranks: every rank plans the coarse chunks as one
+process would and runs its share (chunks r, r + size, ...), the point sets
+are gathered on every rank in index order, the lattices are sharded the
+same way (``LatticeSampler``), and rank 0 alone searches, repairs and
+reconstructs. The stages then run one after the other, as the
+JAX package runs them on a mesh. Since a chunk's samples depend on the chunk
+alone, the point sets and trees are bitwise those of one process on the same
+kind of device. Other ranks return None from ``run`` and ``run_streamed``.
+
 Random numbers differ from the JAX pipeline by design. ``run(seed, n)``
 draws the node counts from ``np.random.default_rng(seed)``, so a JAX run
 handed the same numpy generator has the same counts and the same chunk plan
@@ -50,6 +60,7 @@ from hierdiff_torch.data.collate import SAMPLING_BUCKETS, bucket_for
 from hierdiff_torch.models.diffusion import CoarseDiffusion
 from hierdiff_torch.models.edge_denoise import EdgeDenoise
 from hierdiff_torch.ops.distributions import DistributionNodes
+from hierdiff_torch.parallel import mesh
 from hierdiff_torch.sampling.beam import TreeState
 from hierdiff_torch.sampling.coarse import make_masks_for_counts, sample_coarse
 from hierdiff_torch.sampling.ar import ARSampler
@@ -62,8 +73,10 @@ def build_fine_sampler(denoise_model: EdgeDenoise, *, beam_size: int = 5,
     """Stage-2 sampler for a denoise model, with the assembly gate
     ``can_assemble``, the refine hook's checks and the per-node vocab
     restriction ``allowed_fn`` in its search when they are given: the
-    lattice sampler, or the round-based ``ARSampler`` when type choices feed
-    back into the trajectory (``vocab_conditioning``)."""
+    lattice sampler (its lattices sharded over a process group's ranks), or
+    the round-based ``ARSampler`` when type choices feed back into the
+    trajectory (``vocab_conditioning``; it runs on rank 0 alone, as the JAX
+    package's does on a mesh)."""
     if denoise_model.vocab_conditioning:
         return ARSampler(denoise_model, beam_size=beam_size, can_assemble=can_assemble,
                          refine_hook=refine_hook, allowed_fn=allowed_fn, buckets=buckets)
@@ -99,11 +112,12 @@ class _BlurFeeder:
     runs the chain's whole host loop, so the overlap is single-threaded:
     the fine stage works between launches."""
 
-    def __init__(self, pipe: "GenerationPipeline", seed: int, counts: np.ndarray):
+    def __init__(self, pipe: "GenerationPipeline", seed: int, counts: np.ndarray,
+                 batch_size: Optional[int] = None):
         self.pipe = pipe
         self.seed = seed
         self.counts = counts
-        self.chunks = pipe._plan_chunks(counts)
+        self.chunks = pipe._plan_chunks(counts, batch_size)
         self.total = len(counts)
         self.blur: List[Optional[Dict[str, np.ndarray]]] = [None] * self.total
         self.inflight = deque()
@@ -226,14 +240,18 @@ class GenerationPipeline:
             out[i] = {"x": xh[row, :c, :nd],
                       "h": round_int_features(xh[row, :c, nd:], self.int_nf)}
 
-    def _blur_for_counts(self, seed: int, counts: np.ndarray) -> List[Dict[str, np.ndarray]]:
+    def _blur_for_counts(self, seed: int, counts: np.ndarray,
+                         batch_size: Optional[int] = None) -> List[Dict[str, np.ndarray]]:
         """Stage 1 for given node counts: every chunk is queued first, then
-        each is copied to the host once."""
+        each is copied to the host once; in a process group, this rank's
+        share of the chunks, gathered on every rank."""
         out: List[Optional[Dict[str, np.ndarray]]] = [None] * len(counts)
-        pending = [(chunk, self._dispatch_coarse(seed, counts, nb, chunk))
-                   for nb, chunk in self._plan_chunks(counts)]
-        for chunk, xh in pending:
-            self._absorb_coarse(chunk, xh.cpu().numpy(), counts, out)
+        plan = self._plan_chunks(counts, batch_size)
+        pending = [(k, self._dispatch_coarse(seed, counts, nb, chunk))
+                   for k, (nb, chunk) in mesh.my_share(list(enumerate(plan)))]
+        samples = mesh.all_gather_dict({k: xh.cpu().numpy() for k, xh in pending})
+        for k, (_, chunk) in enumerate(plan):
+            self._absorb_coarse(chunk, samples[k], counts, out)
         return out  # type: ignore[return-value]
 
     def sample_blur(self, seed: int, n_molecules: int) -> List[Dict[str, np.ndarray]]:
@@ -242,20 +260,25 @@ class GenerationPipeline:
         counts = self._sample_counts(np.random.default_rng(seed), n_molecules)
         return self._blur_for_counts(seed, counts)
 
-    def _blur_and_trees(self, seed: int, counts: np.ndarray, overlap: bool):
+    def _blur_and_trees(self, seed: int, counts: np.ndarray, overlap: bool,
+                        batch_size: Optional[int] = None):
         """Stages 1 and 2 for given node counts, the hook's ``finalize``
         included: (blur, trees, the wall when the last coarse chunk
         landed). ``overlap`` streams the coarse chunks into the fine stage
-        when the fine sampler can take them (the round-based one cannot)."""
-        if overlap and hasattr(self.sampler, "sample_streamed"):
-            feeder = _BlurFeeder(self, seed, counts)
+        when the fine sampler can take them (the round-based one cannot)
+        and the process is in no group. In a group, trees is None on ranks
+        other than 0."""
+        if overlap and not mesh.in_group() and hasattr(self.sampler, "sample_streamed"):
+            feeder = _BlurFeeder(self, seed, counts, batch_size)
             trees = self.sampler.sample_streamed(feeder)
             blur = feeder.blur
             t1 = feeder.t_last_coarse or time.perf_counter()
         else:
-            blur = self._blur_for_counts(seed, counts)
+            blur = self._blur_for_counts(seed, counts, batch_size)
             t1 = time.perf_counter()
             trees = self.sampler.sample(blur)
+            if trees is None:   # a rank other than 0
+                return blur, None, t1
         hook = self.sampler.refine_hook
         if hook is not None:
             # end-of-search repair of non-assemblable fragments
@@ -264,7 +287,8 @@ class GenerationPipeline:
         return blur, trees, t1
 
     def run(self, seed: int, n_molecules: int, reconstruct: bool = True,
-            n_workers: int = 0, overlap: bool = True) -> PipelineResult:
+            n_workers: int = 0, overlap: bool = True,
+            batch_size: Optional[int] = None) -> Optional[PipelineResult]:
         """Coarse, fine, then reconstruction. ``overlap`` streams the coarse
         chunks into the fine stage (off: one stage after the other, the
         reference the tests hold it to); the point sets are the same either
@@ -274,10 +298,14 @@ class GenerationPipeline:
         ``finalize`` included). With ``reconstruct``, RDKit present and a
         vocabulary set, the trees that were assembled become molecules
         (``n_workers`` > 1: a process pool), and ``stats`` gains the
-        reconstruction's valid, unique, avg_atoms and ``t_reconstruct``."""
+        reconstruction's valid, unique, avg_atoms and ``t_reconstruct``.
+        batch_size: molecules per coarse chunk at most (None: 64). In a
+        process group, None on ranks other than 0."""
         t0 = time.perf_counter()
         counts = self._sample_counts(np.random.default_rng(seed), n_molecules)
-        blur, trees, t1 = self._blur_and_trees(seed, counts, overlap)
+        blur, trees, t1 = self._blur_and_trees(seed, counts, overlap, batch_size)
+        if trees is None:
+            return None
         t2 = time.perf_counter()
         result = PipelineResult(blur=blur, trees=trees,
                                 stats={"t_coarse": t1 - t0, "t_fine": t2 - t1})
@@ -300,7 +328,9 @@ class GenerationPipeline:
         ``chunk_seed(seed, 1000 + k)`` as their run's seed. Without RDKit or
         a vocabulary it is ``run`` without reconstruction. ``stats``: the
         reconstruction's panel, ``t_device`` (stages 1 and 2, summed over
-        the chunks) and ``t_total``."""
+        the chunks) and ``t_total``. In a process group, every rank samples
+        its share of each chunk and rank 0 alone holds the pool; None on the
+        other ranks."""
         if not (has_rdkit() and self.vocab is not None):
             return self.run(seed, n_molecules, reconstruct=False)
         import multiprocessing as mp
@@ -313,20 +343,30 @@ class GenerationPipeline:
         blur_all: List[Dict[str, np.ndarray]] = []
         trees_all: List[Optional[TreeState]] = []
         pending = []
+        main = mesh.world()[0] == 0
         # fork: the workers inherit sys.modules (an RDKit stand-in included)
-        with mp.get_context("fork").Pool(max(n_workers, 1), initializer=_pool_init,
-                                         initargs=(self.vocab,)) as pool:
+        pool = (mp.get_context("fork").Pool(max(n_workers, 1), initializer=_pool_init,
+                                            initargs=(self.vocab,)) if main else None)
+        try:
             for k, c0 in enumerate(range(0, n_molecules, chunk_size)):
                 m = min(chunk_size, n_molecules - c0)
                 td = time.perf_counter()
                 counts = self._sample_counts(rng_np, m)
                 blur, trees, _ = self._blur_and_trees(chunk_seed(seed, 1000 + k), counts, True)
                 t_device += time.perf_counter() - td
+                if trees is None:
+                    continue
                 blur_all.extend(blur)
                 trees_all.extend(trees)
                 jt = [tree_state_to_moltree(t, self.vocab) for t in trees if t is not None]
                 pending.append(pool.map_async(_pool_one, jt))
             outputs = [o for p in pending for o in p.get()]
+        finally:
+            if pool is not None:
+                pool.terminate()
+                pool.join()
+        if not main:
+            return None
         results, stats = summarize_outputs(outputs)
         out = PipelineResult(blur=blur_all, trees=trees_all, molecules=results)
         out.stats = dict(stats, t_device=t_device, t_total=time.perf_counter() - t0)

@@ -7,9 +7,11 @@ proportion to its population and the trees within it with replacement
 the edge-denoise stage (``denoise_iter``) or the refine stage
 (``refine_iter``); the pocket family's coarse batches carry synthetic
 pockets (``synthetic_pockets``). They take the JAX package's Python and numpy draws in its
-order, so the same seed gives the same batches. A prefetcher collates on a
+order, so the same seed gives the same batches. Under data parallelism every
+rank draws the same global batches and keeps its rows after collation, before
+the copy to the device (``shard_iter``). A prefetcher collates on a
 thread and copies pinned host tensors to the device with
-``non_blocking=True``.
+``non_blocking=True``; it issues no collective.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from hierdiff_torch.data.collate import bucket_for, collate_coarse
 from hierdiff_torch.data.denoise import make_denoise_batch
 from hierdiff_torch.data.refine import make_refine_batch
 from hierdiff_torch.data.synthetic import SyntheticTree, SyntheticTreeGenerator
+from hierdiff_torch.parallel.mesh import shard_batch
 
 
 def load_tree_pool(cfg: Config, seed: int = 0) -> List[SyntheticTree]:
@@ -138,6 +141,14 @@ def refine_iter(cfg: Config, pool, seed: int = 0) -> Iterator[Dict[str, np.ndarr
     while True:
         bkt, trees = _sample_bucket_batch(groups, rng, cfg.train.batch_size)
         yield make_refine_batch(trees, rng, max_n=bkt, vocab_size=cfg.refine.vocab_size)
+
+
+def shard_iter(it: Iterator[Dict[str, np.ndarray]], rank: int,
+               size: int) -> Iterator[Dict[str, np.ndarray]]:
+    """Rank ``rank``'s rows of each global numpy batch of ``it``
+    (``parallel/mesh.shard_batch``); at size 1 every row."""
+    for batch in it:
+        yield shard_batch(batch, rank, size)
 
 
 def finite(it: Iterator, n: int) -> Iterator:

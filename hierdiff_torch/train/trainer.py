@@ -14,8 +14,19 @@ from the first row's keys, as the JAX package writes it) and prints it with
 ``steps_per_sec`` and the rate of the stage's unit (``molecules_per_sec``
 for the coarse stage, ``trees_per_sec`` for the fine stage's two models).
 ``try_resume`` continues from the latest checkpoint; ``find_lr`` is the
-exponential learning-rate sweep. Checkpoints are ``torch.save`` files;
-TensorBoard and W&B logging are not ported.
+exponential learning-rate sweep. Checkpoints are ``torch.save`` files.
+Every logged row also goes to TensorBoard (``<workdir>/tb``, scalars
+``"{split}/{key}"``) when ``torch.utils.tensorboard`` imports, and to W&B
+when ``wandb=True`` and the package imports; a missing one is named in one
+printed line (``hierdiff_tpu/train/trainer.py:96-115``).
+
+Inside a ``torch.distributed`` group (``parallel/mesh.py``) the model is
+broadcast from rank 0, each step all-reduces its gradients and metrics
+(``parallel/train_step.py``), and rank 0 alone writes ``config.json``,
+``metrics.csv``, the event files, checkpoints and ``ema.pt`` and prints,
+with a barrier after each write. A checkpoint holds every rank's generator
+state, so a resumed run repeats; every rank loads it. The rates count the
+global batch, ``train.batch_size``.
 """
 
 from __future__ import annotations
@@ -32,10 +43,12 @@ from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from hierdiff_torch.config import Config
 from hierdiff_torch.ops.egnn import drop_kernel_caches
+from hierdiff_torch.parallel import mesh
 from hierdiff_torch.parallel.train_step import LossFn, TrainState, eval_step, train_step
 
 KEEP_LAST = 3
@@ -51,77 +64,124 @@ class Trainer:
     batch holds ('molecules' or 'trees') in the rates."""
 
     def __init__(self, cfg: Config, model: nn.Module, loss_fn: LossFn, device: torch.device,
-                 unit: str = "molecules", monitor: str = "loss"):
+                 unit: str = "molecules", monitor: str = "loss", wandb: bool = False):
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.device = device
+        self.rank, self.size = mesh.world()
         self.rate_key = f"{unit}_per_sec"
         self.workdir = Path(cfg.train.workdir)
-        self.workdir.mkdir(parents=True, exist_ok=True)
-        (self.workdir / "config.json").write_text(json.dumps(dataclasses.asdict(cfg), indent=2))
-        self.state = TrainState(model, cfg.optim)
-        self.generator = torch.Generator(device=device).manual_seed(cfg.train.seed)
+        if self.rank == 0:
+            self.workdir.mkdir(parents=True, exist_ok=True)
+            (self.workdir / "config.json").write_text(
+                json.dumps(dataclasses.asdict(cfg), indent=2))
+        mesh.barrier()
+        self.state = TrainState(mesh.replicate(model), cfg.optim)
+        self.generator = torch.Generator(device=device).manual_seed(
+            mesh.rank_seed(cfg.train.seed, self.rank))
         self.monitor = monitor
         self.best = float("inf")
         self.ckpt_dir = self.workdir / "checkpoints"
         self.best_dir = self.workdir / "checkpoints_best"
         self.metrics_file = self.workdir / "metrics.csv"
         self._fields: Optional[List[str]] = None
+        self._tb = self._wandb = None
+        if self.rank == 0:
+            self._tb = _tensorboard_writer(self.workdir / "tb")
+        if self.rank == 0 and wandb:
+            self._wandb = _wandb_run(self.workdir, cfg)
+
+    def print(self, msg: str) -> None:
+        """Print on rank 0 only."""
+        if self.rank == 0:
+            print(msg, flush=True)
 
     # --- checkpointing -----------------------------------------------------
 
     def save(self, best: bool = False) -> Path:
-        """A checkpoint of model, optimizer, EMA, step and generator; the
-        periodic ones also refresh ``ema.pt``."""
+        """A checkpoint of model, optimizer, EMA, step and every rank's
+        generator (``generators``, by rank; ``generator`` is rank 0's); the
+        periodic ones also refresh ``ema.pt``. Every rank takes part, rank 0
+        writes."""
         directory = self.best_dir if best else self.ckpt_dir
-        directory.mkdir(parents=True, exist_ok=True)
-        payload = self.state.state_dict()
-        payload["generator"] = self.generator.get_state()
-        payload["best"] = self.best
         path = directory / f"step_{self.state.step:08d}.pt"
-        tmp = path.with_suffix(".tmp")
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
-        for old in sorted(directory.glob("step_*.pt"))[:-(1 if best else KEEP_LAST)]:
-            old.unlink()
-        if not best:
-            weights = self.state.ema if self.state.ema is not None else self.state.model
-            torch.save(weights.state_dict(), self.workdir / "ema.tmp")
-            os.replace(self.workdir / "ema.tmp", self.workdir / "ema.pt")
+        generators = [self.generator.get_state()]
+        if mesh.in_group():
+            generators = [None] * self.size
+            dist.all_gather_object(generators, self.generator.get_state())
+        if self.rank == 0:
+            directory.mkdir(parents=True, exist_ok=True)
+            payload = self.state.state_dict()
+            payload["generator"] = generators[0]
+            payload["generators"] = generators
+            payload["best"] = self.best
+            tmp = path.with_suffix(".tmp")
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+            for old in sorted(directory.glob("step_*.pt"))[:-(1 if best else KEEP_LAST)]:
+                old.unlink()
+            if not best:
+                weights = self.state.ema if self.state.ema is not None else self.state.model
+                torch.save(weights.state_dict(), self.workdir / "ema.tmp")
+                os.replace(self.workdir / "ema.tmp", self.workdir / "ema.pt")
+        mesh.barrier()
         return path
 
     def try_resume(self) -> bool:
         """Continue from the latest checkpoint under ``checkpoints/``, if any
-        (the reference's try_resume, endiffusion/train.py:35-85)."""
+        (the reference's try_resume, endiffusion/train.py:35-85), on every
+        rank, each with its own generator state; a checkpoint of another
+        world size raises."""
         ckpts = sorted(self.ckpt_dir.glob("step_*.pt"))
         if not ckpts:
             return False
         payload = torch.load(ckpts[-1], map_location="cpu", weights_only=True)
+        generators = payload.get("generators", [payload["generator"]])
+        if len(generators) != self.size:
+            raise ValueError(f"{ckpts[-1]} holds the generators of {len(generators)} ranks; "
+                             f"this run has {self.size}")
         self.state.load_state_dict(payload)
-        self.generator.set_state(payload["generator"])
+        self.generator.set_state(generators[self.rank])
         self.best = float(payload["best"])
         return True
 
     # --- logging -----------------------------------------------------------
 
     def log(self, step: int, metrics: Dict[str, float], split: str = "train") -> None:
-        """Append a row to ``metrics.csv``. The columns are the first row's
-        keys (a resumed run keeps the file's header); a later row leaves
-        out what they lack and leaves blank what it lacks."""
-        row = {"step": step, "split": split, **metrics}
-        if self._fields is None and self.metrics_file.exists():
-            with open(self.metrics_file, newline="") as f:
-                self._fields = next(csv.reader(f), None)
-        new = self._fields is None
-        if new:
-            self._fields = list(row)
-        with open(self.metrics_file, "a", newline="") as f:
-            writer = csv.DictWriter(f, fieldnames=self._fields, extrasaction="ignore")
+        """On rank 0: append a row to ``metrics.csv``, print it, and write
+        it to TensorBoard and W&B when they are on. The CSV's columns are
+        the first row's keys (a resumed run keeps the file's header); a
+        later row leaves out what they lack and leaves blank what it lacks."""
+        if self.rank == 0:
+            row = {"step": step, "split": split, **metrics}
+            if self._fields is None and self.metrics_file.exists():
+                with open(self.metrics_file, newline="") as f:
+                    self._fields = next(csv.reader(f), None)
+            new = self._fields is None
             if new:
-                writer.writeheader()
-            writer.writerow(row)
-        msg = " ".join(f"{k}={v:.6g}" for k, v in metrics.items())
-        print(f"[{split}] step {step}: {msg}", flush=True)
+                self._fields = list(row)
+            with open(self.metrics_file, "a", newline="") as f:
+                writer = csv.DictWriter(f, fieldnames=self._fields, extrasaction="ignore")
+                if new:
+                    writer.writeheader()
+                writer.writerow(row)
+            msg = " ".join(f"{k}={v:.6g}" for k, v in metrics.items())
+            print(f"[{split}] step {step}: {msg}", flush=True)
+            if self._tb is not None:   # queued; written by the writer's thread and close()
+                for k, v in metrics.items():
+                    self._tb.add_scalar(f"{split}/{k}", v, step)
+            if self._wandb is not None:
+                self._wandb.log({f"{split}/{k}": v for k, v in metrics.items()}, step=step)
+        mesh.barrier()
+
+    def close(self) -> None:
+        """Close the TensorBoard writer and finish the W&B run."""
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
+        if self._wandb is not None:
+            self._wandb.finish()
+            self._wandb = None
 
     # --- loop --------------------------------------------------------------
 
@@ -166,6 +226,7 @@ class Trainer:
         _sync(self.device)
         end = time.perf_counter()
         self.save()
+        self.close()
         steps = cfg.max_steps - start
         timed = steps - 1 if steps > 1 else 0
         busy = end - t_after_first - side if t_after_first is not None else 0.0
@@ -203,11 +264,37 @@ class Trainer:
             best = min(best, loss)
             if not math.isfinite(loss) or loss > 10 * abs(best) + 1e3:
                 break   # diverged
-        with open(self.workdir / "lr_find.csv", "w", newline="") as f:
-            writer = csv.writer(f)
-            writer.writerow(["lr", "loss"])
-            writer.writerows(zip(lrs[: len(losses)], losses))
+        if self.rank == 0:
+            with open(self.workdir / "lr_find.csv", "w", newline="") as f:
+                writer = csv.writer(f)
+                writer.writerow(["lr", "loss"])
+                writer.writerows(zip(lrs[: len(losses)], losses))
+        mesh.barrier()
+        self.close()
         suggestion = float(lrs[max(int(np.nanargmin(losses)) - n_steps // 10, 0)])
-        print(f"find_lr: {len(losses)} steps, min loss {min(losses):.4g}, "
-              f"suggested lr {suggestion:.3g}")
+        self.print(f"find_lr: {len(losses)} steps, min loss {min(losses):.4g}, "
+                   f"suggested lr {suggestion:.3g}")
         return suggestion
+
+
+def _tensorboard_writer(logdir: Path):
+    """A ``torch.utils.tensorboard.SummaryWriter`` on ``logdir``, or None
+    with one printed line when it does not import (where TensorFlow is
+    installed, TensorBoard imports it, which takes seconds)."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as exc:
+        print(f"[log] tensorboard unavailable ({exc}); CSV only", flush=True)
+        return None
+    return SummaryWriter(str(logdir))
+
+
+def _wandb_run(workdir: Path, cfg: Config):
+    """A W&B run logging to ``workdir``, or None with one printed line when
+    the package does not import."""
+    try:
+        import wandb
+    except ImportError as exc:
+        print(f"[log] wandb unavailable ({exc}); CSV and TensorBoard only", flush=True)
+        return None
+    return wandb.init(project="hierdiff-torch", dir=str(workdir), config=dataclasses.asdict(cfg))
