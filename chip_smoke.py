@@ -248,11 +248,32 @@ Phases, one output line each, any failure exits non-zero:
  4z. ``entry.dryrun_multichip(2, backend="gloo")`` on the card: one DP
      step, sharded generation, refine + gate + reconstruction, every rank
      with a share of both generation checks and its launches exact for it;
-  5. the kernel list as JSON (``launches_by_path`` counts every path above:
+  5a. reference checkpoints: GEOM-width coarse, denoise and refine weights
+     (seeded random) saved raw and in the reference's PyTorch-Lightning
+     layout (``state_dict`` with the ``model.`` prefix, a config object in
+     ``hyper_parameters``, which the weights-only unpickler refuses, and
+     the non-parameter buffers the loader skips); ``sampling.cli coarse
+     --weights`` (16 point sets of <= 12 nodes, 20 steps), ``assemble
+     --denoise-weights --refine-weights`` (refine checks on) and ``train.cli
+     coarse --weights`` (3 steps) from each: point sets, trees and trained
+     parameters bitwise equal, the coarse launches exact;
+  5b. the JT-VAE stack (``models/jtnn.py``) at the JAX package's defaults
+     (vocab 780, hidden 450, latent 56): the encoder and the teacher-forced
+     decoder on 32 synthetic GEOM trees of <= 32 nodes, MPN and JTMPN on
+     ``mol2graph_dense`` of 12 harness molecules (the harness installed for
+     the featurisation alone), each forward and backward card against CPU
+     under 4c's margin rule, the gradients bitwise on a second backward, the
+     device and wall ms of a forward+backward;
+  5c. under the harness, after 4n-4q: ``chem/mff_rmsd`` on 16 molecules
+     (base_rmsd finite, each at RMSD 0 from itself, a lifted conformer
+     finite), ``chem/preprocess.process_sdf`` on their SDF read back by
+     ``load_tree_pool``, and one ``train.cli denoise`` step on those trees;
+  6. the kernel list as JSON (``launches_by_path`` counts every path above:
      the two fine-stage training paths, both gated generate runs, the
      serial generate runs, run_streamed, the ARSampler, 4u's and 4w's
-     runs, and 4x-4z's ranks (``train_dp``, ``generate_dp``,
-     ``dryrun_dp``) included), then the result JSON as the last line.
+     runs, 4x-4z's ranks (``train_dp``, ``generate_dp``, ``dryrun_dp``),
+     5a's six runs and 5c's denoise step included), then the result JSON
+     as the last line.
 """
 
 from __future__ import annotations
@@ -401,20 +422,11 @@ def card_against_cpu(ek, model, batch: dict, what: str, show=()) -> dict:
     cpu_model = copy.deepcopy(model).cpu()
     cpu = grads_on(cpu_model, torch.device("cpu"))
     cpu_rev = grads_on(cpu_model, torch.device("cpu"), np.arange(b)[::-1].copy())
-    diff2 = {k: float(((card[k] - cpu[k]) ** 2).sum()) for k in cpu}
-    ref2 = {k: float((cpu[k] ** 2).sum()) for k in cpu}
-    moved = {k: math.sqrt(float(((cpu_rev[k] - cpu[k]) ** 2).sum()) / ref2[k]) if ref2[k] > 0
-             else math.inf for k in cpu}
-    rounding = {k: {"cpu_l2": math.sqrt(ref2[k]), "moved_by_reversal": moved[k],
-                    "card_l2": float(card[k].norm())}
-                for k in cpu if not moved[k] < ROUNDING_SHARE}
-    per = {k: math.sqrt(diff2[k] / ref2[k]) for k in cpu if k not in rounding}
+    margin = grad_margin(card, cpu, cpu_rev)
+    per, rounding, glob, missing = (margin[k] for k in ("per", "rounding", "global", "missing"))
     worst = max(per, key=per.get)
     egnn = {k: v for k, v in per.items() if not k.startswith("gamma.")}
     worst_egnn = max(egnn, key=egnn.get)
-    glob = math.sqrt(sum(diff2.values()) / sum(ref2.values()))
-    missing = sorted(k for k, v in card.items() if not torch.isfinite(v).all()
-                     or (k not in rounding and not v.abs().max() > 0))
     ok = (glob < 2e-2 and not missing and launches["fused_gcl_bwd"] == 12
           and all(v is not None and v < 2e-2 for v in ({k: per.get(k) for k in cpu
                                                          if k.startswith(tuple(show))}.values()
@@ -3063,6 +3075,393 @@ def dp_phases(train_cli, cli, ek, device, off_params: dict) -> dict:
             "dryrun_dp_launches": total(dry["launches"])}
 
 
+# ---- 5a-5c: reference checkpoints, the JT-VAE stack, the chemistry tools
+
+CKPT_NUM, CKPT_STEPS, CKPT_MAX_NODES, CKPT_TRAIN_STEPS = 16, 20, 12, 3   # 5a
+JT_TREES, JT_MAX_NODES = 32, 32           # 5b: synthetic GEOM trees of at most 32 nodes
+JT_VOCAB, JT_HIDDEN, JT_LATENT = 780, 450, 56   # the JAX package's JT-VAE defaults
+# 5b (MPN / JTMPN: the first 12) and 5c (the SDF: all 16): chem_check's six
+# molecules and ten more, in the Kekule forms the fake-RDKit harness parses
+HARNESS_SMILES = (
+    "CC(=O)NC1=CC=C(O)C=C1", "C1=CC=CC=C1CCNC(=O)C1CCCCC1", "OC1=CC=C(CN2CCOCC2)C=C1",
+    "CC1=CC(=O)NC(C)=C1", "NC(=O)C1CCCN1CC1=CC=CS1", "ClC1=CC=C(C=C1)C(=O)NCCO",
+    "CC1=CC=CC=C1O", "OCCN1CCOCC1", "CC(=O)OC1=CC=CC=C1C(=O)O", "NC1=CC=C(C=C1)S(N)(=O)=O",
+    "CN1C=NC2=C1C(=O)N(C)C(=O)N2C", "CC(C)CC1=CC=C(C=C1)C(C)C(=O)O", "OC(=O)C1=CC=CN=C1",
+    "CCOC(=O)C1=CC=CC=C1N", "C1CCC(CC1)NC(=O)C2=CC=CS2", "COC1=CC=C(CCN)C=C1")
+MPN_MOLECULES = 12
+
+
+def lightning_checkpoint(sd: dict, stage: str) -> dict:
+    """``sd`` in the reference's PyTorch-Lightning layout: under
+    ``state_dict`` with the ``model.`` prefix, beside the reference's
+    non-parameter buffers (one key of each of ``weights.SKIPPED_KEYS``), and
+    a config object in ``hyper_parameters``, which the weights-only
+    unpickler refuses."""
+    extra = {"gamma.gamma": torch.linspace(-10.0, 10.0, 1001), "buffer": torch.zeros(1),
+             "dynamics.egnn.sin_embedding.frequencies": torch.arange(6.0)}
+    return {"state_dict": {"model." + k: v for k, v in {**sd, **extra}.items()},
+            "hyper_parameters": argparse.Namespace(stage=stage, lr=4e-4, batch_size=64),
+            "epoch": 1, "global_step": 100}
+
+
+def checkpoint_phase(cli, train_cli, ek, device) -> dict:
+    """Phase 5a: GEOM-width coarse, denoise and refine weights (seeded
+    random) saved as raw state dicts and as reference Lightning checkpoints;
+    ``sampling.cli coarse --weights``, ``assemble --denoise-weights
+    --refine-weights`` (refine checks on) and ``train.cli coarse --weights``
+    from each kind: the point sets, the trees and the trained parameters
+    bitwise equal, the coarse launches exact."""
+    from hierdiff_torch.config import load_config
+
+    t_phase = time.perf_counter()
+    launches, runs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        files = {}
+        for stage in ("coarse", "denoise", "refine"):
+            cfg = load_config(None)
+            cfg.stage = stage
+            sd = {k: v.cpu() for k, v in
+                  train_cli.initial_model(cfg, device, init_seed=SEED).state_dict().items()}
+            files[stage] = {"raw": tmp / f"{stage}.pt", "lightning": tmp / f"{stage}.ckpt"}
+            torch.save(sd, files[stage]["raw"])
+            torch.save(lightning_checkpoint(sd, stage), files[stage]["lightning"])
+        try:
+            torch.load(files["coarse"]["lightning"], map_location="cpu", weights_only=True)
+            fail("5a: the weights-only unpickler took the Lightning checkpoint's "
+                 "hyper_parameters: the loader's fallback is not exercised")
+        except pickle.UnpicklingError:
+            pass
+        for kind in ("raw", "lightning"):
+            run = {}
+            ek.reset_launch_counts()
+            cli.main(["coarse", "--weights", str(files["coarse"][kind]), "--num", str(CKPT_NUM),
+                      "--batch-size", str(CKPT_NUM), "--steps", str(CKPT_STEPS),
+                      "--max-nodes", str(CKPT_MAX_NODES), "--seed", str(SEED),
+                      "--out", str(tmp / f"coarse-{kind}.pkl")])
+            torch.cuda.synchronize()
+            launches[f"ckpt_sample_{kind}"] = dict(ek.launch_counts)
+            with open(tmp / f"coarse-{kind}.pkl", "rb") as f:
+                run["samples"] = pickle.load(f)[0]
+            ek.reset_launch_counts()
+            asm = cli.main(["assemble", "--coarse-pkl", str(tmp / "coarse-raw.pkl"),
+                            "--denoise-weights", str(files["denoise"][kind]),
+                            "--refine-weights", str(files["refine"][kind]),
+                            "--out", str(tmp / f"trees-{kind}.pkl")])
+            torch.cuda.synchronize()
+            launches[f"ckpt_assemble_{kind}"] = dict(ek.launch_counts)
+            run["trees"] = asm["trees"]
+            run["checks"] = asm["sampler"].refine_hook.stats["score_calls"]
+            ek.reset_launch_counts()
+            tr = train_cli.main(["coarse", "--weights", str(files["coarse"][kind]),
+                                 f"train.workdir={tmp}/train-{kind}", "train.batch_size=32",
+                                 "train.num_train_trees=128", f"train.max_steps={CKPT_TRAIN_STEPS}",
+                                 "train.log_every=1", "train.eval_every=1000",
+                                 "train.checkpoint_every=1000", f"train.seed={SEED}"])
+            torch.cuda.synchronize()
+            launches[f"ckpt_train_{kind}"] = dict(ek.launch_counts)
+            run["params"] = {k: v.cpu() for k, v in tr["trainer"].state.model.state_dict().items()}
+            run["steps_per_sec"] = tr["steps_per_sec"]
+            runs[kind] = run
+    raw, pl = runs["raw"], runs["lightning"]
+    samples_equal = len(raw["samples"]) == CKPT_NUM and all(
+        np.array_equal(a["x"], b["x"]) and np.array_equal(a["h"], b["h"])
+        for a, b in zip(raw["samples"], pl["samples"]))
+    trees_equal = same_trees(raw["trees"], pl["trees"])
+    params_differ = sorted(k for k, v in raw["params"].items()
+                           if not torch.equal(v, pl["params"][k]))
+    sample_expect = {"fused_gcl": (CKPT_STEPS + 1) * 12, "fused_coord_update": (CKPT_STEPS + 1) * 6,
+                     "fused_gcl_bwd": 0, "coord_update_autograd": 0}
+    train_expect = {"fused_gcl": CKPT_TRAIN_STEPS * 12, "fused_gcl_bwd": CKPT_TRAIN_STEPS * 12,
+                    "coord_update_autograd": CKPT_TRAIN_STEPS * 6, "fused_coord_update": 0}
+    zero = dict.fromkeys(sample_expect, 0)
+    expect = {f"ckpt_{path}_{kind}": want for kind in ("raw", "lightning")
+              for path, want in (("sample", sample_expect), ("assemble", zero),
+                                 ("train", train_expect))}
+    out = {"samples_equal": samples_equal, "trees_equal": trees_equal,
+           "params_differ": params_differ, "refine_checks": [raw["checks"], pl["checks"]],
+           "train_steps_per_sec": [raw["steps_per_sec"], pl["steps_per_sec"]],
+           "launches": launches, "phase_seconds": time.perf_counter() - t_phase}
+    print(f"5a: reference Lightning checkpoints (state_dict, model. prefix, hyper_parameters, "
+          f"skipped buffers) against raw state dicts, GEOM width: coarse --weights {CKPT_NUM} "
+          f"point sets of <= {CKPT_MAX_NODES} nodes at {CKPT_STEPS} steps bitwise {samples_equal}; "
+          f"assemble --denoise-weights --refine-weights trees bitwise {trees_equal} (refine checks "
+          f"{out['refine_checks']}); train.cli coarse --weights, {CKPT_TRAIN_STEPS} steps: "
+          f"parameters that differ {params_differ}; launches {launches}; "
+          f"{out['phase_seconds']:.1f} s")
+    if not (samples_equal and trees_equal) or params_differ:
+        fail(f"5a: a Lightning checkpoint gave other results than its raw state dict: {out}")
+    if raw["checks"] == 0 or raw["checks"] != pl["checks"]:
+        fail(f"5a: the refine model checked no tree, or not the same ones: {out['refine_checks']}")
+    if launches != expect:
+        fail(f"5a: launch counts {launches} != {expect}")
+    return out
+
+
+def grad_margin(card: dict, cpu: dict, cpu_rev: dict) -> dict:
+    """``card_against_cpu``'s margin rule on gradients by name (double CPU
+    tensors): the card's, the CPU's, and the CPU's with the batch in reverse
+    order. A parameter that the reversal moves by ``ROUNDING_SHARE`` of its
+    size or more is at rounding level and not held to the CPU; the others
+    get a relative L2 error each; the global one covers all."""
+    diff2 = {k: float(((card[k] - cpu[k]) ** 2).sum()) for k in cpu}
+    ref2 = {k: float((cpu[k] ** 2).sum()) for k in cpu}
+    moved = {k: math.sqrt(float(((cpu_rev[k] - cpu[k]) ** 2).sum()) / ref2[k]) if ref2[k] > 0
+             else math.inf for k in cpu}
+    rounding = {k: {"cpu_l2": math.sqrt(ref2[k]), "moved_by_reversal": moved[k],
+                    "card_l2": float(card[k].norm())}
+                for k in cpu if not moved[k] < ROUNDING_SHARE}
+    per = {k: math.sqrt(diff2[k] / ref2[k]) for k in cpu if k not in rounding}
+    glob = math.sqrt(sum(diff2.values()) / sum(ref2.values()))
+    missing = sorted(k for k, v in card.items() if not torch.isfinite(v).all()
+                     or (k not in rounding and not v.abs().max() > 0))
+    return {"per": per, "rounding": rounding, "global": glob, "missing": missing}
+
+
+def margin_check(what: str, card_fn, cpu_fn, rev_fn, out_err: float, device_ms: float,
+                 wall_ms: float, f64_fn=None) -> dict:
+    """Gradients of the card run (twice, bitwise) against the CPU's under
+    ``grad_margin``, and with ``f64_fn`` both against the CPU's in float64;
+    prints one line and returns the report."""
+    first, second = card_fn(), card_fn()
+    repeat = [k for k in first if not torch.equal(first[k], second[k])]
+    cpu = cpu_fn()
+    m = grad_margin(first, cpu, rev_fn())
+    worst = max(m["per"], key=m["per"].get)
+    report = {"global_rel_l2": m["global"], "worst_tensor": worst,
+              "worst_rel_l2": m["per"][worst], "rounding_level": m["rounding"],
+              "missing": m["missing"], "not_repeated": repeat, "output_rel_err": out_err,
+              "device_ms": device_ms, "wall_ms": wall_ms}
+    exact = ""
+    if f64_fn is not None:
+        ref = f64_fn()
+        for name, got in (("card_vs_f64", first), ("cpu_vs_f64", cpu)):
+            report[name] = grad_margin(got, ref, ref)["global"]
+        exact = (f"; against the CPU in float64: card {report['card_vs_f64']:.3e}, CPU f32 "
+                 f"{report['cpu_vs_f64']:.3e}")
+    report["ok"] = (m["global"] < 2e-2 and m["per"][worst] < 2e-2 and not m["missing"]
+                    and not repeat and out_err < 2e-2 and report.get("card_vs_f64", 0.0) < 2e-2)
+    print(f"5b: {what}: output relative error card vs CPU {out_err:.3e}; gradients: global "
+          f"relative L2 {m['global']:.3e} (bar 2e-2), worst tensor {worst} {m['per'][worst]:.3e}, "
+          f"at rounding level {sorted(m['rounding'])}, without a gradient {m['missing']}, not "
+          f"bitwise on a second backward {repeat}{exact}; forward+backward {device_ms:.3f} device "
+          f"ms (torch.profiler, CUDA activity), {wall_ms:.3f} ms wall")
+    return report
+
+
+def fwd_bwd_ms(step, reps: int = 3) -> tuple:
+    """(device ms, wall ms) per forward+backward ``step()``: the device's
+    CUDA activity under torch.profiler, and the host clock around
+    synchronised reps."""
+    step()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    return profiled_device_ms(prof) / reps, wall
+
+
+def jtnn_phase(device) -> dict:
+    """Phase 5b: the JT-VAE stack at the JAX package's defaults (vocab 780,
+    hidden 450, latent 56, MPN depth 3). The encoder and the teacher-forced
+    decoder on JT_TREES synthetic GEOM trees of at most JT_MAX_NODES nodes
+    (the root vectors feed the decoder through a fixed random projection,
+    the reference's T_mean linear), forward and backward of the decoder's
+    loss plus the mean squared messages; MPN and JTMPN (with a seeded tree
+    message on every bond) on ``mol2graph_dense`` of MPN_MOLECULES harness
+    molecules, featurised with the harness in place for that call only.
+    Each is held card against CPU under 4c's margin rule (the tree model's
+    gradients also against the CPU's in float64), its gradients repeat
+    bitwise, and its forward+backward time is printed."""
+    from hierdiff_torch.chem import has_rdkit
+    from hierdiff_torch.data.synthetic import SyntheticTreeGenerator
+    from hierdiff_torch.models import jtnn
+    from hierdiff_torch.utils.weights import init_weights
+
+    t_phase = time.perf_counter()
+    torch.set_grad_enabled(True)
+    gen = SyntheticTreeGenerator(seed=SEED)
+    trees = [gen.sample_tree(min(gen.sample_count(), JT_MAX_NODES)) for _ in range(JT_TREES)]
+    n = max(t.adj.shape[0] for t in trees)
+    adj = np.zeros((JT_TREES, n, n), np.float32)
+    wids = np.zeros((JT_TREES, n), np.int64)
+    nm = np.zeros((JT_TREES, n, 1), np.float32)
+    for i, t in enumerate(trees):
+        k = t.adj.shape[0]
+        adj[i, :k, :k], wids[i, :k], nm[i, :k] = t.adj, t.wids, 1.0
+    trace = jtnn.collate_traces([t.adj for t in trees], n)
+    g = torch.Generator().manual_seed(SEED)
+    proj = torch.randn(JT_HIDDEN, JT_LATENT, generator=g) / math.sqrt(JT_HIDDEN)
+    cpu = torch.device("cpu")
+    enc = init_weights(jtnn.JTNNEncoder(JT_VOCAB, JT_HIDDEN, device=cpu), g)
+    dec = init_weights(jtnn.JTNNDecoder(JT_VOCAB, JT_HIDDEN, JT_LATENT, device=cpu), g)
+    # where -> (encoder, decoder, device, float type)
+    models = {"card": (copy.deepcopy(enc).to(device), copy.deepcopy(dec).to(device), device,
+                       torch.float32),
+              "cpu": (enc, dec, cpu, torch.float32),
+              "cpu_f64": (copy.deepcopy(enc).double(), copy.deepcopy(dec).double(), cpu,
+                          torch.float64)}
+
+    def put(a, dev, dt=torch.float32):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return t.to(dt) if t.is_floating_point() else t
+
+    def tree_loss(where, order=slice(None)):
+        e, d, dev, dt = models[where]
+        w, m = put(wids[order], dev), put(nm[order], dev, dt)
+        up, down, root = e(w, put(adj[order], dev, dt), m)
+        out = d(w, m, {k: put(v[:, order], dev, dt) for k, v in trace.items()},
+                root @ proj.to(dev, dt))
+        return out["loss"] + up.square().mean() + down.square().mean(), out
+
+    def grads(where, fn, params, order=slice(None)):
+        for p in params[where].values():
+            p.grad = None
+        fn(where, order)[0].backward()
+        return {k: p.grad.detach().double().cpu() for k, p in params[where].items()}
+
+    tree_params = {where: {f"enc.{k}": p for k, p in models[where][0].named_parameters()}
+                   | {f"dec.{k}": p for k, p in models[where][1].named_parameters()}
+                   for where in models}
+    rev = np.arange(JT_TREES)[::-1].copy()
+    with torch.no_grad():
+        loss_card, out_card = tree_loss("card")
+        loss_cpu, out_cpu = tree_loss("cpu")
+    out_err = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+    dev_ms, wall_ms = fwd_bwd_ms(lambda: tree_loss("card")[0].backward())
+    report = {"trees": JT_TREES, "max_nodes": n, "trace_steps": int(trace["active"].shape[0]),
+              "losses_card": {k: float(v) for k, v in out_card.items()},
+              "losses_cpu": {k: float(v) for k, v in out_cpu.items()}}
+    report["tree"] = margin_check(
+        f"JTNNEncoder + JTNNDecoder (vocab {JT_VOCAB}, hidden {JT_HIDDEN}, latent {JT_LATENT}) "
+        f"on {JT_TREES} trees of <= {n} nodes, {report['trace_steps']} trace steps; losses card "
+        f"{report['losses_card']}",
+        lambda: grads("card", tree_loss, tree_params),
+        lambda: grads("cpu", tree_loss, tree_params),
+        lambda: grads("cpu", tree_loss, tree_params, rev), out_err, dev_ms, wall_ms,
+        f64_fn=lambda: grads("cpu_f64", tree_loss, tree_params))
+
+    fake = install_harness()
+    try:
+        graph = jtnn.mol2graph_dense(list(HARNESS_SMILES[:MPN_MOLECULES]))
+    finally:
+        fake.uninstall()
+    if has_rdkit():
+        fail("5b: the fake-RDKit harness stayed installed after the featurisation")
+    a = graph["fatoms"].shape[1]
+    seed = (torch.randn(MPN_MOLECULES, a, a, JT_HIDDEN, generator=g) * 0.1
+            * torch.from_numpy(graph["bond_mask"])[..., None])
+    for name, cls, extra in (("MPN", jtnn.MPN, None), ("JTMPN", jtnn.JTMPN, seed)):
+        base = init_weights(cls(JT_HIDDEN, 3, device=cpu), g)
+        mods = {"card": (copy.deepcopy(base).to(device), device), "cpu": (base, cpu)}
+
+        def mpn_out(where, order=slice(None)):
+            mod, dev = mods[where]
+            rows = order if isinstance(order, slice) else torch.from_numpy(order)
+            args = () if extra is None else (extra[rows].contiguous().to(dev),)
+            vec = mod({k: put(v[order], dev) for k, v in graph.items()}, *args)
+            return vec.square().sum(), vec
+
+        params = {where: dict(mods[where][0].named_parameters()) for where in mods}
+        with torch.no_grad():
+            vec_card, vec_cpu = mpn_out("card")[1].cpu(), mpn_out("cpu")[1]
+        out_err = rel_err(vec_card, vec_cpu)[1]
+        dev_ms, wall_ms = fwd_bwd_ms(lambda: mpn_out("card")[0].backward())
+        report[name] = margin_check(
+            f"{name} (hidden {JT_HIDDEN}, depth 3) on {MPN_MOLECULES} harness molecules of <= {a} "
+            "atoms" + (", a tree message on every bond" if extra is not None else ""),
+            lambda: grads("card", mpn_out, params),
+            lambda: grads("cpu", mpn_out, params),
+            lambda: grads("cpu", mpn_out, params, np.arange(MPN_MOLECULES)[::-1].copy()),
+            out_err, dev_ms, wall_ms)
+    report["phase_seconds"] = time.perf_counter() - t_phase
+    bad = [k for k in ("tree", "MPN", "JTMPN") if not report[k]["ok"]]
+    if bad:
+        fail(f"5b: the JT-VAE stack on the card: {bad} over the bar or not repeatable: "
+             f"{ {k: report[k] for k in bad} }")
+    return report
+
+
+def chem_tools_phase(train_cli, ek, device) -> dict:
+    """Phase 5c, under the fake-RDKit harness: ``mff_rmsd`` on the
+    HARNESS_SMILES molecules (each ``base_rmsd`` finite, each molecule at
+    RMSD 0 from itself, the first tree's reconstruction lifted to a finite
+    conformer); ``preprocess.process_sdf`` on an SDF of them (over the
+    vocabulary of their own fragments: the harness's canonical SMILES are
+    not the real vocabulary's), every tree written, read back by
+    ``load_tree_pool`` equal to ``featurize_tree``'s arrays, and one
+    ``train.cli denoise`` step at GEOM width on those trees."""
+    from hierdiff_torch.chem import mff_rmsd, preprocess
+    from hierdiff_torch.chem.mol_tree import MolTree
+    from hierdiff_torch.chem.reconstruct import TreeReconstructor
+    from hierdiff_torch.config import load_config
+    from hierdiff_torch.tools import chem_check
+    from hierdiff_torch.train.data_iters import load_tree_pool
+
+    t_phase = time.perf_counter()
+    install_harness()
+    from rdkit import Chem
+
+    world = chem_check.mini_world(HARNESS_SMILES)
+    vocab, mols = world["vocab"], world["mols"]
+    rmsd = [mff_rmsd.base_rmsd(m, vocab) for m in mols]
+    self_rmsd = max(max(mff_rmsd.tree_center_rmsd(m, m, vocab), mff_rmsd.mol_rmsd(m, m))
+                    for m in mols)
+    tree = MolTree(mols[0], vocab=vocab)
+    mol, amap, _ = TreeReconstructor(vocab).reconstruct(tree)
+    lifted = mff_rmsd.set_rmsd(mol, amap[1: len(tree.nodes) + 1], tree)
+    lift_ok = lifted is not None and bool(np.isfinite(lifted.GetConformer().GetPositions()).all())
+    rmsd_ok = all(r is not None and math.isfinite(r["tree"]) and math.isfinite(r["mol"])
+                  for r in rmsd)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        sdf = tmp / "mols.sdf"
+        sdf.write_text("".join(Chem.MolToMolBlock(m) + "$$$$\n" for m in mols))
+        real_vocab = preprocess.Vocab
+        preprocess.Vocab = lambda: vocab
+        try:
+            preprocess.process_sdf(str(sdf), str(tmp / "trees"))
+        finally:
+            preprocess.Vocab = real_vocab
+        pool = load_tree_pool(load_config(None, [f"train.data={tmp / 'trees'}"]))
+        # the SDF holds coordinates to 4 decimals: positions within 1e-4, the rest exact
+        want = [preprocess.featurize_tree(t, vocab) for t in world["trees"]]
+        read_back = len(pool) == len(mols) and all(
+            np.array_equal(t.feats, w[0]) and float(np.abs(t.pos - w[1]).max()) < 1e-4
+            and np.array_equal(t.adj, w[2]) and np.array_equal(t.wids, w[3])
+            and np.array_equal(t.sizes, w[4]) for t, w in zip(pool, want))
+        ek.reset_launch_counts()
+        run = train_cli.main(["denoise", "--config", fine_config("denoise"), "--init-seed", "0",
+                              f"train.workdir={tmp / 'run'}", f"train.data={tmp / 'trees'}",
+                              "train.batch_size=8", "train.max_steps=1", "train.log_every=1",
+                              "train.eval_every=1000", "train.checkpoint_every=1000",
+                              f"train.seed={SEED}"])
+        torch.cuda.synchronize()
+        launches = dict(ek.launch_counts)
+        with open(tmp / "run" / "metrics.csv") as f:
+            rows = [r for r in csv.DictReader(f) if r["split"] == "train"]
+    values = [float(v) for r in rows for k, v in r.items() if k not in ("step", "split")]
+    out = {"molecules": len(mols), "base_rmsd": rmsd, "self_rmsd_max": self_rmsd,
+           "lift_finite": lift_ok, "trees_written": len(pool), "read_back_equal": read_back,
+           "denoise_step": {"steps": run["steps"], "first_row": rows[0] if rows else None},
+           "launches": launches, "phase_seconds": time.perf_counter() - t_phase}
+    print(f"5c ({HARNESS}): mff_rmsd on {len(mols)} molecules, base_rmsd finite {rmsd_ok} "
+          f"(tree {min(r['tree'] for r in rmsd):.4g} .. {max(r['tree'] for r in rmsd):.4g}, mol "
+          f"{min(r['mol'] for r in rmsd):.4g} .. {max(r['mol'] for r in rmsd):.4g}), largest "
+          f"RMSD of a molecule to itself {self_rmsd:.3g}, set_rmsd lift finite {lift_ok}; "
+          f"process_sdf wrote {len(pool)} trees, read back by load_tree_pool equal {read_back}; "
+          f"train.cli denoise 1 step on them: {rows[0] if rows else None}, coarse launches "
+          f"{launches}; {out['phase_seconds']:.1f} s")
+    if not (rmsd_ok and lift_ok and self_rmsd < 1e-9 and read_back):
+        fail(f"5c: the chemistry tools under the harness: {out}")
+    if len(rows) != 1 or not all(map(math.isfinite, values)) or any(launches.values()):
+        fail(f"5c: the denoise step on the preprocessed trees: {out}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--parent", type=Path, default=None,
@@ -3651,7 +4050,14 @@ def main() -> None:
         trained_assemble = trained_assemble_phase(
             cli, coarse_pkl, {stage: Path(fine_tmp) / stage / "ema.pt" for stage in fine_train})
 
-    # ---- 4n-4q. the assembly gate, reconstruction and evaluation (fake-RDKit harness)
+    # ---- 5a. reference Lightning checkpoints through the weight flags
+    checkpoints = checkpoint_phase(cli, train_cli, ek, device)
+    # ---- 5b. the JT-VAE stack on the card
+    jtnn_report = jtnn_phase(device)
+
+    # ---- 4n-4q. the assembly gate, reconstruction and evaluation (fake-RDKit
+    # harness), then 5c: the chemistry tools under it; the harness stays
+    # installed, so these run last
     tagged = HarnessLines(sys.stdout)
     try:
         with contextlib.redirect_stdout(tagged):
@@ -3659,10 +4065,11 @@ def main() -> None:
             generated_gated = gated_generate_phase(cli, ek)
             reconstructed = reconstruct_eval_phase(cli, generated_gated)
             gated_refine = gated_refine_phase(cli, coarse_pkl)
+            chem_tools = chem_tools_phase(train_cli, ek, device)
     finally:
         tagged.flush()
 
-    # ---- 5. kernel list
+    # ---- 6. kernel list
     bounds = {"fused_gcl": bound(gcl_flops, gcl_sfu, gcl_bytes, sm_clock_hz, n_sms),
               "fused_coord_update": bound(coord_flops, coord_sfu, coord_bytes, sm_clock_hz, n_sms),
               "fused_gcl_bwd": bwd_bound}
@@ -3688,7 +4095,8 @@ def main() -> None:
              "train_remat": remat["train_cli"]["both"]["launches"],
              "train_remat_off": remat["train_cli"]["off"]["launches"],
              "train_dp": dp["train_dp_launches"], "generate_dp": dp["generate_dp_launches"],
-             "dryrun_dp": dp["dryrun_dp_launches"]}
+             "dryrun_dp": dp["dryrun_dp_launches"], **checkpoints["launches"],
+             "train_denoise_preprocessed": chem_tools["launches"]}
     kernels = []
     for name, runs in results.items():
         main_run = runs[0]   # random weights, attention on, f32: the main path's variant
@@ -3714,7 +4122,8 @@ def main() -> None:
         "generate_gated": generated_gated["stats"], "reconstruct_eval": reconstructed,
         "assemble_gated_refine": gated_refine, "train_pocket": pocket_train,
         "sample_pocket": pocket_sample, "assemble_fine_bf16": fine_bf16, "allowed": allowed,
-        "remat": remat, "data_parallel": dp["report"]}))
+        "remat": remat, "data_parallel": dp["report"], "checkpoints": checkpoints,
+        "jtnn": jtnn_report, "chem_tools": chem_tools}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -28,11 +28,13 @@ reconstruction to molecules and the pipeline from a histogram to molecules.
         --denoise-init-seed 0 --refine-init-seed 0
 
 Weights come from a ``.pt`` or ``.npz`` state dict in the reference layout
-(``utils/weights.py``) or from a seed (``--init-seed`` for the coarse model,
-``--denoise-init-seed`` for the edge-denoise model, ``--refine-init-seed``
-for the refine model). The JAX package's Orbax workdirs need JAX to read;
-convert them with ``state_dict_from_flax`` / ``denoise_state_dict_from_flax``
-/ ``refine_state_dict_from_flax`` first. The models are the GEOM
+(``utils/weights.py``; a reference PyTorch-Lightning checkpoint loads as
+it is, ``model.`` prefix, ``hyper_parameters`` and all) or from a seed
+(``--init-seed`` for the coarse model, ``--denoise-init-seed`` for the
+edge-denoise model, ``--refine-init-seed`` for the refine model). The JAX
+package's Orbax workdirs need JAX to read; convert them with
+``state_dict_from_flax`` / ``denoise_state_dict_from_flax`` /
+``refine_state_dict_from_flax`` first. The models are the GEOM
 configurations unless ``k=v`` overrides (``denoise.hidden_nf=32``) say
 otherwise; ``generate``'s coarse model runs f32 elementwise, as ``coarse``
 does by default. Runs on CUDA unless ``--device``
@@ -77,8 +79,9 @@ from hierdiff_torch.sampling.coarse import (make_masks_for_counts, sample_coarse
 from hierdiff_torch.sampling.pipeline import (GenerationPipeline, build_fine_sampler,
                                               round_int_features)
 from hierdiff_torch.sampling.refine_hook import RefineHook
+from hierdiff_torch.utils.cache import enable_compilation_cache
 from hierdiff_torch.utils.device import resolve_device
-from hierdiff_torch.utils.weights import init_weights
+from hierdiff_torch.utils.weights import init_weights, load_weights
 
 
 def build_coarse_from_cfg(cfg: CoarseModelConfig, compute_dtype=None,
@@ -126,14 +129,6 @@ def build_refine_from_cfg(cfg: RefineConfig, device=None) -> NodeRefine:
                       ).to(resolve_device(device)).eval()
 
 
-def load_state(path: str) -> dict:
-    """State dict from a ``.pt`` (torch.save) or ``.npz`` file."""
-    if path.endswith(".npz"):
-        with np.load(path) as data:
-            return {k: torch.from_numpy(data[k]) for k in data.files}
-    return torch.load(path, map_location="cpu", weights_only=True)
-
-
 def load_pocket(pdb: str, center: str, radius: float) -> dict:
     """The residues of ``pdb`` within ``radius`` of the site centre ``center``
     ("x,y,z"), collated as one pocket (numpy). (reference:
@@ -157,12 +152,7 @@ def cmd_coarse(args) -> dict:
     device = resolve_device(args.device)
     cfg = load_coarse_config(args.config)
     model = build_coarse_from_cfg(cfg, "bfloat16" if args.bf16 else "float32", device)
-    if args.weights:
-        model.load_state_dict(load_state(args.weights), strict=True)
-    elif args.init_seed is not None:
-        init_weights(model, torch.Generator().manual_seed(args.init_seed))
-    else:
-        raise SystemExit("coarse: pass --weights or --init-seed")
+    _weights(model, "coarse", args.weights, args.init_seed, "--weights or --init-seed")
 
     pocket = None
     if args.pocket_pdb:
@@ -205,10 +195,11 @@ def cmd_coarse(args) -> dict:
     return {"batches": batches, "seconds": seconds, "molecules": len(results)}
 
 
-def _weights(model, path: str, seed: Optional[int], flags: str):
-    """Load ``path`` into ``model``, or give it random weights from ``seed``."""
+def _weights(model, stage: str, path: str, seed: Optional[int], flags: str):
+    """Load ``path`` into ``model``, the ``stage`` model, or give it random
+    weights from ``seed``."""
     if path:
-        model.load_state_dict(load_state(path), strict=True)
+        load_weights(model, path, stage)
     elif seed is not None:
         init_weights(model, torch.Generator().manual_seed(seed))
     else:
@@ -228,7 +219,7 @@ def _fine_stage_setup(args, device):
     cfg = load_config(None, args.overrides)
     denoise = _weights(build_denoise_from_cfg(cfg.denoise, device,
                                               "bfloat16" if args.fine_bf16 else None),
-                       args.denoise_weights, args.denoise_init_seed,
+                       "denoise", args.denoise_weights, args.denoise_init_seed,
                        "--denoise-weights or --denoise-init-seed")
     buckets = DEFAULT_BUCKETS if args.default_buckets else SAMPLING_BUCKETS
     vocab, gate = None, None
@@ -239,8 +230,9 @@ def _fine_stage_setup(args, device):
         gate = make_assembly_gate(vocab)
     hook = None
     if args.refine_weights or args.refine_init_seed is not None:
-        refine = _weights(build_refine_from_cfg(cfg.refine, device), args.refine_weights,
-                          args.refine_init_seed, "--refine-weights or --refine-init-seed")
+        refine = _weights(build_refine_from_cfg(cfg.refine, device), "refine",
+                          args.refine_weights, args.refine_init_seed,
+                          "--refine-weights or --refine-init-seed")
         sizes = vocab.mol_sizes if vocab is not None else vocab_mol_sizes()
         hook = RefineHook(refine, np.asarray(sizes), can_assemble=gate, buckets=buckets)
     return cfg, denoise, buckets, hook, vocab, gate
@@ -343,7 +335,7 @@ def cmd_generate(args) -> dict:
     device = resolve_device(args.device)
     cfg, denoise, buckets, hook, vocab, gate = _fine_stage_setup(args, device)
     coarse = _weights(build_coarse_from_cfg(cfg.coarse, "float32", device),
-                      args.weights, args.init_seed, "--weights or --init-seed")
+                      "coarse", args.weights, args.init_seed, "--weights or --init-seed")
     pipe = GenerationPipeline(coarse, denoise, histogram=load_histogram(cfg.coarse.dataset),
                               beam_size=args.beam, int_nf=cfg.coarse.int_nf,
                               max_n_cap=args.max_nodes or None,
@@ -411,7 +403,8 @@ def build_parser() -> argparse.ArgumentParser:
     pc = sub.add_parser("coarse", help="stage-1 blurred point sets")
     pc.add_argument("--config", default="",
                     help="YAML in the JAX package's format (default: GEOM config)")
-    pc.add_argument("--weights", default="", help=".pt or .npz state dict")
+    pc.add_argument("--weights", default="",
+                    help=".pt or .npz state dict, or a reference Lightning checkpoint")
     pc.add_argument("--init-seed", type=int, default=None,
                     help="random weights from this seed instead of --weights")
     pc.add_argument("--num", type=int, default=64)
@@ -436,11 +429,13 @@ def build_parser() -> argparse.ArgumentParser:
     pc.set_defaults(fn=cmd_coarse)
 
     def fine_args(sp, out: str) -> None:
-        sp.add_argument("--denoise-weights", default="", help=".pt or .npz state dict")
+        sp.add_argument("--denoise-weights", default="",
+                        help=".pt or .npz state dict, or a reference Lightning checkpoint")
         sp.add_argument("--denoise-init-seed", type=int, default=None,
                         help="random edge-denoise weights from this seed")
         sp.add_argument("--refine-weights", default="",
-                        help="refine .pt or .npz state dict: check the beam's trees with it")
+                        help="refine .pt or .npz state dict, or a reference Lightning "
+                             "checkpoint: check the beam's trees with it")
         sp.add_argument("--refine-init-seed", type=int, default=None,
                         help="random refine weights from this seed")
         sp.add_argument("--beam", type=int, default=5)
@@ -469,7 +464,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     pg = sub.add_parser("generate", help="histogram -> coarse point sets -> junction trees "
                                          "-> molecules (with RDKit)")
-    pg.add_argument("--weights", default="", help="coarse .pt or .npz state dict")
+    pg.add_argument("--weights", default="",
+                    help="coarse .pt or .npz state dict, or a reference Lightning checkpoint")
     pg.add_argument("--init-seed", type=int, default=None,
                     help="random coarse weights from this seed")
     pg.add_argument("--num", type=int, default=64)
@@ -496,6 +492,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[list] = None):
+    enable_compilation_cache()
     args = build_parser().parse_args(argv)
     if getattr(args, "data_parallel", False):
         args.device, spawned = mesh.run_cli_ranks(main, argv, resolve_device(args.device))

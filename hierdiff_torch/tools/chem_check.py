@@ -38,10 +38,11 @@ RECONSTRUCTED_FAKE = (
 )
 
 
-def mini_world() -> dict:
-    """The six molecules (embedded), the sorted fragments of their
-    decompositions, a ``Vocab`` over those fragments (property rows
-    [1, 2, 0.5, heavy atoms, 0.3]) and each molecule's ``MolTree``."""
+def mini_world(smiles=TEST_SMILES) -> dict:
+    """The molecules of ``smiles`` (default the six; embedded), the sorted
+    fragments of their decompositions, a ``Vocab`` over those fragments
+    (property rows [1, 2, 0.5, heavy atoms, 0.3]) and each molecule's
+    ``MolTree``."""
     from rdkit import Chem
     from rdkit.Chem import AllChem
 
@@ -49,7 +50,7 @@ def mini_world() -> dict:
     from hierdiff_torch.chem.mol_tree import MolTree, Vocab
 
     mols = []
-    for s in TEST_SMILES:
+    for s in smiles:
         m = get_mol(s)
         AllChem.EmbedMolecule(m)
         mols.append(m)

@@ -14,9 +14,11 @@ train_edge_denoise_pl.py and train_refine_pl.py). The configuration is the
 GEOM default (``config.py``), a YAML file in the JAX package's format, and
 dotted overrides such as ``train.max_steps=20``. Weights start from the JAX
 package's initialisers with ``--init-seed`` (default ``train.seed``) or from
-a state dict (``--weights``, ``.pt`` or ``.npz``). Runs on CUDA unless
+a state dict (``--weights``, ``.pt`` or ``.npz``, or a reference Lightning
+checkpoint of the stage's model). Runs on CUDA unless
 ``--device`` says otherwise; trains from the stream's second batch, as the
-JAX CLI does (it spends the first on ``model.init``); resumes from the
+JAX CLI does (it spends the first on ``model.init``); prints the
+configuration (``utils/log.print_config``) on rank 0; resumes from the
 workdir's latest checkpoint;
 evaluates on ``EVAL_BATCHES`` batches drawn from ``train.seed + 1``; prints
 steps/s and molecules/s (coarse) or trees/s (denoise, refine) at the end,
@@ -49,13 +51,15 @@ from hierdiff_torch.config import load_config
 from hierdiff_torch.parallel.mesh import in_group, run_cli_ranks, world
 from hierdiff_torch.parallel.train_step import Metric, Ratio
 from hierdiff_torch.sampling.cli import (build_coarse_from_cfg, build_denoise_from_cfg,
-                                         build_refine_from_cfg, load_state)
+                                         build_refine_from_cfg)
 from hierdiff_torch.train.data_iters import (coarse_iter, denoise_iter, finite, load_tree_pool,
                                              prefetch_to_device, refine_iter, shard_iter,
                                              to_device)
 from hierdiff_torch.train.trainer import Trainer
+from hierdiff_torch.utils.cache import enable_compilation_cache
 from hierdiff_torch.utils.device import resolve_device
-from hierdiff_torch.utils.weights import init_weights
+from hierdiff_torch.utils.log import print_config
+from hierdiff_torch.utils.weights import init_weights, load_weights
 
 EVAL_BATCHES = 4
 
@@ -95,14 +99,29 @@ BUILDERS = {
                refine_loss, refine_iter, "trees")}
 
 
+def initial_model(cfg, device, weights: str = "", init_seed: Optional[int] = None) -> nn.Module:
+    """The model of ``cfg.stage`` on ``device``, in training mode: with the
+    weights at ``weights`` (``utils/weights.load_weights``), else random
+    weights from ``init_seed`` (default ``train.seed``)."""
+    model = BUILDERS[cfg.stage][0](cfg, device).train()
+    if weights:
+        load_weights(model, weights, cfg.stage)
+    else:
+        init_weights(model, torch.Generator().manual_seed(
+            cfg.train.seed if init_seed is None else init_seed))
+    return model
+
+
 def main(argv: Optional[list] = None) -> dict:
+    enable_compilation_cache()
     parser = argparse.ArgumentParser(description="HierDiff training (PyTorch port)")
     parser.add_argument("stage", choices=list(BUILDERS))
     parser.add_argument("--config", default=None,
                         help="YAML in the JAX package's format (default: GEOM config)")
     parser.add_argument("--init-seed", type=int, default=None,
                         help="seed of the initial weights (default train.seed)")
-    parser.add_argument("--weights", default="", help="initial .pt or .npz state dict")
+    parser.add_argument("--weights", default="",
+                        help="initial .pt or .npz state dict, or a reference Lightning checkpoint")
     parser.add_argument("--device", default=None, help="torch device (default cuda)")
     parser.add_argument("--find-lr", action="store_true",
                         help="LR sweep instead of training (writes lr_find.csv)")
@@ -124,16 +143,13 @@ def main(argv: Optional[list] = None) -> dict:
     rank, size = world()
     cfg = load_config(args.config, args.overrides)
     cfg.stage = args.stage
+    if rank == 0:
+        print_config(cfg)
     if in_group() and rank == 0:
         print(f"data-parallel over {size} ranks ({dist.get_backend()}), global batch "
               f"{cfg.train.batch_size}", flush=True)
-    build, loss_fn, make_iter, unit = BUILDERS[args.stage]
-    model = build(cfg, device).train()
-    if args.weights:
-        model.load_state_dict(load_state(args.weights), strict=True)
-    else:
-        seed = cfg.train.seed if args.init_seed is None else args.init_seed
-        init_weights(model, torch.Generator().manual_seed(seed))
+    _, loss_fn, make_iter, unit = BUILDERS[args.stage]
+    model = initial_model(cfg, device, args.weights, args.init_seed)
 
     pool = load_tree_pool(cfg, seed=cfg.train.seed)
     # the batches each packer made (denoise: native C++ or the Python collator)

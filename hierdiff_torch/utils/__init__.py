@@ -1,0 +1,1 @@
+from hierdiff_torch.utils.profiling import profile_trace, timed  # noqa: F401

@@ -9,12 +9,24 @@ gnn backbone, the gamma network, the pocket embedding) and
 ``export_refine`` (:501). The keys are the reference DiffusionQM9,
 Edge_denoise and Node2Vec layouts, so a real reference checkpoint and a JAX
 workdir's params (as numpy arrays) both load with ``strict=True``.
+
+``load_weights`` reads either into a model: ``load_torch_checkpoint`` (the
+port's copy of ``torch_import.py:load_torch_checkpoint`` :51-75) unwraps a
+PyTorch-Lightning checkpoint's ``state_dict`` and strips its ``model.``
+prefix, and the reference's non-parameter keys (``SKIPPED_KEYS``) are dropped
+where the model holds no key of that name. ``detect_stage`` (:518) names the
+stage a state dict belongs to.
+
+``jtnn_flax_to_numpy_state`` maps the JT-VAE modules (``models/jtnn.py``);
+the JAX package exports no JT-VAE weights, so that mapping is the port's own.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+import pickle
+import re
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -167,6 +179,93 @@ def refine_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """NodeRefine flax params (numpy leaves) -> the port's state dict."""
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in refine_flax_to_numpy_state(params).items()}
+
+
+def jtnn_flax_to_numpy_state(params: Mapping) -> Dict[str, np.ndarray]:
+    """JTNNEncoder, JTNNDecoder, MPN or JTMPN flax params (numpy leaves) ->
+    the reference's jtnn_enc.py / jtnn_dec.py / mpn.py / jtmpn.py state-dict
+    layout as numpy arrays: ``embedding.weight``, the tree-GRU's ``W_z``,
+    ``W_r``, ``U_r``, ``W_h`` at the module's top level (flax nests them
+    under ``gru``), and ``W``, ``U``, ``W_o``, ``U_s``, ``W_i``, ``W_h`` as
+    linears. Accepts the params tree with or without its top-level
+    ``"params"`` key."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, np.ndarray] = {}
+    for name, p in params.items():
+        if name == "embedding":
+            out["embedding.weight"] = np.asarray(p["embedding"])
+        elif name == "gru":
+            for sub, q in p.items():
+                _linear(out, sub, q)
+        else:
+            _linear(out, name, p)
+    return out
+
+
+def jtnn_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JT-VAE flax params (numpy leaves) -> the port's state dict."""
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in jtnn_flax_to_numpy_state(params).items()}
+
+
+# Keys of the reference's checkpoints that hold no parameter of the port's
+# models (``torch_import.py:250, 271-272``): the predefined schedule's table
+# buffer, DiffusionQM9's dtype probe (diffusion_qm9.py:106) and the
+# sinusoidal distance embedding's constant frequencies.
+SKIPPED_KEYS = (r"gamma\.gamma", r"buffer", r".*sin_embedding\.frequencies")
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A ``torch.save`` file -> {key: tensor}: a raw state dict, or a
+    PyTorch-Lightning checkpoint's ``state_dict``, with one leading
+    ``model.`` stripped from each key (reference sampler.py:28-34)."""
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        # a reference checkpoint carries its hydra / easydict config in
+        # ``hyper_parameters`` (save_hyperparameters(), diffusion_qm9.py:41),
+        # which the weights-only unpickler refuses; the file is the user's
+        # own training artifact, so load it in full
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+    sd = obj.get("state_dict", obj)
+    return {k[len("model."):] if k.startswith("model.") else k: v for k, v in sd.items()}
+
+
+def load_state(path: str) -> Dict[str, torch.Tensor]:
+    """State dict from a ``.npz`` file or a ``torch.save`` file
+    (``load_torch_checkpoint``)."""
+    if path.endswith(".npz"):
+        with np.load(path) as data:
+            return {k: torch.from_numpy(data[k]) for k in data.files}
+    return load_torch_checkpoint(path)
+
+
+def detect_stage(sd: Mapping) -> Optional[str]:
+    """'coarse', 'denoise' or 'refine' for a state dict in the reference's
+    layout of that stage's model, else None."""
+    if any(k.startswith(("dynamics.egnn.", "dynamics.gnn.")) for k in sd):
+        return "coarse"
+    if any(k.startswith("gcl_full_") for k in sd):
+        return "denoise"
+    if any(k.startswith("gcl_collect") for k in sd):
+        return "refine"
+    return None
+
+
+def load_weights(model: nn.Module, path: str, stage: str) -> nn.Module:
+    """Strict-load the ``.pt`` / ``.npz`` weights at ``path`` into ``model``,
+    the ``stage`` model ('coarse', 'denoise' or 'refine'). ``SKIPPED_KEYS``
+    the model does not hold are dropped; a file of another stage raises
+    ValueError naming both."""
+    own = model.state_dict()
+    sd = {k: v for k, v in load_state(path).items()
+          if k in own or not any(re.fullmatch(p, k) for p in SKIPPED_KEYS)}
+    found = detect_stage(sd)
+    if found is not None and found != stage:
+        raise ValueError(f"{path} holds {found} weights, but the {stage} model was asked for")
+    model.load_state_dict(sd, strict=True)
+    return model
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

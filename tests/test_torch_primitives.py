@@ -182,7 +182,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "sampling.refine_hook", "tools.refine_check", "runtime", "data.denoise",
                  "data.orders", "chem", "chem.geometry", "chem.chemutils", "chem.mol_tree",
                  "chem.assemble_gate", "chem.reconstruct", "eval.metrics", "eval.cli",
-                 "tools.chem_check", "chem.pocket"):
+                 "tools.chem_check", "chem.pocket", "models.jtnn", "chem.mff_rmsd",
+                 "chem.preprocess", "utils.profiling", "utils.log", "utils.cache"):
         assert f"hierdiff_torch.{name}" in report["modules"], name
 
 
