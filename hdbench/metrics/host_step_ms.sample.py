@@ -1,0 +1,7 @@
+"""Median host wall of a profiled reverse step (its ``coarse.step`` span)."""
+
+from hdbench.metrics._spans import median_ms
+
+
+def read(ctx):
+    return median_ms(ctx, "step")

@@ -36,6 +36,12 @@ Each wrapper adds one to ``launch_counts[name]`` per kernel launch and
 nowhere else; ``coord_update_autograd`` counts the coordinate updates that
 took the plain, differentiable route (``ops/egnn.py``). ``reset_launch_counts``
 sets them all to zero.
+
+Under a profiler (``utils/profiling.py``) ``fused_gcl`` and
+``fused_coord_update`` each record a span, ``egnn.fused_gcl`` and
+``egnn.fused_coord_update``, from entry to return on either route (attrs
+``B``, ``N``, ``H`` of ``h``): the host's time in the wrapper, launch
+included.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ import torch.utils.checkpoint
 from torch import Tensor
 
 from hierdiff_torch.ops import _build
+from hierdiff_torch.utils.profiling import span
 
 launch_counts: Dict[str, int] = {"fused_gcl": 0, "fused_coord_update": 0, "fused_gcl_bwd": 0,
                                  "coord_update_autograd": 0}
@@ -559,14 +566,16 @@ def fused_gcl(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor,
     ``phase_clocks`` launches its ``-DHD_PHASE_CLOCKS`` build. When autograd
     records the call, the CUDA path runs as ``FusedGCLFunction``, whose
     backward is ``fused_gcl_bwd``."""
-    device = _device_of(h)
-    if device is None:
-        return gcl_plain(layer, h, edge_attr, edge_mask, node_mask)
-    if records_grad(layer, h, edge_attr):
-        return FusedGCLFunction.apply(layer, h, edge_attr, edge_mask, node_mask,
-                                      *gcl_parameters(layer))
-    return _launch_gcl(layer, h, edge_attr, edge_mask, node_mask, device,
-                       phase_clocks=phase_clocks)
+    shape = h.shape
+    with span("egnn.fused_gcl", B=shape[0], N=shape[1], H=shape[-1]):
+        device = _device_of(h)
+        if device is None:
+            return gcl_plain(layer, h, edge_attr, edge_mask, node_mask)
+        if records_grad(layer, h, edge_attr):
+            return FusedGCLFunction.apply(layer, h, edge_attr, edge_mask, node_mask,
+                                          *gcl_parameters(layer))
+        return _launch_gcl(layer, h, edge_attr, edge_mask, node_mask, device,
+                           phase_clocks=phase_clocks)
 
 
 class FusedGCLFunction(torch.autograd.Function):
@@ -744,21 +753,10 @@ def _launch_gcl_bwd(layer, h: Tensor, edge_attr: Tensor, edge_mask: Tensor, node
     return _split_bwd_grads(layer, grads, dh, de)
 
 
-def fused_coord_update(layer, h: Tensor, edge_attr: Tensor, coord_diff: Tensor,
-                       x: Tensor, edge_mask: Tensor, node_mask: Tensor, *,
-                       phase_clocks: bool = False) -> Tensor:
-    """One DenseEquivariantUpdate forward; positions stay float32.
-    CUDA: ``csrc/fused_coord.cu``; ``phase_clocks`` as for ``fused_gcl``.
-    On CUDA it raises when autograd would record the call: the kernel has
-    no backward, and a detached result would silently drop gradients."""
-    device = _device_of(h)
-    if device is None:
-        return coord_update_plain(layer, h, edge_attr, coord_diff, x, edge_mask, node_mask)
-    if records_grad(layer, h, edge_attr, coord_diff, x):
-        raise RuntimeError(
-            "fused_coord_update has no backward kernel (nor has the JAX package's Pallas "
-            "kernel); call it under torch.no_grad(), or use coord_update_plain when a "
-            "gradient is needed (DenseEquivariantUpdate does so)")
+def _launch_coord(layer, h: Tensor, edge_attr: Tensor, coord_diff: Tensor, x: Tensor,
+                  edge_mask: Tensor, node_mask: Tensor, device: torch.device,
+                  phase_clocks: bool = False) -> Tensor:
+    """Launch ``csrc/fused_coord.cu``."""
     b, n, hidden = h.shape
     e_nf = edge_attr.shape[-1]
     _check("h", h, (b, n, hidden), device)
@@ -780,10 +778,31 @@ def fused_coord_update(layer, h: Tensor, edge_attr: Tensor, coord_diff: Tensor,
         node_mask.data_ptr(), x.data_ptr(), w["wsrct"].data_ptr(), w["wdstt"].data_ptr(),
         w["we"].data_ptr(), w["b1"].data_ptr(), w["w2t"].data_ptr(), w["b2"].data_ptr(),
         w["whead"].data_ptr(), ptr["proj"], ptr["rowstart"], ptr["totals"], ptr["edges"],
-        ptr["heads"], ptr["agg"], out.data_ptr(), b, n, hidden, e_nf, float(layer.normalization_factor), float(layer.coords_range),
-        int(layer.tanh), int(layer.compute_dtype is torch.bfloat16), _sm_count(device),
-        stream)
+        ptr["heads"], ptr["agg"], out.data_ptr(), b, n, hidden, e_nf,
+        float(layer.normalization_factor), float(layer.coords_range), int(layer.tanh),
+        int(layer.compute_dtype is torch.bfloat16), _sm_count(device), stream)
     if err != 0:
         raise RuntimeError(f"fused_coord_update kernel launch failed: CUDA error {err}")
     launch_counts["fused_coord_update"] += 1
     return out
+
+
+def fused_coord_update(layer, h: Tensor, edge_attr: Tensor, coord_diff: Tensor,
+                       x: Tensor, edge_mask: Tensor, node_mask: Tensor, *,
+                       phase_clocks: bool = False) -> Tensor:
+    """One DenseEquivariantUpdate forward; positions stay float32.
+    CUDA: ``csrc/fused_coord.cu``; ``phase_clocks`` as for ``fused_gcl``.
+    On CUDA it raises when autograd would record the call: the kernel has
+    no backward, and a detached result would silently drop gradients."""
+    shape = h.shape
+    with span("egnn.fused_coord_update", B=shape[0], N=shape[1], H=shape[-1]):
+        device = _device_of(h)
+        if device is None:
+            return coord_update_plain(layer, h, edge_attr, coord_diff, x, edge_mask, node_mask)
+        if records_grad(layer, h, edge_attr, coord_diff, x):
+            raise RuntimeError(
+                "fused_coord_update has no backward kernel (nor has the JAX package's Pallas "
+                "kernel); call it under torch.no_grad(), or use coord_update_plain when a "
+                "gradient is needed (DenseEquivariantUpdate does so)")
+        return _launch_coord(layer, h, edge_attr, coord_diff, x, edge_mask, node_mask, device,
+                             phase_clocks=phase_clocks)

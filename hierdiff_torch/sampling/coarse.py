@@ -5,6 +5,12 @@ Port of ``hierdiff_tpu/sampling/coarse.py:sample_coarse`` and
 then the reverse steps run as a plain Python loop of
 ``CoarseDiffusion.sample_zs_stats`` calls, and a final draw from p(x | z_0).
 Batches of different molecule sizes run in lockstep through node masks.
+
+Under a profiler (``utils/profiling.py``) a chain records a
+``coarse.request`` span around all of it (attrs ``batch``, ``rows`` with
+the pocket rows, ``steps``, ``pocket_rows``) and a ``coarse.step`` span
+around each reverse step, from its gammas to the CoM projection (attr
+``k``, 1-based), holding the step's ``egnn.*`` kernel-wrapper spans.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from torch import Tensor
 
 from hierdiff_torch.models.diffusion import CoarseDiffusion, pocket_edge_mask
 from hierdiff_torch.ops.masked import combine_noise, remove_mean_with_mask
+from hierdiff_torch.utils.profiling import request_span, span
 
 
 def make_masks_for_counts(counts: np.ndarray, max_n: Optional[int] = None
@@ -110,15 +117,17 @@ def sample_coarse_pocket(model: CoarseDiffusion, node_mask: Tensor, edge_mask: T
                                      nm_cat, em_cat, t_b, None, mol_shape=n_mol)
 
     return _chain(model, node_mask, edge_mask, step_stats, generator, steps, packed, None,
-                  noise, "sample_coarse_pocket")
+                  noise, "sample_coarse_pocket", pocket_rows=protein_pos.shape[1])
 
 
 def _chain(model: CoarseDiffusion, node_mask: Tensor, edge_mask: Tensor, step_stats,
            generator: Optional[torch.Generator], steps: Optional[int], packed: bool,
-           context: Optional[Tensor], noise, name: str):
+           context: Optional[Tensor], noise, name: str, pocket_rows: int = 0):
     """The reverse chain over the molecule rows: ``step_stats(z, gamma_s,
     gamma_t, t)`` gives mu and sigma of p(z_s | z_t) for each step of
-    ``coarse_ladder``; then the draw from p(x | z_0) on the molecule rows."""
+    ``coarse_ladder``; then the draw from p(x | z_0) on the molecule rows.
+    ``pocket_rows``, the frozen rows ``step_stats`` appends, only describes
+    the request's span."""
     if noise is None and generator is None:
         raise ValueError(f"{name} needs a generator or injected noise")
     b, n = node_mask.shape[:2]
@@ -135,20 +144,22 @@ def _chain(model: CoarseDiffusion, node_mask: Tensor, edge_mask: Tensor, step_st
                               device=node_mask.device, dtype=torch.float32)
         return combine_noise(raw, node_mask, nd)
 
-    with torch.no_grad():
+    with request_span("coarse.request", batch=b, rows=n + pocket_rows, steps=n_steps,
+                      pocket_rows=pocket_rows), torch.no_grad():
         gamma_grid = model.gamma_grid()
         t_norm = (ladder.to(torch.float32) / T).to(node_mask.device)
         z = draw(0)
         for k, (t_int, s_int) in enumerate(zip(ladder[:-1].tolist(), ladder[1:].tolist()), 1):
-            gamma_s = gamma_grid[s_int].expand(b, 1)
-            gamma_t = gamma_grid[t_int].expand(b, 1)
-            t_b = t_norm[k - 1].expand(b, 1)
-            mu, sigma = step_stats(z, gamma_s, gamma_t, t_b)
-            z_new = mu + sigma * draw(k)
-            # re-project x to the CoM-free subspace every step
-            # (reference: diffusion_qm9.py:340-344)
-            zx = remove_mean_with_mask(z_new[:, :, :nd], node_mask)
-            z = torch.cat([zx, z_new[:, :, nd:]], dim=2)
+            with span("coarse.step", k=k):
+                gamma_s = gamma_grid[s_int].expand(b, 1)
+                gamma_t = gamma_grid[t_int].expand(b, 1)
+                t_b = t_norm[k - 1].expand(b, 1)
+                mu, sigma = step_stats(z, gamma_s, gamma_t, t_b)
+                z_new = mu + sigma * draw(k)
+                # re-project x to the CoM-free subspace every step
+                # (reference: diffusion_qm9.py:340-344)
+                zx = remove_mean_with_mask(z_new[:, :, :nd], node_mask)
+                z = torch.cat([zx, z_new[:, :, nd:]], dim=2)
 
         mu_x, sigma_x = model.sample_x_given_z0_stats(z, node_mask, edge_mask, context)
         xh = mu_x + sigma_x * draw(n_steps + 1)
