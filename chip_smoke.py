@@ -3630,14 +3630,14 @@ def main() -> None:
 
     def parent_rows(kernel, flag):
         """With --parent: the parent tree's kernel timed beside this one's."""
-        rows = {"kernel_shape": None, "sampler_shape": None}
+        rows = {"kernel_shape": None, "sampler_shape": None, "geom_shape": None, "pocket_shape": None}
         if args.parent is not None:
             from hierdiff_torch.tools import gcl_ab
 
             for row in gcl_ab.compare(args.parent, kernel=kernel):
                 print(f"{kernel} against the parent tree's: {json.dumps(row)}")
                 if row[flag] and row["elementwise"] == "float32":
-                    rows["kernel_shape" if row["shape"].startswith("kernel") else "sampler_shape"] = row
+                    rows[row["shape"].split()[0] + "_shape"] = row
         return rows
 
     main_gcl = init_weights(DenseGCL(H, E, normalization_factor=10.0, attention=True).to(device),

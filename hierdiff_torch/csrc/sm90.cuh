@@ -1,8 +1,10 @@
 // Hopper pieces shared by the edge kernels (fused_gcl.cu, fused_coord.cu,
 // fused_gcl_bwd.cu): the real-edge work list, wgmma on 128-byte-swizzled
 // shared memory (W2 read as is, or transposed through an MN-major
-// descriptor), the edge tile's metadata and pre-activation build, and the
-// node-level projection kernel.
+// descriptor), the W2 copy, and the node-level projection kernel; and, for
+// the two edge kernels whose warpgroups each build and consume their own
+// tiles (fused_coord.cu, fused_gcl_bwd.cu), the tile's metadata and
+// pre-activation build.
 //
 // The work list. The dense layers carry (B, N, N) edges, most of them
 // padding: at the GEOM sampler's batches only ~30% of them have
@@ -270,7 +272,7 @@ extern "C" int hd_read_edge_counts(unsigned long long* out) {
 #endif
 
 // ---- the edge kernels' pieces: one block per SM, two warpgroups walking
-// their own 64-edge tiles (see fused_gcl.cu, fused_coord.cu, fused_gcl_bwd.cu)
+// their own 64-edge tiles (see fused_coord.cu, fused_gcl_bwd.cu)
 
 // Phase clocks per warpgroup: thread 0 of each warpgroup adds its cycles.
 #ifdef HD_PHASE_CLOCKS

@@ -13,17 +13,24 @@ or ``.fused_gcl_bwd`` after its own forward's residual, whose signatures every
 tree shares), so every tree keeps its own C entry point and weight layout. The
 trees take turns: change, parent, parent, change.
 
-Shapes: the kernel shape (B=64, N=32, H=256, E=2, counts uniform in [8, 32])
-and the sampler's shape (B=64, GEOM-histogram counts with seed 0, N = their
-maximum), each in all four variants (attention on/off for ``fused_gcl``, tanh
-on/off for ``fused_coord_update``, x f32/bf16 elementwise). Per tree and case:
-device ms per call (CUDA events over ``--reps`` calls queued behind a
-sleeping kernel, ``device_ms``), host us per call (the wall time to enqueue
-them: the wrapper's Python, its allocations and its launches) and the error
-against the tree's own plain version: of what the layer adds to its input
-(out - h, out - x), or the worst over the gradients of the backward (against
-a seeded upstream gradient). Prints one JSON line per shape and variant.
-Needs a CUDA GPU.
+Shapes: the kernel shape (B=64, N=32, H=256, E=2, counts uniform in [8, 32]),
+the sampler's shape (B=64, GEOM-histogram counts with seed 0, N = their
+maximum) and the two sampling cells' shapes (``kernel_phases.cell_inputs``:
+256 GEOM molecules in 35 rows; 64 CrossDocked molecules and a 32-residue
+pocket with cross edges in 67 rows), each in all four variants (attention
+on/off for ``fused_gcl``, tanh on/off for ``fused_coord_update``, x f32/bf16
+elementwise). Per tree and case: device ms per call (CUDA events over
+``--reps`` calls queued behind a sleeping kernel, ``device_ms``), host us per
+call (the wall time to enqueue them: the wrapper's Python, its allocations
+and its launches) and the error against the tree's own plain version: of
+what the layer adds to its input (out - h, out - x), or the worst over the
+gradients of the backward (against a seeded upstream gradient). Each turn
+saves its outputs beside the shared inputs (``fused_gcl``: out and the
+aggregated messages agg; ``fused_coord_update``: out; the backward: its
+gradients), and each case reports whether the change's equal the parent's
+bit for bit (``bitwise_parent``) and each tree's two turns each other's
+(``bitwise_repeat``). Prints one JSON line per shape and variant. Needs a
+CUDA GPU.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -60,17 +68,19 @@ def _layer(kernel: str, flag: bool, compute_dtype):
 
 def make_cases(device: torch.device, kernel: str = "fused_gcl") -> list:
     """Inputs and weights of every shape and variant, on the CPU."""
-    from hierdiff_torch.tools.kernel_phases import layer_inputs, sampler_counts
+    from hierdiff_torch.tools.kernel_phases import (CELLS, cell_inputs, cell_shape, layer_inputs,
+                                                    sampler_counts)
     from hierdiff_torch.utils.weights import init_weights
 
     counts = sampler_counts()
     shapes = {"kernel B=64 N=32": layer_inputs(np.random.default_rng(0), device),
               f"sampler B=64 N={int(counts.max())}": layer_inputs(
                   np.random.default_rng(0), device, n=int(counts.max()), counts=counts)}
+    shapes.update({cell_shape(c): cell_inputs(np.random.default_rng(0), device, c) for c in CELLS})
     cases = []
-    g = torch.from_numpy(np.random.default_rng(1).standard_normal(
-        (64, int(counts.max()), HIDDEN)).astype(np.float32))
     for shape, (h, x, e, cdiff, em, nm, _) in shapes.items():
+        g = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            tuple(h.shape)).astype(np.float32))
         for flag in (True, False):
             for cd in (None, "bfloat16"):
                 layer = init_weights(_layer(kernel, flag, cd), torch.Generator().manual_seed(0))
@@ -78,7 +88,7 @@ def make_cases(device: torch.device, kernel: str = "fused_gcl") -> list:
                               "compute_dtype": cd, "state": layer.state_dict(),
                               **{k: v.cpu() for k, v in (("h", h), ("x", x), ("e", e),
                                                          ("cdiff", cdiff), ("em", em), ("nm", nm))},
-                              "g": g[:, :h.shape[1]].contiguous()})
+                              "g": g})
     return cases
 
 
@@ -108,23 +118,51 @@ def _rel_err(out, ref, base) -> float:
     return ((out - ref).abs().max() / (ref.abs().max() + 1e-9)).item()
 
 
-def time_cases(path: Path, reps: int) -> list:
-    """Run by each tree: its own kernel wrapper on the saved cases."""
+def _outputs(ek, kernel: str, layer, c: dict, call) -> list:
+    """What a case's call leaves, on the CPU: fused_gcl's out and agg (the
+    aggregated messages, which the training forward keeps for the
+    backward), the coordinate update's out, the backward's gradients."""
+    if kernel == "fused_gcl":
+        agg = torch.empty_like(c["h"])
+        out = ek._launch_gcl(layer, c["h"], c["e"], c["em"], c["nm"], c["h"].device, agg_out=agg)
+        return [out.cpu(), agg.cpu()]
+    got = call()
+    return [t.cpu() for t in (got if kernel == "fused_gcl_bwd" else [got]) if t is not None]
+
+
+def time_cases(path: Path, reps: int, save: Optional[Path] = None) -> list:
+    """Run by each tree: its own kernel wrapper on the saved cases; with
+    ``save``, each case's outputs (``_outputs``) are saved there."""
     from hierdiff_torch.ops import egnn_kernels as ek
 
     torch.set_grad_enabled(False)
     device = torch.device("cuda")
-    out = []
+    out, saved = [], []
     for c in torch.load(path):
         kernel = c["kernel"]
         layer = _layer(kernel, c[FLAG[kernel]], c["compute_dtype"]).to(device)
         layer.load_state_dict(c["state"])
-        call, plain, base = _calls(ek, kernel, layer, {
-            k: c[k].to(device) for k in ("h", "x", "e", "cdiff", "em", "nm", "g")})
+        c_dev = {k: c[k].to(device) for k in ("h", "x", "e", "cdiff", "em", "nm", "g")}
+        call, plain, base = _calls(ek, kernel, layer, c_dev)
         rel = _rel_err(call(), plain(), base)
         ms, host_s = device_ms(call, reps)
         out.append({"ms": ms, "host_us": host_s / reps * 1e6, "rel_err": rel})
+        if save is not None:
+            saved.append(_outputs(ek, kernel, layer, c_dev, call))
+    if save is not None:
+        torch.save(saved, save)
     return out
+
+
+def bitwise_equal(a: list, b: list) -> bool:
+    """Whether two cases' saved outputs are equal bit for bit (float32
+    compared by bit pattern, so -0 differs from 0 and a NaN equals only the
+    same NaN)."""
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                        y.view(torch.int32) if y.dtype == torch.float32 else y)
+        for x, y in zip(a, b))
 
 
 # cycles of the sleeping kernel that holds the device while the timed calls
@@ -158,10 +196,11 @@ def device_ms(fn, reps: int = 20, warmup: int = 3):
     return start.elapsed_time(end) / reps, host_s
 
 
-def _run_tree(tree: Path, path: Path, reps: int) -> list:
+def _run_tree(tree: Path, path: Path, reps: int, save: Path) -> list:
     env = {**os.environ, "PYTHONPATH": str(tree)}
     run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--time", str(path),
-                          "--reps", str(reps)], cwd=tree, env=env, capture_output=True, text=True)
+                          "--reps", str(reps), "--save", str(save)], cwd=tree, env=env,
+                         capture_output=True, text=True)
     if run.returncode != 0:
         raise RuntimeError(f"gcl_ab --time failed in {tree}:\n{run.stdout[-2000:]}\n{run.stderr[-2000:]}")
     return json.loads(run.stdout.strip().splitlines()[-1])
@@ -169,15 +208,19 @@ def _run_tree(tree: Path, path: Path, reps: int) -> list:
 
 def compare(parent: Path, reps: int = 20, kernel: str = "fused_gcl") -> list:
     """One dict per shape and variant: each tree's ms and host us per call
-    (the mean of its two turns), the turns and each tree's error."""
+    (the mean of its two turns), the turns, each tree's error, and whether
+    the outputs equal the parent's and repeat, bit for bit."""
     trees = {"change": HERE, "parent": Path(parent).resolve()}
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "cases.pt"
         cases = make_cases(torch.device("cpu"), kernel)
         torch.save(cases, path)
         turns = {"change": [], "parent": []}
-        for name in ("change", "parent", "parent", "change"):
-            turns[name].append(_run_tree(trees[name], path, reps))
+        outputs = {"change": [], "parent": []}
+        for turn, name in enumerate(("change", "parent", "parent", "change")):
+            save = Path(tmp) / f"outputs-{name}-{turn}.pt"
+            turns[name].append(_run_tree(trees[name], path, reps, save))
+            outputs[name].append(torch.load(save))
     rows = []
     for i, c in enumerate(cases):
         row = {"kernel": kernel, "shape": c["shape"], FLAG[kernel]: c[FLAG[kernel]],
@@ -187,6 +230,8 @@ def compare(parent: Path, reps: int = 20, kernel: str = "fused_gcl") -> list:
             row[f"{name}_host_us"] = sum(r[i]["host_us"] for r in runs) / len(runs)
             row[f"{name}_turns_ms"] = [r[i]["ms"] for r in runs]
             row[f"{name}_rel_err"] = max(r[i]["rel_err"] for r in runs)
+        row["bitwise_parent"] = bitwise_equal(outputs["change"][0][i], outputs["parent"][0][i])
+        row["bitwise_repeat"] = all(bitwise_equal(o[0][i], o[1][i]) for o in outputs.values())
         rows.append(row)
     return rows
 
@@ -197,11 +242,12 @@ def main(argv=None) -> None:
     ap.add_argument("--kernel", choices=KERNELS, default="fused_gcl")
     ap.add_argument("--time", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--save", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("gcl_ab: needs a CUDA GPU")
     if args.time is not None:
-        print(json.dumps(time_cases(args.time, args.reps)))
+        print(json.dumps(time_cases(args.time, args.reps, args.save)))
         return
     if args.parent is None:
         ap.error("--parent DIR is required")

@@ -706,3 +706,120 @@ def test_cuda_backward_kernel_matches_plain_vjp():
     ref = ek.gcl_plain_vjp(gcl, *args, g)
     for name, a, r in zip(ek.GclGrads._fields, got, ref):
         assert _rel(a.cpu(), r.cpu()) < PALLAS_REL, name
+
+
+def _pass_through(layer):
+    """Node MLP [h, agg] -> agg -> identity: out - h = silu(agg) per channel,
+    so the edge path is not hidden behind the node MLP's h term."""
+    hidden = layer.node_mlp[2].weight.shape[0]
+    with torch.no_grad():
+        layer.node_mlp[0].weight.copy_(torch.cat([torch.zeros(hidden, hidden), torch.eye(hidden)], 1))
+        layer.node_mlp[2].weight.copy_(torch.eye(hidden))
+        layer.node_mlp[0].bias.zero_()
+        layer.node_mlp[2].bias.zero_()
+    return layer
+
+
+def _ring_check(layer, h, e, em, nm):
+    """fused_gcl against gcl_plain on what it adds to h and on the
+    aggregated messages it leaves for the backward; two calls bitwise equal."""
+    with torch.no_grad():
+        base = h * nm
+        out = ek.fused_gcl(layer, h, e, em, nm)
+        ref = ek.gcl_plain(layer, h, e, em, nm)
+        assert _rel((out - base).cpu(), (ref - base).cpu()) < PALLAS_REL
+        agg = torch.empty_like(h)
+        out2 = ek._launch_gcl(layer, h, e, em, nm, h.device, agg_out=agg)
+        agg_ref = ek.gcl_agg_plain(layer, h, e, em)
+        assert _rel(agg.cpu(), agg_ref.cpu()) < PALLAS_REL
+        assert torch.equal(out, out2)
+        agg2 = torch.empty_like(h)
+        ek._launch_gcl(layer, h, e, em, nm, h.device, agg_out=agg2)
+        assert torch.equal(agg, agg2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("attention", [True, False])
+def test_cuda_gcl_ring_at_the_pocket_shape(attention):
+    """On the card: fused_gcl at the pocket sampling cell's shape (64
+    CrossDocked molecules and a 32-residue pocket with cross edges, 67 rows:
+    rows of more than 64 edges, and so many tiles that each consumer
+    warpgroup of every block goes round the ring several times) against its
+    plain version, and bitwise repeatable."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CUDA kernels have no CPU mode")
+    from hierdiff_torch.tools.kernel_phases import cell_inputs
+
+    dev = torch.device("cuda")
+    h, _, e, _, em, nm, _ = cell_inputs(np.random.default_rng(5), dev, "pocket")
+    per_row = em[..., 0].sum(-1)
+    tiles = int(em.sum().item() + 63) // 64
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert per_row.max().item() > 64 and tiles >= 3 * 2 * 2 * sms
+    layer = _pass_through(tw.init_weights(
+        te.DenseGCL(256, 2, normalization_factor=10.0, attention=attention).to(dev),
+        torch.Generator().manual_seed(0)))
+    _ring_check(layer, h, e, em, nm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["no edge", "one edge", "fewer tiles than SMs"])
+def test_cuda_gcl_ring_small_work_lists(case):
+    """On the card: fused_gcl on work lists that leave stages, consumers or
+    whole blocks without a tile: no real edge (molecules of 0 and 1 nodes),
+    a single real edge, and a batch of fewer 64-edge tiles than SMs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CUDA kernels have no CPU mode")
+    from hierdiff_torch.sampling.coarse import make_masks_for_counts
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    counts = {"no edge": [1, 0, 1, 0], "one edge": [2, 1, 0], "fewer tiles than SMs": [16] * 8}[case]
+    nm, em = make_masks_for_counts(np.array(counts))
+    if case == "one edge":
+        em[0, 1, 0] = 0.0
+    n = nm.shape[1]
+    h = rng.standard_normal((len(counts), n, 256)).astype(np.float32) * nm
+    e = rng.standard_normal((len(counts), n, n, 2)).astype(np.float32)
+    h, e, em, nm = (t.to(dev) for t in _t(h, e, em[..., None], nm))
+    real = int(em.sum().item())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert real == {"no edge": 0, "one edge": 1}.get(case, real) and (real + 63) // 64 < sms
+    for attention in (True, False):
+        layer = _pass_through(tw.init_weights(
+            te.DenseGCL(256, 2, normalization_factor=10.0, attention=attention).to(dev),
+            torch.Generator().manual_seed(0)))
+        _ring_check(layer, h, e, em, nm)
+
+
+@pytest.mark.parametrize("cell, rows, real_edges", [("geom", 35, 58492), ("pocket", 67, 138888)])
+def test_cell_inputs_have_the_sampling_cells_shapes(cell, rows, real_edges):
+    """tools/kernel_phases.cell_inputs, the shapes gcl_ab.py and
+    kernel_phases.py time the kernels at: the sampling cells' node counts
+    (the histogram's stratified quantiles, shuffled), their rows and real
+    edges; the pocket's rows all real, with cross edges both ways."""
+    from hierdiff_torch.tools.kernel_phases import CELLS, cell_inputs, cell_shape, stratified_counts
+
+    name, b, k = CELLS[cell]
+    h, x, e, cdiff, em, nm, counts = cell_inputs(np.random.default_rng(0), "cpu", cell, h=16)
+    assert h.shape == (b, rows, 16) and e.shape == (b, rows, rows, 2) and em.shape == (b, rows, rows, 1)
+    assert cell_shape(cell) == f"{cell} cell B={b} N={rows}"
+    assert int(em.sum().item()) == real_edges
+    assert torch.equal(em, em.transpose(1, 2)) and not em[:, range(rows), range(rows)].any()
+    assert sorted(counts.tolist()) == stratified_counts(name, b).tolist()
+    n_mol = rows - k
+    assert torch.equal(nm[:, :n_mol, 0].sum(1).long(), torch.from_numpy(counts).long())
+    assert bool((nm[:, n_mol:] == 1).all()) and bool((h * (1 - nm) == 0).all())
+    if k:
+        assert torch.equal(em[:, :n_mol, n_mol:, 0], nm[:, :n_mol] * nm[:, None, n_mol:, 0])
+
+
+def test_gcl_ab_bitwise_equal_compares_bit_patterns():
+    """tools/gcl_ab.bitwise_equal: float32 by bit pattern, other types by value."""
+    from hierdiff_torch.tools.gcl_ab import bitwise_equal
+
+    a = torch.tensor([1.0, 0.0, float("nan")])
+    assert bitwise_equal([a, torch.arange(3)], [a.clone(), torch.arange(3)])
+    assert not bitwise_equal([a], [torch.tensor([1.0, -0.0, float("nan")])])
+    assert not bitwise_equal([a], [a.clone(), a])
+    assert not bitwise_equal([a], [a[:2]])
